@@ -1,0 +1,59 @@
+"""Patch extraction / overlap-add folding on NHWC tensors.
+
+Same layout as the JAX package: element ``[b, i, j, p, q, c]`` of the
+patches is ``x_padded[b, i*stride + p, j*stride + q, c]``. Both directions
+are written as ``window²`` strided slices, which is what the plain
+(reference) attention path needs; the CUDA path never builds patches.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def same_pads(size: int, window: int, stride: int) -> tuple[int, int]:
+    """TF-style SAME padding (lo, hi) for one spatial dim: the odd pixel
+    goes on the high side."""
+    out = -(-size // stride)  # ceil
+    total = max((out - 1) * stride + window - size, 0)
+    return total // 2, total - total // 2
+
+
+def extract_patches(x: torch.Tensor, window: int,
+                    stride: int) -> torch.Tensor:
+    """(B, H, W, C) → (B, Ho, Wo, k, k, C) square patches, SAME padded."""
+    b, h, w, c = x.shape
+    ph, pw = same_pads(h, window, stride), same_pads(w, window, stride)
+    xp = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+    ho = (xp.shape[1] - window) // stride + 1
+    wo = (xp.shape[2] - window) // stride + 1
+    parts = [xp[:, p:p + (ho - 1) * stride + 1:stride,
+                q:q + (wo - 1) * stride + 1:stride, :]
+             for p in range(window) for q in range(window)]
+    return torch.stack(parts, dim=3).reshape(b, ho, wo, window, window, c)
+
+
+def fold_patches(patches: torch.Tensor, stride: int,
+                 out_hw: tuple[int, int]):
+    """Overlap-add, the transpose of :func:`extract_patches`.
+
+    Returns the (B, H, W, C) sum and the (H, W, 1) overlap counts.
+    """
+    b, ho, wo, k, k2, c = patches.shape
+    if k != k2:
+        raise ValueError(f"patches must be square, got {k}x{k2}")
+    h, w = out_hw
+    ph, pw = same_pads(h, k, stride), same_pads(w, k, stride)
+    hp, wp = h + ph[0] + ph[1], w + pw[0] + pw[1]
+    out = patches.new_zeros((b, hp, wp, c))
+    cnt = patches.new_zeros((hp, wp, 1))
+    for p in range(k):
+        for q in range(k):
+            rs = slice(p, p + (ho - 1) * stride + 1, stride)
+            cs = slice(q, q + (wo - 1) * stride + 1, stride)
+            out[:, rs, cs, :] += patches[:, :, :, p, q, :]
+            cnt[rs, cs, :] += 1
+    out = out[:, ph[0]:ph[0] + h, pw[0]:pw[0] + w, :]
+    cnt = cnt[ph[0]:ph[0] + h, pw[0]:pw[0] + w, :]
+    return out, cnt
