@@ -14,7 +14,11 @@
 //         rate-downscaled map, so Q/K taps are shifted slices of it
 //   bias  (B, Lk) float — 0 for a valid key, -1e9 for a key touching a hole
 //   rnorm (B, Lk) float — 1 / max(||key patch||, 1e-4)
-// Output: out (B, 4r², Lq, C) T, tap-major, Lq = Lk = hs·ws.
+// Output: out (B, 4r², Lq, C) T, tap-major, Lq = Lk = hs·ws; and, when the
+// caller passes a buffer (training does, serving does not), lse (B, Lq)
+// float: the per-query log-sum-exp of s over the valid keys, the residual
+// the backward kernels (contextual_attention_bwd.cu) rebuild p from. A
+// query with no valid key gets lse = 0, so that exp(s − lse) stays 0 there.
 //
 // One block = one image × a group of G query cells, 256 threads, 3 steps:
 //   1. scores S[G][Lk] (float) in shared memory, as 9 shifted
@@ -56,13 +60,15 @@ constexpr int kWarps = kThreads / 32;
 // Step 2, one warp per query row of S (float scores, rows lk_pad apart):
 // s = S·(rnorm·scale) + bias; p = exp(s − max) on valid keys, 0 on hole
 // keys; p / Σp, or all 0 when no key is valid. Each p, rounded to T, goes
-// to put(row, key, p); rows ≥ nq and keys ≥ L get 0.
+// to put(row, key, p); rows ≥ nq and keys ≥ L get 0. Where lse_rows is not
+// null, row qi's log-sum-exp goes to lse_rows[qi].
 template <typename T, typename Put>
 __device__ __forceinline__ void softmax_rows(float* S, int lk_pad, int rows,
                                              int nq, int L,
                                              const float* bias_b,
                                              const float* rnorm_b,
-                                             float scale, Put put) {
+                                             float scale, float* lse_rows,
+                                             Put put) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int qi = warp; qi < rows; qi += kWarps) {
     float* row = S + qi * lk_pad;
@@ -85,6 +91,8 @@ __device__ __forceinline__ void softmax_rows(float* S, int lk_pad, int rows,
     }
     l = gi::warp_sum(l);
     const float inv = l > 0.f ? 1.f / fmaxf(l, 1e-30f) : 0.f;
+    if (lse_rows != nullptr && lane == 0)
+      lse_rows[qi] = l > 0.f ? m + logf(l) : 0.f;
     for (int k = lane; k < L; k += 32) put(qi, k, gi::round_to<T>(row[k] * inv));
     for (int k = L + lane; k < lk_pad; k += 32) put(qi, k, 0.f);
   }
@@ -98,8 +106,9 @@ __global__ void __launch_bounds__(kThreads)
 fused_attention_core_kernel(const T* __restrict__ maps,
                             const float* __restrict__ bias,
                             const float* __restrict__ rnorm,
-                            T* __restrict__ out, int hs, int ws, int C,
-                            int rate, float scale, int lk_pad) {
+                            T* __restrict__ out, float* __restrict__ lse,
+                            int hs, int ws, int C, int rate, float scale,
+                            int lk_pad) {
   extern __shared__ __align__(16) float smem[];
   float* S = smem;                  // [G][lk_pad] scores, then weights
   float* Qs = smem + G * lk_pad;    // [G][C] one Q tap of the group
@@ -159,6 +168,8 @@ fused_attention_core_kernel(const T* __restrict__ maps,
 
   // ---- 2. softmax, weights written back over the scores ---------------
   softmax_rows<T>(S, lk_pad, G, nq, L, bias_b, rnorm_b, scale,
+                  lse == nullptr ? nullptr
+                                 : lse + static_cast<size_t>(b) * L + q0,
                   [&](int qi, int k, float p) { S[qi * lk_pad + k] = p; });
   __syncthreads();
 
@@ -232,8 +243,9 @@ __global__ void __launch_bounds__(kThreads)
 fused_attention_mma_kernel(const bf16* __restrict__ maps,
                            const float* __restrict__ bias,
                            const float* __restrict__ rnorm,
-                           bf16* __restrict__ out, int hs, int ws, int C,
-                           int rate, float scale, int lb) {
+                           bf16* __restrict__ out, float* __restrict__ lse,
+                           int hs, int ws, int C, int rate, float scale,
+                           int lb) {
   constexpr int G = 8 * QT;
   constexpr int KT = 8 / QT;  // 32-key tiles per step-1 job
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -334,6 +346,12 @@ fused_attention_mma_kernel(const bf16* __restrict__ maps,
     float l = 0.f;
     for (int r = 0; r < cl; ++r) l += cluster.map_shared_rank(row_sum, r)[qi];
     const float inv = l > 0.f ? 1.f / fmaxf(l, 1e-30f) : 0.f;
+    if (lse != nullptr && rank == 0 && lane == 0) {
+      float m = -CUDART_INF_F;
+      for (int r = 0; r < cl; ++r)
+        m = fmaxf(m, cluster.map_shared_rank(row_max, r)[qi]);
+      lse[static_cast<size_t>(b) * L + q0 + qi] = l > 0.f ? m + logf(l) : 0.f;
+    }
     for (int k = lane; k < lb; k += 32)
       P[qi * lb + k] = __float2bfloat16(row[k] * inv);
   }
@@ -403,7 +421,7 @@ fused_attention_mma_kernel(const bf16* __restrict__ maps,
 // ---------------------------------------------------------------------------
 template <typename T, int G>
 int launch_core(const void* maps, const float* bias, const float* rnorm,
-                void* out, int B, int hs, int ws, int C, int rate,
+                void* out, float* lse, int B, int hs, int ws, int C, int rate,
                 float scale, cudaStream_t stream) {
   const int L = hs * ws;
   const int lk_pad = (L + 3) / 4 * 4;
@@ -415,29 +433,29 @@ int launch_core(const void* maps, const float* bias, const float* rnorm,
   if (err != cudaSuccess) return err;
   dim3 grid((L + G - 1) / G, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(maps), bias, rnorm, static_cast<T*>(out), hs, ws,
-      C, rate, scale, lk_pad);
+      static_cast<const T*>(maps), bias, rnorm, static_cast<T*>(out), lse, hs,
+      ws, C, rate, scale, lk_pad);
   return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_core(int group, const void* maps, const float* bias,
-                  const float* rnorm, void* out, int B, int hs, int ws, int C,
-                  int rate, float scale, cudaStream_t s) {
+                  const float* rnorm, void* out, float* lse, int B, int hs,
+                  int ws, int C, int rate, float scale, cudaStream_t s) {
   switch (group) {
-    case 32: return launch_core<T, 32>(maps, bias, rnorm, out, B, hs, ws, C, rate, scale, s);
-    case 16: return launch_core<T, 16>(maps, bias, rnorm, out, B, hs, ws, C, rate, scale, s);
-    case 8: return launch_core<T, 8>(maps, bias, rnorm, out, B, hs, ws, C, rate, scale, s);
-    case 4: return launch_core<T, 4>(maps, bias, rnorm, out, B, hs, ws, C, rate, scale, s);
-    case 2: return launch_core<T, 2>(maps, bias, rnorm, out, B, hs, ws, C, rate, scale, s);
-    case 1: return launch_core<T, 1>(maps, bias, rnorm, out, B, hs, ws, C, rate, scale, s);
+    case 32: return launch_core<T, 32>(maps, bias, rnorm, out, lse, B, hs, ws, C, rate, scale, s);
+    case 16: return launch_core<T, 16>(maps, bias, rnorm, out, lse, B, hs, ws, C, rate, scale, s);
+    case 8: return launch_core<T, 8>(maps, bias, rnorm, out, lse, B, hs, ws, C, rate, scale, s);
+    case 4: return launch_core<T, 4>(maps, bias, rnorm, out, lse, B, hs, ws, C, rate, scale, s);
+    case 2: return launch_core<T, 2>(maps, bias, rnorm, out, lse, B, hs, ws, C, rate, scale, s);
+    case 1: return launch_core<T, 1>(maps, bias, rnorm, out, lse, B, hs, ws, C, rate, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <int QT>
 int launch_mma(const void* maps, const float* bias, const float* rnorm,
-               void* out, int B, int hs, int ws, int C, int rate,
+               void* out, float* lse, int B, int hs, int ws, int C, int rate,
                float scale, int cl, cudaStream_t stream) {
   const int L = hs * ws;
   const int lb = L / cl;
@@ -462,19 +480,20 @@ int launch_mma(const void* maps, const float* bias, const float* rnorm,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(maps), bias,
-                           rnorm, static_cast<bf16*>(out), hs, ws, C, rate,
-                           scale, lb);
+                           rnorm, static_cast<bf16*>(out), lse, hs, ws, C,
+                           rate, scale, lb);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 int dispatch_mma(int group, const void* maps, const float* bias,
-                 const float* rnorm, void* out, int B, int hs, int ws, int C,
-                 int rate, float scale, int cl, cudaStream_t s) {
+                 const float* rnorm, void* out, float* lse, int B, int hs,
+                 int ws, int C, int rate, float scale, int cl,
+                 cudaStream_t s) {
   switch (group) {
-    case 32: return launch_mma<4>(maps, bias, rnorm, out, B, hs, ws, C, rate, scale, cl, s);
-    case 16: return launch_mma<2>(maps, bias, rnorm, out, B, hs, ws, C, rate, scale, cl, s);
-    case 8: return launch_mma<1>(maps, bias, rnorm, out, B, hs, ws, C, rate, scale, cl, s);
+    case 32: return launch_mma<4>(maps, bias, rnorm, out, lse, B, hs, ws, C, rate, scale, cl, s);
+    case 16: return launch_mma<2>(maps, bias, rnorm, out, lse, B, hs, ws, C, rate, scale, cl, s);
+    case 8: return launch_mma<1>(maps, bias, rnorm, out, lse, B, hs, ws, C, rate, scale, cl, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -483,9 +502,10 @@ int dispatch_mma(int group, const void* maps, const float* bias,
 
 // Returns a cudaError_t (0 on success). variant 0 = core, 1 = mma; group
 // = query cells per block (core) or per cluster (mma); cluster = blocks
-// per cluster (mma; 1 for core).
+// per cluster (mma; 1 for core). lse may be null (no log-sum-exp written).
 extern "C" int gi_fused_attention(const void* maps, const float* bias,
-                                  const float* rnorm, void* out, int B,
+                                  const float* rnorm, void* out, float* lse,
+                                  int B,
                                   int hs, int ws, int C, int rate,
                                   float scale, int is_bf16, int variant,
                                   int group, int cluster, void* stream) {
@@ -497,13 +517,13 @@ extern "C" int gi_fused_attention(const void* maps, const float* bias,
     if (!is_bf16 || C % 64 != 0 || ws % 32 != 0 || cluster < 1 ||
         cluster > 8 || L % (256 * cluster) != 0)
       return cudaErrorInvalidValue;
-    return dispatch_mma(group, maps, bias, rnorm, out, B, hs, ws, C, rate,
-                        scale, cluster, s);
+    return dispatch_mma(group, maps, bias, rnorm, out, lse, B, hs, ws, C,
+                        rate, scale, cluster, s);
   }
   if (cluster != 1) return cudaErrorInvalidValue;
   if (is_bf16)
-    return dispatch_core<bf16>(group, maps, bias, rnorm, out, B, hs, ws, C,
-                               rate, scale, s);
-  return dispatch_core<float>(group, maps, bias, rnorm, out, B, hs, ws, C,
-                              rate, scale, s);
+    return dispatch_core<bf16>(group, maps, bias, rnorm, out, lse, B, hs, ws,
+                               C, rate, scale, s);
+  return dispatch_core<float>(group, maps, bias, rnorm, out, lse, B, hs, ws,
+                              C, rate, scale, s);
 }

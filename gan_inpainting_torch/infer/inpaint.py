@@ -89,6 +89,26 @@ class Inpainter:
             cfg = apply_overrides(cfg, list(overrides))
         return cls(cfg, params_from_jax(params), device=device)
 
+    @classmethod
+    def from_checkpoint(cls, cfg: Config, workdir: str | None = None, *,
+                        best: bool = False, step: int | None = None,
+                        device: str | torch.device | None = None,
+                        ) -> "Inpainter":
+        """Serve from a training checkpoint under ``workdir`` (default
+        ``cfg.train.workdir``): the EMA generator when the run tracked one,
+        else the raw parameters. The model is the checkpoint's own saved
+        one; ``cfg`` supplies the serving knobs (``infer``)."""
+        from gan_inpainting_torch.configs.base import config_from_dict
+        from gan_inpainting_torch.io.checkpoint import CheckpointManager
+
+        subdir = "checkpoints_best" if best else "checkpoints"
+        ckpt = CheckpointManager(workdir or cfg.train.workdir, subdir=subdir)
+        saved = config_from_dict(ckpt.restore_config(step))
+        raw = ckpt.restore_raw(step)
+        params = raw["g_ema"] or raw["g_params"]
+        return cls(dataclasses.replace(cfg, model=saved.model), params,
+                   device=device)
+
     # ------------------------------------------------------------------
     def _cfg_for_size(self, size: int) -> Config:
         """Size-dependent formulation: buckets above
@@ -154,14 +174,20 @@ class Inpainter:
 
 
 def inpaint(image, mask, *, inpainter: Inpainter | None = None,
-            npz: str | None = None,
+            npz: str | None = None, cfg: Config | None = None,
+            workdir: str | None = None,
             device: str | torch.device | None = None) -> np.ndarray:
-    """One-shot ``inpaint(image, mask)``: with an :class:`Inpainter`, or
-    loading one from an export ``npz`` on first use. Serving from a
-    training checkpoint arrives with the training slice (ROADMAP)."""
+    """One-shot ``inpaint(image, mask)``: with an :class:`Inpainter`, from
+    an export ``npz``, or from the latest checkpoint of ``cfg``'s (or
+    ``workdir``'s) training run."""
     if inpainter is None:
-        if npz is None:
-            raise ValueError("pass inpainter= or npz=; serving from a "
-                             "training checkpoint is not ported yet (ROADMAP)")
-        inpainter = Inpainter.from_npz(npz, device=device)
+        if npz is not None:
+            inpainter = Inpainter.from_npz(npz, device=device)
+        else:
+            if cfg is None:
+                from gan_inpainting_torch.configs.base import get_config
+
+                cfg = get_config("celeba128_center")
+            inpainter = Inpainter.from_checkpoint(cfg, workdir,
+                                                  device=device)
     return inpainter(image, mask)

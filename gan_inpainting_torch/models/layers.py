@@ -95,3 +95,58 @@ def _resize_valid(valid: torch.Tensor | None, stride: int):
     if valid is None or stride == 1:
         return valid
     return valid[:, ::stride, ::stride, :]
+
+
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x / torch.clamp(torch.linalg.vector_norm(x), min=eps)
+
+
+class SNConv(nn.Module):
+    """Discriminator conv, optionally spectrally normalized (Miyato et
+    al.): one power-iteration step per call, in float32, on the kernel
+    reshaped to (fan_in, Cout) in the JAX package's HWIO order, so the
+    singular vector ``u`` (Cout,) carries over between the packages. ``u``
+    is a buffer — training state that is checkpointed, not a parameter —
+    and moves only when the call passes ``update_stats``. Gradients stop
+    through ``u`` and ``v`` but not through σ = vᵀWu.
+    """
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 5,
+                 stride: int = 2, use_sn: bool = False,
+                 activation: str = "leaky_relu",
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.use_sn = use_sn
+        self.activation = activation
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(
+            torch.empty(features, in_features, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features))
+        if use_sn:
+            self.register_buffer("u", torch.zeros(features))
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        InpaintConv.reset_parameters(self, generator)
+        if self.use_sn:
+            with torch.no_grad():
+                self.u.copy_(torch.randn(self.u.shape, generator=generator))
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False):
+        weight = self.weight
+        if self.use_sn:
+            # (Cout, Cin, kh, kw) → (kh·kw·Cin, Cout)
+            w = weight.float().permute(2, 3, 1, 0).reshape(
+                -1, weight.shape[0])
+            with torch.no_grad():
+                v = _l2_normalize(w @ self.u)
+                u_new = _l2_normalize(w.t() @ v)
+            sigma = torch.dot(v, w @ u_new)
+            if update_stats:
+                self.u = u_new
+            weight = weight / sigma.to(weight.dtype)
+        x = x.to(self.compute_dtype)
+        y = conv2d(x, weight.to(self.compute_dtype), self.bias,
+                   stride=self.stride)
+        return _activation(self.activation)(y)

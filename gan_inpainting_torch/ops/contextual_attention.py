@@ -12,9 +12,11 @@ refinement branch), NHWC.
    overlap counts.
 
 On a CUDA tensor with f is b (the generator's use) the op runs the fused
-attention kernel plus the fold kernel (ops/kernels/). On a CPU tensor it
+attention kernel plus the fold kernel (ops/kernels/); where a gradient is
+wanted it is a ``torch.autograd.Function`` whose backward runs the two
+backward kernels (ops/kernels/fused_attention_bwd.py). On a CPU tensor it
 runs the plain composition below, which materializes the patches and the
-(Lq, Lk) score matrix.
+(Lq, Lk) score matrix and is differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from gan_inpainting_torch.ops.dispatch import use_kernel
+from gan_inpainting_torch.ops.dispatch import section, use_kernel
 from gan_inpainting_torch.ops.patches import extract_patches, fold_patches
 
 NEG_INF = -1e9
@@ -100,6 +102,42 @@ def contextual_attention_plain(f, b, hole_mask, *, ksize: int = 3,
     return y.to(f.dtype)
 
 
+class _FusedAttention(torch.autograd.Function):
+    """Kernel + fold on a CUDA feature map, with the kernel backward. The
+    forward saves (b_feat, hole_mask, o_taps, lse); the hole mask gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, b_feat, hole_mask, ksize, rate, softmax_scale):
+        from gan_inpainting_torch.ops.kernels.fold import fold_taps
+        from gan_inpainting_torch.ops.kernels.fused_attention import (
+            fused_attention_taps,
+        )
+
+        _, h, w, _ = b_feat.shape
+        taps, lse = fused_attention_taps(
+            b_feat, hole_mask, ksize=ksize, rate=rate,
+            softmax_scale=softmax_scale, want_lse=True)
+        ctx.save_for_backward(b_feat, hole_mask, taps, lse)
+        ctx.args = (ksize, rate, softmax_scale)
+        return fold_taps(taps, h // rate, w // rate, rate)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        from gan_inpainting_torch.ops.kernels.fused_attention_bwd import (
+            contextual_attention_bwd,
+        )
+
+        b_feat, hole_mask, taps, lse = ctx.saved_tensors
+        ksize, rate, softmax_scale = ctx.args
+        with section("attention_backward"):
+            db = contextual_attention_bwd(
+                b_feat, hole_mask, taps, lse, g, ksize=ksize, rate=rate,
+                softmax_scale=softmax_scale)
+        return db, None, None, None, None
+
+
 def contextual_attention(f, b, hole_mask, *, ksize: int = 3, rate: int = 2,
                          softmax_scale: float = 10.0) -> torch.Tensor:
     """Contextual attention.
@@ -125,6 +163,10 @@ def contextual_attention(f, b, hole_mask, *, ksize: int = 3, rate: int = 2,
         fused_attention_taps,
     )
 
+    if torch.is_grad_enabled() and b.requires_grad:
+        return _FusedAttention.apply(b.contiguous(), hole_mask, ksize, rate,
+                                     softmax_scale).to(f.dtype)
+    # serving: nothing is saved and no log-sum-exp is written
     _, h, w, _ = b.shape
     taps = fused_attention_taps(b, hole_mask, ksize=ksize, rate=rate,
                                 softmax_scale=softmax_scale)

@@ -9,9 +9,16 @@ launch.
 ``launches`` counts kernel launches per kernel name. Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels.
+
+``section(name)`` marks a named stretch of work (the train step's phases,
+the attention backward). It does nothing unless a measuring tool installs
+a hook with ``set_section_hook``: a function ``name -> context manager``
+that, say, records CUDA events around the stretch.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -46,3 +53,17 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
                 "no CUDA device found; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+_section_hook = None
+
+
+def set_section_hook(hook) -> None:
+    """Install (or with None remove) the hook behind :func:`section`."""
+    global _section_hook
+    _section_hook = hook
+
+
+def section(name: str):
+    return (contextlib.nullcontext() if _section_hook is None
+            else _section_hook(name))

@@ -20,6 +20,12 @@ H100: 2·Lq·Lk·(9 + 16)·C
 operations per image against a few MB of maps and output — bounded by
 operations.
 
+With ``want_lse`` (training) the kernel also writes the per-query
+log-sum-exp of the scores over the valid keys, (B, Lq) float32, 0 for a
+query with no valid key: the residual the backward kernels
+(ops/kernels/fused_attention_bwd.py) rebuild the weights from. Serving
+does not ask for it.
+
 On a CPU tensor the wrapper takes :func:`fused_attention_taps_plain`, an
 independent derivation from the materialized patch formulation
 (ops/contextual_attention.py), not from the parity trick.
@@ -120,8 +126,11 @@ def _prepare(b_feat: torch.Tensor, hole_mask: torch.Tensor, ksize: int,
 
 def fused_attention_taps_plain(b_feat: torch.Tensor, hole_mask: torch.Tensor,
                                *, ksize: int = 3, rate: int = 2,
-                               softmax_scale: float = 10.0) -> torch.Tensor:
-    """The same function from the patch formulation: (B, 4r², Lq, C)."""
+                               softmax_scale: float = 10.0,
+                               want_lse: bool = False):
+    """The same function from the patch formulation: (B, 4r², Lq, C); with
+    ``want_lse`` also the (B, Lq) float32 log-sum-exp of the scaled scores
+    over the valid keys, 0 for a query with no valid key."""
     from gan_inpainting_torch.ops.contextual_attention import (
         _attention_inputs,
         _patch_attention_plain,
@@ -132,15 +141,24 @@ def fused_attention_taps_plain(b_feat: torch.Tensor, hole_mask: torch.Tensor,
     yp = _patch_attention_plain(q, k, valid, v, softmax_scale)
     bsz, lq, _ = yp.shape
     c = b_feat.shape[-1]
-    return yp.reshape(bsz, lq, 4 * rate * rate, c).permute(0, 2, 1, 3) \
+    taps = yp.reshape(bsz, lq, 4 * rate * rate, c).permute(0, 2, 1, 3) \
         .contiguous()
+    if not want_lse:
+        return taps
+    scores = softmax_scale * torch.matmul(q.float(),
+                                          k.float().transpose(1, 2))
+    scores = scores.masked_fill(~valid[:, None, :], float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1)
+    return taps, torch.where(valid.any(-1, keepdim=True), lse, 0.0)
 
 
 def _launch(maps: torch.Tensor, bias: torch.Tensor, rnorm: torch.Tensor,
             hs: int, ws: int, rate: int, scale: float,
-            variant: str | None = None) -> torch.Tensor:
+            variant: str | None = None, want_lse: bool = False):
     """Launch the kernel on prepared inputs; ``variant`` overrides
-    :func:`plan`'s choice (the card's tests run both)."""
+    :func:`plan`'s choice (the card's tests run both). With ``want_lse``
+    the kernel also writes the per-query log-sum-exp and the call returns
+    (taps, lse (B, Lq) float32)."""
     bsz, c = maps.shape[0], maps.shape[-1]
     lk = hs * ws
     if tuple(maps.shape) != (bsz, rate, rate, hs + 2, ws + 2, c):
@@ -165,29 +183,35 @@ def _launch(maps: torch.Tensor, bias: torch.Tensor, rnorm: torch.Tensor,
     variant = variant or chosen
     out = torch.empty((bsz, 4 * rate * rate, lk, c), dtype=maps.dtype,
                       device=maps.device)
+    lse = (torch.empty((bsz, lk), dtype=torch.float32, device=maps.device)
+           if want_lse else None)
     lib = build.library("contextual_attention")
     fn = lib.gi_fused_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.c_float] + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(maps.device).cuda_stream
     with torch.cuda.device(maps.device):
         err = fn(maps.data_ptr(), bias.data_ptr(), rnorm.data_ptr(),
-                 out.data_ptr(), bsz, hs, ws, c, rate, float(scale),
+                 out.data_ptr(), lse.data_ptr() if want_lse else None, bsz,
+                 hs, ws, c, rate, float(scale),
                  int(maps.dtype == torch.bfloat16), _VARIANTS[variant], group,
                  cluster, stream)
     count_launch(KERNEL)
     build.check(lib, err, KERNEL)
-    return out
+    return (out, lse) if want_lse else out
 
 
 def fused_attention_taps(b_feat: torch.Tensor, hole_mask: torch.Tensor, *,
                          ksize: int = 3, rate: int = 2,
-                         softmax_scale: float = 10.0) -> torch.Tensor:
+                         softmax_scale: float = 10.0,
+                         want_lse: bool = False):
     """Contextual attention with queries = keys = ``b_feat`` (B, H, W, C),
     hole mask (B, H, W, 1) → tap-major output patches (B, 4r², Lq, C),
-    Lq = (H/r)·(W/r). Fold them with ops/kernels/fold.py ``fold_taps``."""
+    Lq = (H/r)·(W/r). Fold them with ops/kernels/fold.py ``fold_taps``.
+    ``want_lse`` (training) also returns the (B, Lq) float32 log-sum-exp
+    the backward kernels rebuild the weights from."""
     bsz, h, w, c = b_feat.shape
     if h % rate or w % rate:
         raise ValueError(f"spatial dims {(h, w)} must divide rate={rate}")
@@ -197,7 +221,8 @@ def fused_attention_taps(b_feat: torch.Tensor, hole_mask: torch.Tensor, *,
     if not use_kernel(b_feat):
         return fused_attention_taps_plain(b_feat, hole_mask, ksize=ksize,
                                           rate=rate,
-                                          softmax_scale=softmax_scale)
+                                          softmax_scale=softmax_scale,
+                                          want_lse=want_lse)
     if ksize != 3:
         raise ValueError("the fused kernel builds 3x3 Q/K taps from a "
                          f"one-cell halo; got ksize={ksize}")
@@ -207,4 +232,5 @@ def fused_attention_taps(b_feat: torch.Tensor, hole_mask: torch.Tensor, *,
     if hole_mask.device != b_feat.device:
         raise ValueError("hole_mask and b_feat must be on one device")
     maps, bias, rnorm, (hs, ws) = _prepare(b_feat, hole_mask, ksize, rate)
-    return _launch(maps, bias, rnorm, hs, ws, rate, softmax_scale)
+    return _launch(maps, bias, rnorm, hs, ws, rate, softmax_scale,
+                   want_lse=want_lse)

@@ -29,6 +29,15 @@ def test_port_imports_no_jax():
         from gan_inpainting_torch.configs.base import get_config
         from gan_inpainting_torch.models.generator import build_generator
         from gan_inpainting_torch.ops.kernels import build, fold, fused_attention
+        import importlib, pkgutil
+        for info in pkgutil.walk_packages(gan_inpainting_torch.__path__,
+                                          "gan_inpainting_torch."):
+            if not info.name.endswith("__main__"):
+                importlib.import_module(info.name)
+        assert "gan_inpainting_torch.ops.kernels.fused_attention_bwd" in sys.modules
+        assert "gan_inpainting_torch.train.loop" in sys.modules
+        assert "gan_inpainting_torch.cli" in sys.modules
+        assert "gan_inpainting_torch.tools.profile_train" in sys.modules
         import chip_smoke
         import torch
         gen = build_generator(get_config("serve_v4_8").model, device="cpu")
@@ -68,6 +77,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         build_generator(cfg.model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Inpainter(cfg, {})
+    from gan_inpainting_torch.models.discriminator import build_discriminator
+    from gan_inpainting_torch.train.evaluate import evaluate
+    from gan_inpainting_torch.train.loop import train
+    from gan_inpainting_torch.train.state import create_state
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_discriminator(cfg.model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_state(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate(cfg, {})
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -86,6 +108,36 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     assert taps.shape == (1, 16, 16, 4)
     assert fold_taps(taps, 4, 4, 2).shape == (1, 8, 8, 4)
     assert launches == before
+    # the backward on a CPU tensor is autograd through the plain version
+    xg = x.clone().requires_grad_(True)
+    from gan_inpainting_torch.ops.contextual_attention import (
+        contextual_attention,
+    )
+    contextual_attention(xg, xg, hole).sum().backward()
+    assert xg.grad is not None and launches == before
     assert use_kernel(x) is False
     with pytest.raises(ValueError, match="no implementation"):
         use_kernel(x.to("meta"))
+
+
+def test_cli_lists_configs_and_trains_on_the_cpu(tmp_path):
+    res = _run("""
+        import sys
+        from gan_inpainting_torch.cli import main
+        assert main(["configs"]) == 0
+        rc = main(["train", "--config", "celebahq256_freeform", "--device",
+                   "cpu", "model.use_attention=true",
+                   "model.base_features=8", "model.disc_features=8",
+                   "data.image_size=32", "data.batch_size=2",
+                   "data.eval_batch_size=2", "data.num_eval_batches=1",
+                   "train.steps=2", "train.log_every=1",
+                   "train.workdir=%s"])
+        assert rc == 0
+        assert not [m for m in sys.modules if m.split(".")[0] in
+                    ("jax", "flax", "optax", "gan_inpainting_tpu")]
+    """ % tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert "places512_deepfill" in res.stdout
+    assert "[train] step 2:" in res.stdout
+    assert (tmp_path / "checkpoints" / "step_2.pt").exists()
+    assert (tmp_path / "metrics.jsonl").exists()

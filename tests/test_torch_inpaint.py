@@ -150,6 +150,9 @@ def test_warmup_runs_every_bucket(tiny_inpainter):
     assert tiny_inpainter._forward.cache_info().currsize == 1
 
 
-def test_inpaint_needs_a_model():
-    with pytest.raises(ValueError, match="npz"):
-        inpaint(_image(8, 32), np.zeros((32, 32), np.float32))
+def test_inpaint_needs_a_model(tmp_path):
+    # with neither an Inpainter nor an npz it serves the latest checkpoint
+    # of the run's workdir, and says so when there is none
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        inpaint(_image(8, 32), np.zeros((32, 32), np.float32),
+                workdir=str(tmp_path), device="cpu")
