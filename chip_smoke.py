@@ -13,21 +13,35 @@ Phases (each prints its lines; any failure exits non-zero):
    plain version and one library call computing the same function; and
    the two attention backward kernels and the forward's log-sum-exp at
    the train shapes (256²: B=16, map 64×64×192; 512²: B=8, map
-   128×128×192), with an all-hole sample;
+   128×128×192), with an all-hole sample; and the two gated-conv kernels
+   and the partial-conv epilogue kernel at full-width shapes of their
+   paths, in float32 and bfloat16;
 3. the serve path: the pinned ``tex256_attn`` generator under the
    ``serve_v4_8`` model config, full width, through ``Inpainter`` on the
    card — launch counts, known pixels bit-exact, a float32 card-vs-CPU
    check, the latency of one 1×256² request and img/s at 64×256²
    bfloat16;
 4. the train path: ``places512_deepfill`` at full width (512², batch 8,
-   bfloat16, synthetic textured data) for 6 steps from step 0 through
+   bfloat16, synthetic textured data) for 4 steps from step 0 through
    ``create_state`` / ``make_train_step`` — metrics finite, launch
    counts, parameters moved, the attention branch's gradient, a
    checkpoint round trip, steps/s split by CUDA events; the 256²
    attention config (``celebahq256_freeform`` with attention, batch 16)
    on one fixed batch with ``g_l1`` falling; and one float32 step of a
    small config on the card against the same step on the CPU;
-5. one JSON line of per-kernel numbers, then the result line.
+5. path A, the kernel conv path: the same pinned generator served with
+   ``model.kernel_backend=pallas``, where every gated conv runs a
+   hand-written CUDA kernel with its epilogue fused — launch counts per
+   forward, known pixels bit-exact, float32 against the ``xla`` backend on
+   the card and against the CPU, img/s at 64×256² for ``pallas``, ``xla``
+   and ``auto``;
+6. path B, the partial-conv family: ``partialconv256`` at full width from
+   a seeded initialization, served through ``Inpainter`` and trained for 3
+   steps (16×256², bfloat16, seeded random VGG) with the partial-conv
+   epilogue kernel — launch counts, known pixels bit-exact, float32 card
+   vs CPU, img/s and ms/step for ``pallas`` and ``xla``, and one float32
+   step of a small partial config on the card against the CPU;
+7. one JSON line of per-kernel numbers, then the result line.
 
 Float32 checks turn TF32 off for cuDNN convs and matmuls. Imports nothing
 of JAX. Exits non-zero when no CUDA device is present.
@@ -47,6 +61,7 @@ SERVE_OVERRIDES = ["model.fuse_upsample=true",
                    "infer.size_buckets=256,512",
                    "infer.batch_buckets=1,8,64"]
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, SXM, 700 W
+H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12    # HBM3
 F32_TOL = 1e-3                # kernel vs plain, both float32 (see below)
 BF16_TOL_FRAC = 2.0 ** -7     # of max|input|: weights and outputs in bf16
@@ -54,6 +69,18 @@ BF16_TOL_FRAC = 2.0 ** -7     # of max|input|: weights and outputs in bf16
 # float32 sums of up to L·C products in another order; bf16 p and dsr
 BWD_F32_TOL_FRAC = 2e-4
 BWD_BF16_TOL_FRAC = 2.0 ** -6
+# gated-conv and partial-epilogue kernels against their plain versions, as a
+# fraction of the largest reference entry: float32 sums of up to 1728
+# products in another order; bf16 outputs rounded to bf16
+CONV_F32_TOL_FRAC = 2e-4
+CONV_BF16_TOL_FRAC = 2.0 ** -7
+# served uint8 outputs of the bf16 kernel path against the bf16 library
+# path: hole pixels within this many levels, on at least this fraction
+BF16_SERVE_LEVELS, BF16_SERVE_FRAC = 2, 0.999
+# launches per forward of serve_v4_8 under kernel_backend=pallas: gated
+# convs at stride 1 / stride 2, with the fused decoder (256² buckets) and
+# without it (512²); partial convs per forward of partialconv256
+DIRECT_FUSED, DIRECT_UNFUSED, MATMUL_PER_FWD, PARTIAL_PER_FWD = 29, 33, 6, 16
 TRAIN_512 = ["data.synthetic_family=textured"]
 TRAIN_256 = ["model.use_attention=true", "data.synthetic_family=textured"]
 
@@ -415,6 +442,191 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
     }
 
 
+def check_conv_kernels(torch, rng, smi):
+    """Phase 2, conv kernels: gated_conv_direct, gated_matmul and
+    partial_epilogue against their plain versions at full-width shapes."""
+    import torch.nn.functional as F
+
+    from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.ops.conv import conv2d
+    from gan_inpainting_torch.ops.gated_conv import (
+        gated_conv,
+        gated_conv_plain,
+    )
+    from gan_inpainting_torch.ops.kernels.direct_conv import launch_direct
+    from gan_inpainting_torch.ops.kernels.gated_matmul import (
+        _im2col,
+        launch_matmul,
+        pack_weights,
+        pad_channels,
+        plan,
+    )
+    from gan_inpainting_torch.ops.kernels.partial_epilogue import (
+        partial_conv_epilogue,
+        partial_conv_epilogue_plain,
+    )
+    from gan_inpainting_torch.ops.partial_conv import _window_counts
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    # the dilation-16 convs need cuDNN's per-shape search (see Inpainter)
+    torch.backends.cudnn.benchmark = True
+    dispatch.reset_launches()
+    out = {}
+
+    def gated(name, b, hw, cin, f, k, stride, dil, reps, act="elu"):
+        x32 = torch.from_numpy(rng.standard_normal(
+            (b, hw, hw, cin)).astype(np.float32)).to(dev)
+        w32 = torch.from_numpy((rng.standard_normal((2 * f, cin, k, k))
+                                / np.sqrt(k * k * cin)).astype(
+                                    np.float32)).to(dev)
+        bias = torch.from_numpy(0.5 * rng.standard_normal(2 * f).astype(
+            np.float32)).to(dev)
+        kw = dict(stride=stride, dilation=dil, activation=act)
+        want32 = gated_conv_plain(x32, w32, bias, **kw)
+        got32 = gated_conv(x32, w32, bias, backend="pallas", **kw)
+        ref = max(want32.abs().max().item(), 1.0)
+        err32 = (got32 - want32).abs().max().item()
+        del got32, want32
+        xb, wb = x32.to(bf16), w32.to(bf16)
+        wantb = gated_conv_plain(xb.float(), wb.float(), bias, **kw)
+        gotb = gated_conv(xb, wb, bias, backend="pallas", **kw)
+        errb = (gotb.float() - wantb).abs().max().item()
+        ho = gotb.shape[1]
+        del gotb, wantb, x32, w32
+        torch.cuda.synchronize()
+        _require(err32 <= CONV_F32_TOL_FRAC * ref
+                 and errb <= CONV_BF16_TOL_FRAC * ref,
+                 f"{name}: gated conv kernel disagrees with its plain "
+                 f"version (f32 {err32:.3e}, bf16 {errb:.3e}, max|ref| "
+                 f"{ref:.3e})")
+        # ---- times, bf16 -------------------------------------------------
+        ms = _time_ms(torch, lambda: gated_conv(xb, wb, bias,
+                                                backend="pallas", **kw), reps)
+        plain_ms = _time_ms(torch, lambda: gated_conv_plain(xb, wb, bias,
+                                                            **kw), reps)
+        # library yardstick: the conv with bias alone — it lacks the gate
+        lib_ms = _time_ms(torch, lambda: conv2d(xb, wb, bias, stride=stride,
+                                                dilation=dil), reps)
+        # the bound is the function's: x and the weights read once, the
+        # output written once, 2·M·K·2F operations. What a route moves on
+        # top of that (the im2col below) is reported beside it.
+        m = b * ho * ho
+        k_dim = k * k * cin
+        n_bytes = (xb.numel() + wb.numel() + m * f) * 2 + bias.numel() * 4
+        extra = {}
+        cin_pad, kc, bn, fp = plan(cin, f, bf16)
+        wp = pack_weights(wb, kc, fp, cin_pad)
+        xp = pad_channels(xb, cin_pad)
+        if stride == 1 and k % 2:
+            kernel_ms = _time_ms(torch, lambda: launch_direct(
+                xp, wp, bias, f, k, dil, bn, act), reps)
+        else:
+            cols, _ = _im2col(xp, k, stride, dil)
+            x2d = cols.reshape(m, k * k * cin_pad)
+            kernel_ms = _time_ms(torch, lambda: launch_matmul(
+                x2d, wp, bias, f, bn, act), reps)
+            del cols, x2d
+            # the im2col, written by the host prep and read by the kernel:
+            # traffic of this route, kept out of the bound
+            extra = dict(
+                im2col_bytes=2 * m * k * k * cin_pad * 2,
+                im2col_ms=_time_ms(torch, lambda: _im2col(
+                    xp, k, stride, dil)[0].reshape(m, k * k * cin_pad), reps))
+        bound, by = _bound_ms(n_bytes, 2.0 * m * k_dim * 2 * f,
+                              H100_BF16_FLOPS)
+        tflops = 2.0 * m * k_dim * 2 * f / kernel_ms / 1e9
+        print(f"[2] {name}: max_abs_err f32 {err32:.3e} (tol "
+              f"{CONV_F32_TOL_FRAC * ref:.3e}) bf16 {errb:.3e} (tol "
+              f"{CONV_BF16_TOL_FRAC * ref:.3e}); bf16 ms {ms:.3f} (kernel "
+              f"only {kernel_ms:.3f} = {tflops:.1f} TFLOP/s, Cin padded to "
+              f"{cin_pad}, KC={kc} BN={bn}), plain {plain_ms:.3f}, conv2d+bias "
+              f"alone {lib_ms:.3f}, bound {bound:.4f} by {by}"
+              + "".join(f", {k_} {v:.4g}" for k_, v in extra.items())
+              + f" | {smi}")
+        return dict(ms=ms, kernel_only_ms=kernel_ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                    max_abs_err=errb, max_abs_err_f32=err32,
+                    shape=name, cin_pad=cin_pad, kc=kc, block_n=bn, **extra)
+
+    out["direct_d1"] = gated("gated_conv_direct 192->2x192 3x3 d1 64x64² ",
+                             64, 64, 192, 192, 3, 1, 1, 10)
+    out["direct_d16"] = gated("gated_conv_direct 192->2x192 3x3 d16 64x64²",
+                              64, 64, 192, 192, 3, 1, 16, 10)
+    out["direct_stem"] = gated("gated_conv_direct 4->2x48 5x5 8x256² (stem)",
+                               8, 256, 4, 48, 5, 1, 1, 10)
+    out["matmul_s2"] = gated("gated_matmul 96->2x192 3x3 s2 64x128²->64²",
+                             64, 128, 96, 192, 3, 2, 1, 10)
+    # the other forms of path A: the 32-column blocks (F = 96 and F = 24),
+    # Cin = 48 and 384, the relu epilogue, the first stride-2 conv
+    out["direct_f96"] = gated("gated_conv_direct 96->2x96 3x3 64x128² (BN32)",
+                              64, 128, 96, 96, 3, 1, 1, 5)
+    out["direct_f24"] = gated("gated_conv_direct 48->2x24 3x3 16x256² (BN32)",
+                              16, 256, 48, 24, 3, 1, 1, 5)
+    out["direct_c384"] = gated("gated_conv_direct 384->2x192 3x3 64x64²   ",
+                               64, 64, 384, 192, 3, 1, 1, 5)
+    out["direct_relu"] = gated("gated_conv_direct 192->2x192 3x3 64x64² relu",
+                               64, 64, 192, 192, 3, 1, 1, 5, act="relu")
+    out["matmul_c48"] = gated("gated_matmul 48->2x96 3x3 s2 16x256²->128²",
+                              16, 256, 48, 96, 3, 2, 1, 5)
+
+    def partial(name, b, hw, c, reps):
+        raw32 = torch.from_numpy(rng.standard_normal(
+            (b, hw, hw, c)).astype(np.float32)).to(dev)
+        holes = _stroke_masks(rng, b, hw, hw)
+        holes[0, : hw // 2] = 1.0         # windows with no valid pixel
+        valid = 1.0 - torch.from_numpy(holes[..., None]).to(dev)
+        counts = _window_counts(valid, 3, 1, 1)
+        dead = counts[..., 0] == 0
+        _require(bool(dead.any()) and not bool(dead.all()),
+                 f"{name}: the masks leave no window with count 0")
+        raw32[dead] = 1e30                # finite garbage under count 0
+        bias = torch.from_numpy(rng.standard_normal(c).astype(
+            np.float32)).to(dev)
+        errs = {}
+        for dtype in (torch.float32, bf16):
+            raw = raw32.to(dtype)
+            y, v = partial_conv_epilogue(raw, counts, bias, 3)
+            wy, wv = partial_conv_epilogue_plain(raw.float(), counts, bias, 3)
+            _require(y.dtype == dtype and v.dtype == dtype
+                     and torch.equal(v.float(), wv),
+                     f"{name}: valid_out not exact in {dtype}")
+            _require(bool((y[dead] == 0).all()),
+                     f"{name}: y not exactly 0 where count = 0")
+            errs[dtype] = ((y.float() - wy).abs().max().item(),
+                           max(wy.abs().max().item(), 1.0))
+        (err32, ref), (errb, _) = errs[torch.float32], errs[bf16]
+        _require(err32 <= 1e-6 * ref and errb <= CONV_BF16_TOL_FRAC * ref,
+                 f"{name}: partial epilogue kernel disagrees (f32 "
+                 f"{err32:.3e}, bf16 {errb:.3e}, max|ref| {ref:.3e})")
+        rawb = raw32.to(bf16)
+        del raw32
+        ms = _time_ms(torch, lambda: partial_conv_epilogue(
+            rawb, counts, bias, 3), reps)
+        plain_ms = _time_ms(torch, lambda: partial_conv_epilogue_plain(
+            rawb, counts, bias, 3), reps)
+        m = b * hw * hw
+        bound, by = _bound_ms(2 * m * c * 2 + m * 4 + m * 2 + c * 4,
+                              3.0 * m * c, H100_F32_FLOPS)
+        print(f"[2] {name}: max_abs_err f32 {err32:.3e} (tol "
+              f"{1e-6 * ref:.1e}) bf16 {errb:.3e} (tol "
+              f"{CONV_BF16_TOL_FRAC * ref:.3e}), valid_out exact, y = 0 on "
+              f"{int(dead.sum())} count-0 pixels; bf16 ms {ms:.4f}, plain "
+              f"{plain_ms:.4f}, bound {bound:.4f} by {by} | {smi}")
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                    bound_ms=bound, bound_by=by, max_abs_err=errb,
+                    max_abs_err_f32=err32, shape=name)
+
+    out["partial_c48"] = partial("partial_epilogue C=48 64x256² ", 64, 256,
+                                 48, 20)
+    out["partial_c192"] = partial("partial_epilogue C=192 64x64²", 64, 64,
+                                  192, 20)
+    print(f"[2] conv kernels: launches in these checks and timings (not "
+          f"counted for any path): {dict(dispatch.launches)}")
+    torch.backends.cudnn.benchmark = False
+    return out
+
+
 def _train_setup(torch, name, overrides, device="cuda", n_batches=2):
     from gan_inpainting_torch.configs.base import apply_overrides, get_config
     from gan_inpainting_torch.data.loader import make_dataset
@@ -494,7 +706,7 @@ def train(torch, smi):
           f"params {n_d} r1 γ={cfg.loss.r1_gamma} every "
           f"{cfg.loss.r1_interval} EMA {cfg.train.g_ema_decay}")
     before = snapshot(state)
-    n_steps = 6
+    n_steps = 4
     dispatch.reset_launches()
     history = []
     for i in range(n_steps):
@@ -548,7 +760,7 @@ def train(torch, smi):
                 for i, st in a[part]["state"].items() for k, v in st.items()))
     _require(same, "restored checkpoint differs from the saved state")
     del other
-    ms_512, parts_512 = _timed_steps(torch, step_fn, state, batches, 4)
+    ms_512, parts_512 = _timed_steps(torch, step_fn, state, batches, 3)
     print(f"[4] attention-branch gradient Σ|g| {gsum:.4g}; checkpoint saved "
           f"and restored equal; {cfg.data.batch_size}x512² bf16 "
           f"{ms_512:.1f} ms/step = {1e3 / ms_512:.3f} steps/s (steps "
@@ -717,7 +929,330 @@ def serve(torch, rng, smi):
     print(f"[3] serve 64x256² bf16: {64 / dt:.1f} img/s through "
           f"inpaint_batch (host uint8 in/out), device forward "
           f"{fwd_ms:.2f} ms = {64e3 / fwd_ms:.1f} img/s | {smi}")
-    return at_256, at_512
+    return at_256, at_512, (*data["1x256"], b)
+
+
+def _known_exact(out, imgs, masks, what):
+    keep = np.broadcast_to(masks[..., None] == 0, imgs.shape)
+    _require(out.shape == imgs.shape and out.dtype == np.uint8,
+             f"{what}: output {out.shape} {out.dtype}")
+    _require(np.array_equal(out[keep], imgs[keep]),
+             f"{what}: known pixels changed")
+    _require((out[~keep] != imgs[~keep]).any(), f"{what}: holes not filled")
+
+
+def _within_one(a, b):
+    diff = np.abs(a.astype(int) - b.astype(int))
+    return float((diff <= 1).mean()), int(diff.max())
+
+
+def _serve_rates(torch, inpainters, imgs, masks, reps=3):
+    """img/s of each Inpainter at one batch: through ``inpaint_batch`` and
+    of the device forward alone; taken in turns, A B C C B A. Each entry
+    also holds the uint8 ``output`` of the batch."""
+    dev_img = torch.from_numpy(imgs).cuda()
+    dev_msk = torch.from_numpy(masks[..., None]).cuda()
+    n = imgs.shape[0]
+    api = {k: [] for k in inpainters}
+    fwd = {k: [] for k in inpainters}
+    # first use of the bucket
+    outputs = {k: inp.inpaint_batch(imgs, masks)
+               for k, inp in inpainters.items()}
+    order = list(inpainters) + list(inpainters)[::-1]
+    for k in order:
+        inp = inpainters[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            inp.inpaint_batch(imgs, masks)
+        torch.cuda.synchronize()
+        api[k].append((time.perf_counter() - t0) / reps)
+        f = inp._forward(inp._cfg_for_size(imgs.shape[1]).model.fuse_upsample)
+        fwd[k].append(_time_ms(torch, lambda: f(dev_img, dev_msk), reps))
+    return {k: dict(api_img_s=n / float(np.mean(api[k])),
+                    fwd_ms=float(np.mean(fwd[k])),
+                    fwd_img_s=n * 1e3 / float(np.mean(fwd[k])),
+                    output=outputs[k])
+            for k in inpainters}
+
+
+def _hole_agreement(a, b, masks):
+    """Of the hole pixels of two uint8 batches: the fractions that differ
+    by at most 1, 2, 4 and 8 levels, and the largest difference."""
+    hole = np.broadcast_to(masks[..., None] > 0, a.shape)
+    diff = np.abs(a.astype(int) - b.astype(int))[hole]
+    return {f"within_{t}": float((diff <= t).mean()) for t in (1, 2, 4, 8)
+            } | {"max": int(diff.max())}
+
+
+def serve_kernel_backend(torch, rng, smi, img1, msk1, cpu_f32):
+    """Phase 5, path A: serve_v4_8 with model.kernel_backend=pallas."""
+    from gan_inpainting_torch.infer.inpaint import Inpainter
+    from gan_inpainting_torch.models.layers import InpaintConv
+    from gan_inpainting_torch.ops import dispatch
+
+    def load(backend, extra=()):
+        return Inpainter.from_npz(NPZ, overrides=SERVE_OVERRIDES + [
+            f"model.kernel_backend={backend}", *extra], device="cuda")
+
+    inp = load("pallas")
+    # what the module tree says should reach the kernels
+    for fuse, want_direct in ((True, DIRECT_FUSED), (False, DIRECT_UNFUSED)):
+        convs = [m for m in inp._forward(fuse).generator.modules()
+                 if isinstance(m, InpaintConv) and m.conv_kind == "gated"
+                 and not (m.pre_upsample or m.s2d)]
+        _require(all(m.backend == "pallas" for m in convs)
+                 and sum(m.stride == 1 for m in convs) == want_direct
+                 and sum(m.stride != 1 for m in convs) == MATMUL_PER_FWD,
+                 f"serve_v4_8 (fuse_upsample={fuse}) does not hold "
+                 f"{want_direct} + {MATMUL_PER_FWD} kernel-routed gated convs")
+    reqs = {"1x256": (1, 256, 256), "8x256": (8, 256, 256),
+            "1x512": (1, 512, 512)}
+    per_request = {}
+    total = {}
+    t0 = time.perf_counter()
+    dispatch.reset_launches()
+    for name, shape in reqs.items():
+        before = dict(dispatch.launches)
+        imgs, masks = _smooth_images(rng, *shape), _stroke_masks(rng, *shape)
+        _known_exact(inp.inpaint_batch(imgs, masks), imgs, masks,
+                     f"path A {name}")
+        per_request[name] = {k: v - before.get(k, 0)
+                             for k, v in dispatch.launches.items()
+                             if v - before.get(k, 0)}
+    torch.cuda.synchronize()
+    total = dict(dispatch.launches)
+    for name, got in per_request.items():
+        want = {"gated_conv_direct": DIRECT_UNFUSED if name == "1x512"
+                else DIRECT_FUSED, "gated_matmul": MATMUL_PER_FWD,
+                "contextual_attention_fused": 1, "fold_taps": 1}
+        _require(got == want, f"path A {name}: launches {got}, expected "
+                 f"{want}")
+    print(f"[5] path A: serve_v4_8 kernel_backend=pallas served 1x256², "
+          f"8x256², 1x512² in {time.perf_counter() - t0:.2f} s; known pixels "
+          f"bit-exact; launches per forward {per_request}")
+
+    # ---- float32: pallas on the card vs xla on the card vs the CPU -------
+    f32 = ["model.dtype_policy=f32"]
+    dispatch.reset_launches()
+    a = load("pallas", f32).inpaint_batch(img1, msk1)
+    _require(dispatch.launches.get("gated_conv_direct", 0) == DIRECT_FUSED,
+             "float32 pallas forward did not launch the gated-conv kernel")
+    b = load("xla", f32).inpaint_batch(img1, msk1)
+    frac_x, max_x = _within_one(a, b)
+    frac_c, max_c = _within_one(a, cpu_f32)
+    print(f"[5] f32 pallas on the card (TF32 off): within ±1 of xla on the "
+          f"card on {frac_x:.6f} of pixels (max diff {max_x}), of the CPU on "
+          f"{frac_c:.6f} (max diff {max_c})")
+    _require(frac_x >= 0.999 and frac_c >= 0.999,
+             "f32 pallas output disagrees with xla or the CPU")
+
+    # ---- throughput, 64×256² bf16, the three backend values --------------
+    imgs = _smooth_images(rng, 64, 256, 256)
+    masks = _stroke_masks(rng, 64, 256, 256)
+    rates = _serve_rates(torch, {"pallas": inp, "xla": load("xla"),
+                                 "auto": load("auto")}, imgs, masks)
+    # the timed configuration itself: bf16 through every kernel variant and
+    # block width of the 35 layers (WMMA, BN 32 and 64, elu and relu)
+    # against the library composition on the same 64 images. bf16 rounding
+    # through 35 layers moves single levels, a wrong tile moves many.
+    outs = {k: r.pop("output") for k, r in rates.items()}
+    _known_exact(outs["pallas"], imgs, masks, "path A 64x256² bf16")
+    agree = _hole_agreement(outs["pallas"], outs["xla"], masks)
+    print(f"[5] bf16 64x256² pallas vs xla on the card, hole pixels: {agree} "
+          f"(tol: within ±{BF16_SERVE_LEVELS} on >= {BF16_SERVE_FRAC})")
+    _require(agree[f"within_{BF16_SERVE_LEVELS}"] >= BF16_SERVE_FRAC,
+             "path A: the bf16 kernel path disagrees with the library path")
+    print("[5] serve 64x256² bf16, device forward ms / img/s (through "
+          "inpaint_batch img/s): " + "; ".join(
+              f"{k} {r['fwd_ms']:.2f} / {r['fwd_img_s']:.1f} "
+              f"({r['api_img_s']:.1f})" for k, r in rates.items())
+          + f" | {smi}")
+    return total, rates
+
+
+def _autograd_nodes(root, needle: str) -> int:
+    """Nodes of the autograd graph under ``root`` whose name holds
+    ``needle``."""
+    seen, stack, hits = set(), [root], 0
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        hits += needle in type(node).__name__
+        stack.extend(fn for fn, _ in node.next_functions)
+    return hits
+
+
+def partial_family(torch, rng, smi):
+    """Phase 6, path B: partialconv256 served and trained on the card."""
+    from gan_inpainting_torch.configs.base import apply_overrides, get_config
+    from gan_inpainting_torch.infer.inpaint import Inpainter
+    from gan_inpainting_torch.models.generator import build_generator
+    from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.tools.profile_train import time_steps
+    from gan_inpainting_torch.train.step import composite
+
+    name = "partial_epilogue"
+    buckets = ["infer.size_buckets=256", "infer.batch_buckets=1,8,64"]
+
+    def cfg_for(backend, extra=()):
+        return apply_overrides(get_config("partialconv256"), buckets + [
+            f"model.kernel_backend={backend}", *extra])
+
+    cfg = cfg_for("pallas")
+    gen = build_generator(cfg.model, device="cuda", seed=0)
+    state_dict = gen.state_dict()
+    m = cfg.model
+    print(f"[6] path B: {cfg.name} {m.generator}/{m.conv_kind} width "
+          f"{m.base_features} dtype={m.dtype_policy} params "
+          f"{sum(p.numel() for p in gen.parameters())}, seeded "
+          f"initialization (the repo holds no trained partial-conv weights)")
+    del gen
+    inp = Inpainter(cfg, state_dict, device="cuda")
+    shapes = {"1x256": (1, 256, 256), "8x256": (8, 256, 256),
+              "64x256": (64, 256, 256)}
+    data = {k: (_smooth_images(rng, *sh), _stroke_masks(rng, *sh))
+            for k, sh in shapes.items()}
+    per_request = {}
+    t0 = time.perf_counter()
+    dispatch.reset_launches()
+    for k, (imgs, masks) in data.items():
+        before = dispatch.launches.get(name, 0)
+        _known_exact(inp.inpaint_batch(imgs, masks), imgs, masks,
+                     f"path B {k}")
+        per_request[k] = dispatch.launches.get(name, 0) - before
+    torch.cuda.synchronize()
+    serve_launches = dict(dispatch.launches)
+    _require(all(v == PARTIAL_PER_FWD for v in per_request.values())
+             and not serve_launches.get("gated_conv_direct", 0),
+             f"path B: partial epilogue launches per forward {per_request}, "
+             f"expected {PARTIAL_PER_FWD}")
+    print(f"[6] served 1x256², 8x256², 64x256² in "
+          f"{time.perf_counter() - t0:.2f} s; known pixels bit-exact; "
+          f"{name} launches per forward {per_request}")
+
+    # ---- float32 on the card (kernel) vs the CPU (plain), TF32 off -------
+    f32 = ["model.dtype_policy=f32"]
+    img1, msk1 = data["1x256"]
+    a = Inpainter(cfg_for("pallas", f32), state_dict,
+                  device="cuda").inpaint_batch(img1, msk1)
+    b = Inpainter(cfg_for("pallas", f32), state_dict,
+                  device="cpu").inpaint_batch(img1, msk1)
+    frac, worst = _within_one(a, b)
+    print(f"[6] f32 cuda vs cpu (TF32 off): within ±1 on {frac:.6f} of "
+          f"pixels, max diff {worst}")
+    _require(frac >= 0.999, "path B f32 card output disagrees with the CPU")
+
+    rates = _serve_rates(torch, {
+        "pallas": inp, "xla": Inpainter(cfg_for("xla"), state_dict,
+                                        device="cuda")}, *data["64x256"])
+    outs = {k: r.pop("output") for k, r in rates.items()}
+    agree = _hole_agreement(outs["pallas"], outs["xla"], data["64x256"][1])
+    print(f"[6] bf16 64x256² pallas vs xla on the card, hole pixels: {agree} "
+          f"(tol: within ±{BF16_SERVE_LEVELS} on >= {BF16_SERVE_FRAC})")
+    _require(agree[f"within_{BF16_SERVE_LEVELS}"] >= BF16_SERVE_FRAC,
+             "path B: the bf16 kernel path disagrees with the library path")
+    print("[6] serve 64x256² bf16, device forward ms / img/s (through "
+          "inpaint_batch img/s): " + "; ".join(
+              f"{k} {r['fwd_ms']:.2f} / {r['fwd_img_s']:.1f} "
+              f"({r['api_img_s']:.1f})" for k, r in rates.items())
+          + f" | {smi}")
+    del inp
+    torch.cuda.empty_cache()
+
+    # ---- 3 train steps, 16×256² bf16, synthetic data, seeded random VGG --
+    over = ["data.synthetic_family=textured"]
+    cfg, state, step_fn, batches = _train_setup(
+        torch, "partialconv256", over + ["model.kernel_backend=pallas"])
+    before = [p.detach().clone() for p in state.generator.parameters()]
+    n_steps = 3
+    dispatch.reset_launches()
+    history = [{k: float(v) for k, v in step_fn(state, batches[i % 2]).items()}
+               for i in range(n_steps)]
+    torch.cuda.synchronize()
+    train_launches = dict(dispatch.launches)
+    for i, h in enumerate(history):
+        _require(all(np.isfinite(v) for v in h.values()),
+                 f"path B step {i} metrics not finite: {h}")
+        _require(h["g_perceptual"] > 0 and h["g_style"] > 0,
+                 f"path B step {i}: VGG losses are zero: {h}")
+    # two generator forwards per step (detached for D, then with gradient)
+    _require(train_launches.get(name, 0) == 2 * PARTIAL_PER_FWD * n_steps,
+             f"path B train: {train_launches.get(name, 0)} launches of {name} "
+             f"in {n_steps} steps, expected {2 * PARTIAL_PER_FWD} per step")
+    moved = sum((a - b.detach()).abs().sum().item()
+                for a, b in zip(before, state.generator.parameters()))
+    _require(moved > 0, "path B: generator parameters did not move")
+    # the backward goes through the kernel's autograd Function, layer by
+    # layer, down to the first conv's weight
+    b0 = batches[0]
+    out = state.generator(b0.masked, b0.mask)
+    nodes = _autograd_nodes(out.fine.grad_fn, "_PartialEpilogue")
+    loss = (composite(out.fine, b0.image, b0.mask) - b0.image).abs().mean()
+    g0 = torch.autograd.grad(loss, state.generator.body.conv0.weight)[0]
+    _require(nodes == PARTIAL_PER_FWD and bool(torch.isfinite(g0).all())
+             and g0.abs().max().item() > 0,
+             f"path B: {nodes} _PartialEpilogue backward nodes (expected "
+             f"{PARTIAL_PER_FWD}) or no gradient at the first conv")
+    del out, loss
+    _, state_x, step_x, _ = _train_setup(
+        torch, "partialconv256", over + ["model.kernel_backend=xla"])
+    for i in range(2):
+        step_x(state_x, batches[i])
+    # taken in turns, A B B A: the step is partly host-bound, and the host
+    # drifts between one stretch of steps and the next
+    runs = {"pallas": (step_fn, state), "xla": (step_x, state_x)}
+    taken = {k: [] for k in runs}
+    for k in ("pallas", "xla", "xla", "pallas"):
+        taken[k].append(time_steps(*runs[k], batches, 4))
+    ms = {k: float(np.mean(v)) for k, v in taken.items()}
+    del state, step_fn, runs
+    print(f"[6] train {cfg.name} {cfg.data.batch_size}x256² bf16, random VGG "
+          f"(seed 7): step 0 {history[0]}; step {n_steps - 1} {history[-1]}; "
+          f"launches {train_launches}; {nodes} _PartialEpilogue backward "
+          f"nodes; |Δ| G {moved:.4g}; ms/step pallas {ms['pallas']:.1f} "
+          f"{taken['pallas']}, xla {ms['xla']:.1f} {taken['xla']}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB | {smi}")
+    del state_x, step_x, batches
+    torch.cuda.empty_cache()
+
+    # ---- one float32 step, small size: card (kernel) vs CPU (plain) ------
+    small = over + ["model.kernel_backend=pallas", "model.dtype_policy=f32",
+                    "model.base_features=16", "model.disc_features=16",
+                    "data.image_size=64", "data.batch_size=2"]
+    _, s_cpu, f_cpu, b_cpu = _train_setup(torch, "partialconv256", small,
+                                          device="cpu", n_batches=1)
+    _, s_gpu, f_gpu, _ = _train_setup(torch, "partialconv256", small,
+                                      n_batches=1)
+    b_gpu = type(b_cpu[0])(*(t.cuda() for t in b_cpu[0]))
+    dispatch.reset_launches()
+    m_cpu = {k: float(v) for k, v in f_cpu(s_cpu, b_cpu[0]).items()}
+    m_gpu = {k: float(v) for k, v in f_gpu(s_gpu, b_gpu).items()}
+    _require(dispatch.launches.get(name, 0) == 2 * PARTIAL_PER_FWD,
+             "path B f32 step: the CPU state launched a kernel, or the card "
+             "did not")
+    rel = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-3)
+              for k in m_cpu)
+    gaps = torch.cat([
+        (pg.detach().cpu() - pc.detach()).abs().flatten()
+        for net in ("generator", "discriminator")
+        for pg, pc in zip(getattr(s_gpu, net).parameters(),
+                          getattr(s_cpu, net).parameters())])
+    within = float((gaps <= 1e-4).float().mean())
+    # the first Adam step moves every entry by ±lr (1e-4 for G, 4e-4 for
+    # D); the VGG trunk runs in bfloat16 on both devices, so where a
+    # gradient is near 0 its sign can differ and the entry lands 2·lr apart
+    # (about 0.08 % of the entries in three runs; the limit leaves room)
+    print(f"[6] f32 partial step cuda vs cpu (TF32 off, 2x64², width 16, "
+          f"bf16 VGG): metrics max rel diff {rel:.3e} (tol 1e-3); parameters "
+          f"within 1e-4 on {within:.6f} of entries (tol 0.995), max abs diff "
+          f"{gaps.max().item():.3e} (tol 8.1e-4 = 2·lr of D)")
+    _require(rel <= 1e-3 and within >= 0.995 and gaps.max().item() <= 8.1e-4,
+             "f32 partial train step on the card disagrees with the CPU")
+    return dict(serve_launches=serve_launches, train_launches=train_launches,
+                rates=rates, train_ms=ms)
 
 
 def main() -> int:
@@ -756,10 +1291,16 @@ def main() -> int:
                             192, rng, smi)
     bwd512 = check_backward(torch, "512² train (B=8, 128x128x192)", 8, 128,
                             192, rng, smi)
+    conv = check_conv_kernels(torch, rng, smi)
     torch.cuda.empty_cache()
-    at_256, at_512 = serve(torch, rng, smi)
+    at_256, at_512, (img1, msk1, cpu_f32) = serve(torch, rng, smi)
     torch.cuda.empty_cache()
     tr = train(torch, smi)
+    torch.cuda.empty_cache()
+    path_a, rates_a = serve_kernel_backend(torch, rng, smi, img1, msk1,
+                                           cpu_f32)
+    torch.cuda.empty_cache()
+    path_b = partial_family(torch, rng, smi)
 
     def row(name, kernel, res, launches, source, replaces, **extra):
         return dict(name=name, route="cuda", source=source,
@@ -770,6 +1311,7 @@ def main() -> int:
     fold_src = "gan_inpainting_torch/csrc/fold.cu"
     tpu_fa = "gan_inpainting_tpu/ops/pallas/fused_attention.py"
     bwd_src = "gan_inpainting_torch/csrc/contextual_attention_bwd.cu"
+    conv_src = "gan_inpainting_torch/csrc/gated_conv.cu"
     tpu_bwd = "gan_inpainting_tpu/ops/pallas/fused_attention_bwd.py"
     l256, l512 = tr["launches_256"], tr["launches_512"]
     kernels = [
@@ -795,11 +1337,32 @@ def main() -> int:
             l256["contextual_attention_bwd_dkv"], bwd_src, f"{tpu_bwd}:223"),
         row("contextual_attention_bwd_dkv@512train", "dkv", bwd512,
             l512["contextual_attention_bwd_dkv"], bwd_src, f"{tpu_bwd}:223"),
+        # launches: path A's three requests (two forwards with the fused
+        # decoder, one without) and path B's three
+        row("gated_conv_direct@192x2x192_3x3_64x64²", "direct_d1", conv,
+            path_a["gated_conv_direct"], conv_src,
+            "gan_inpainting_tpu/ops/pallas/direct_conv.py:48",
+            also={k: conv[k] for k in (
+                "direct_d16", "direct_stem", "direct_f96", "direct_f24",
+                "direct_c384", "direct_relu")}),
+        row("gated_matmul@96x2x192_3x3_s2_64x128²", "matmul_s2", conv,
+            path_a["gated_matmul"], conv_src,
+            "gan_inpainting_tpu/ops/pallas/fused_matmul.py:76",
+            also={"matmul_c48": conv["matmul_c48"]}),
+        row("partial_epilogue@C48_64x256²", "partial_c48", conv,
+            path_b["serve_launches"]["partial_epilogue"],
+            "gan_inpainting_torch/csrc/partial_epilogue.cu",
+            "gan_inpainting_tpu/ops/pallas/fused_matmul.py:207",
+            launches_train=path_b["train_launches"]["partial_epilogue"],
+            also={"partial_c192": conv["partial_c192"]}),
     ]
     print(json.dumps({"kernels": kernels, "card": smi, "train": {
         "places512_deepfill_8x512_ms_per_step": tr["ms_512"],
         "celebahq256_attention_16x256_ms_per_step": tr["ms_256"],
-        "phases_ms_512": tr["parts_512"], "phases_ms_256": tr["parts_256"]}}))
+        "phases_ms_512": tr["parts_512"], "phases_ms_256": tr["parts_256"],
+        "partialconv256_16x256_ms_per_step": path_b["train_ms"]},
+        "serve_64x256": {"serve_v4_8": rates_a,
+                         "partialconv256": path_b["rates"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -74,12 +74,16 @@ class ModelConfig:
     disc_layers: int = 4
     spectral_norm: bool = False
     dtype_policy: str = "bf16"    # bf16 | f32
-    # the JAX package's backend switch; the port picks by tensor device
+    # auto | xla | pallas, the JAX package's values: "pallas" = the port's
+    # hand-written CUDA kernels, "xla" = the library composition (cuDNN +
+    # eager elementwise), "auto" = per op (ops/dispatch.py AUTO_CUDA)
     kernel_backend: str = "auto"
     # decoder upsample+conv blocks evaluated as low-res parity convs
     # (ops/upsample_conv.py): same math and parameters
     fuse_upsample: bool = False
-    s2d_stem: bool = False        # not ported (ROADMAP)
+    # 5x5 stem convs evaluated in the space-to-depth cell domain
+    # (ops/s2d_conv.py): same math and parameters
+    s2d_stem: bool = False
     bf16_head: bool = False
     remat_stages: bool = False    # differentiation-only; ignored here
     tp_shard: bool = False        # one card; ignored here

@@ -6,7 +6,11 @@ stays one conv with 2F outputs, so the feature/gate split (first half
 features, second half gate) keeps its channel order. The discriminator's
 spectral vectors (flax collection ``spectral``, ``conv{i}/u``) become the
 ``conv{i}.u`` buffers, and ``optax.adam``'s ``mu``/``nu``/``count`` become
-the ``exp_avg``/``exp_avg_sq``/``step`` of ``torch.optim.Adam``.
+the ``exp_avg``/``exp_avg_sq``/``step`` of ``torch.optim.Adam``. The same
+mapping carries a partial-conv ``DilatedGenerator`` tree (its layers own a
+plain (k, k, Cin, Cout) kernel) and the VGG16 feature extractor's
+``conv{block}_{i}/{kernel,bias}`` (losses/perceptual.py), in memory or from
+the converted ``.npz`` the JAX package reads.
 """
 
 from __future__ import annotations
@@ -49,6 +53,27 @@ def params_from_jax(params) -> dict[str, torch.Tensor]:
             np.ascontiguousarray(arr))
     return state
 
+
+def vgg_state_from_npz(path: str, like: Mapping) -> dict[str, torch.Tensor]:
+    """The converted VGG16 ``.npz`` (flat keys ``conv{block}_{i}/kernel``
+    HWIO and ``…/bias``) → a ``state_dict`` with the keys and shapes of
+    ``like``. Extra layers in the file (blocks 4 and 5) are ignored; a
+    missing or misshapen one raises."""
+    with np.load(path) as data:
+        names = sorted({k.rsplit(".", 1)[0] for k in like})
+        missing = [f"{n}/{leaf}" for n in names for leaf in ("kernel", "bias")
+                   if f"{n}/{leaf}" not in data]
+        if missing:
+            raise KeyError(f"{path} is missing {missing}: not a converted "
+                           "VGG16 weights file")
+        state = params_from_jax({f"{n}/{leaf}": data[f"{n}/{leaf}"]
+                                 for n in names
+                                 for leaf in ("kernel", "bias")})
+    for k, v in state.items():
+        if v.shape != like[k].shape:
+            raise ValueError(f"{path}: {k} has shape {tuple(v.shape)}, want "
+                             f"{tuple(like[k].shape)}")
+    return state
 
 
 def _merge(a, b) -> dict:

@@ -45,7 +45,8 @@ class _Stack(nn.Module):
 
     def __init__(self, specs: Sequence[dict], in_features: int,
                  conv_kind: str, compute_dtype: torch.dtype,
-                 fuse_upsample: bool = False, s2d_stem: bool = False):
+                 fuse_upsample: bool = False, s2d_stem: bool = False,
+                 backend: str = "auto"):
         super().__init__()
         self.upsample: list[bool] = []
         self.explicit_upsample: list[bool] = []
@@ -53,14 +54,16 @@ class _Stack(nn.Module):
         for i, spec in enumerate(specs):
             spec = dict(spec)
             kind = spec.pop("conv_kind", conv_kind)
-            s2d = (s2d_stem and spec.get("kernel_size") == 5
+            rewritable = kind in ("plain", "gated")
+            s2d = (s2d_stem and rewritable and spec.get("kernel_size") == 5
                    and spec.get("stride", 1) == 1
                    and spec.get("dilation", 1) == 1
                    and not spec.get("upsample", False))
             up = spec.pop("upsample", False)
-            # 3x3 stride-1 undilated decoder blocks fuse the upsample into
-            # a low-res parity conv; others upsample explicitly
-            fuse = (up and fuse_upsample
+            # 3x3 stride-1 undilated plain/gated decoder blocks fuse the
+            # upsample into a low-res parity conv; others (partial convs
+            # among them) upsample explicitly
+            fuse = (up and fuse_upsample and rewritable
                     and spec.get("kernel_size", 3) == 3
                     and spec.get("stride", 1) == 1
                     and spec.get("dilation", 1) == 1)
@@ -68,7 +71,7 @@ class _Stack(nn.Module):
             self.explicit_upsample.append(up and not fuse)
             self.add_module(f"conv{i}", InpaintConv(
                 cin, conv_kind=kind, compute_dtype=compute_dtype,
-                pre_upsample=fuse, s2d=s2d, **spec))
+                pre_upsample=fuse, s2d=s2d, backend=backend, **spec))
             cin = spec["features"]
 
     def forward(self, x, valid=None):
@@ -120,13 +123,13 @@ class DilatedGenerator(nn.Module):
     def __init__(self, base_features: int = 48, conv_kind: str = "plain",
                  compute_dtype: torch.dtype = torch.bfloat16,
                  fuse_upsample: bool = False, s2d_stem: bool = False,
-                 bf16_head: bool = False):
+                 bf16_head: bool = False, backend: str = "auto"):
         super().__init__()
         f = base_features
         self.bf16_head = bf16_head
         self.body = _Stack(
             _encoder_specs(f) + _dilation_specs(f) + _decoder_specs(f), 4,
-            conv_kind, compute_dtype, fuse_upsample, s2d_stem)
+            conv_kind, compute_dtype, fuse_upsample, s2d_stem, backend)
 
     def forward(self, masked, mask) -> GeneratorOutput:
         x = torch.cat([masked, mask.to(masked.dtype)], -1)
@@ -142,9 +145,10 @@ class CoarseToFineGenerator(nn.Module):
                  attention_ksize: int = 3, softmax_scale: float = 10.0,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  fuse_upsample: bool = False, s2d_stem: bool = False,
-                 bf16_head: bool = False):
+                 bf16_head: bool = False, backend: str = "auto"):
         super().__init__()
         f = base_features
+        self.backend = backend
         self.use_attention = use_attention
         self.attention_rate = attention_rate
         self.attention_ksize = attention_ksize
@@ -153,7 +157,7 @@ class CoarseToFineGenerator(nn.Module):
 
         def stack(specs, cin):
             return _Stack(specs, cin, conv_kind, compute_dtype,
-                          fuse_upsample, s2d_stem)
+                          fuse_upsample, s2d_stem, backend)
 
         enc = _encoder_specs(f) + _dilation_specs(f)
         self.coarse = stack(enc + _decoder_specs(f), 4)
@@ -190,7 +194,7 @@ class CoarseToFineGenerator(nn.Module):
             xa = contextual_attention(
                 xa, xa, downscale_mask_max(mask, 4),
                 ksize=self.attention_ksize, rate=self.attention_rate,
-                softmax_scale=self.softmax_scale)
+                softmax_scale=self.softmax_scale, backend=self.backend)
             xa, _ = self.refine_attn_post(xa, valid[:, ::4, ::4, :])
             x2 = torch.cat([conv_branch, xa], -1)
         else:
@@ -200,10 +204,12 @@ class CoarseToFineGenerator(nn.Module):
 
 
 def build_generator(model_cfg, device: str | torch.device | None = None,
-                    seed: int | None = 0) -> nn.Module:
+                    seed: int | None = 0,
+                    backend: str | None = None) -> nn.Module:
     """The generator a ModelConfig describes, on ``device`` (CUDA unless
     the caller asks for another). Weights are drawn from ``seed`` with a
     ``torch.Generator``; load a state_dict over them to serve trained ones.
+    ``backend`` overrides ``model_cfg.kernel_backend`` (ops/dispatch.py).
 
     ``tp_shard`` and ``remat_stages`` are accepted and ignored: one card
     shards nothing, and rematerialization only changes differentiation.
@@ -217,6 +223,7 @@ def build_generator(model_cfg, device: str | torch.device | None = None,
         fuse_upsample=model_cfg.fuse_upsample,
         s2d_stem=model_cfg.s2d_stem,
         bf16_head=model_cfg.bf16_head,
+        backend=backend or model_cfg.kernel_backend,
     )
     if model_cfg.generator == "dilated":
         gen = DilatedGenerator(**common)

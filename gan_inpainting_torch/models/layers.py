@@ -1,9 +1,15 @@
-"""Conv building block of the generators: plain or gated conv, NHWC.
+"""Conv building block of the generators: plain, gated or partial conv,
+NHWC.
 
 Parameters are float32 ``weight`` (Cout, Cin, k, k) and ``bias`` (Cout,),
 cast to the compute dtype per call; a gated conv owns one conv of 2F
-outputs. ``pre_upsample`` fuses a preceding nearest-2x upsample into the
-conv (ops/upsample_conv.py): same parameter, same math.
+outputs. ``backend`` (``model.kernel_backend``) picks, below the module
+layer, between the library composition and the hand-written CUDA kernels of
+gated and partial convs (ops/dispatch.py). ``pre_upsample`` fuses a
+preceding nearest-2x upsample into the conv (ops/upsample_conv.py) and
+``s2d`` evaluates a 5x5 stem conv in the space-to-depth cell domain
+(ops/s2d_conv.py): same parameter, same math; neither goes through the
+gated-conv kernels.
 """
 
 from __future__ import annotations
@@ -19,32 +25,33 @@ from gan_inpainting_torch.ops.gated_conv import (
     gated_conv,
     gated_epilogue,
 )
+from gan_inpainting_torch.ops.partial_conv import partial_conv
+from gan_inpainting_torch.ops.s2d_conv import s2d_conv5x5_epilogue
 from gan_inpainting_torch.ops.upsample_conv import upsample2x_conv2d_epilogue
-
-_NOT_PORTED = ("{} convs are not ported yet (ROADMAP Queue 1, Slice D: "
-               "ops/partial_conv.py and ops/s2d_conv.py)")
 
 
 class InpaintConv(nn.Module):
     """forward(x, valid) -> (y, valid_out). ``valid`` (1 = known pixel) is
-    threaded through for partial convs; plain and gated convs pass it on,
-    stride-resized."""
+    threaded through the network for partial convs, which dilate it; plain
+    and gated convs pass it on, stride-resized."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1, conv_kind: str = "plain",
                  activation: str = "elu",
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 pre_upsample: bool = False, s2d: bool = False):
+                 pre_upsample: bool = False, s2d: bool = False,
+                 backend: str = "auto"):
         super().__init__()
-        if conv_kind == "partial" or s2d:
-            raise NotImplementedError(
-                _NOT_PORTED.format("partial" if conv_kind == "partial"
-                                   else "s2d"))
-        if conv_kind not in ("plain", "gated"):
+        if conv_kind not in ("plain", "gated", "partial"):
             raise ValueError(f"unknown conv_kind {conv_kind!r}")
-        if pre_upsample and (kernel_size != 3 or stride != 1 or dilation != 1):
+        rewritable = (conv_kind in ("plain", "gated") and stride == 1
+                      and dilation == 1)
+        if pre_upsample and not (rewritable and kernel_size == 3):
             raise ValueError("pre_upsample requires a plain/gated 3x3 "
                              "stride-1 undilated conv")
+        if s2d and not (rewritable and kernel_size == 5):
+            raise ValueError("s2d requires a plain/gated 5x5 stride-1 "
+                             "undilated conv")
         self.kernel_size = kernel_size
         self.stride = stride
         self.dilation = dilation
@@ -52,6 +59,8 @@ class InpaintConv(nn.Module):
         self.activation = activation
         self.compute_dtype = compute_dtype
         self.pre_upsample = pre_upsample
+        self.s2d = s2d
+        self.backend = backend
         cout = 2 * features if conv_kind == "gated" else features
         self.weight = nn.Parameter(
             torch.empty(cout, in_features, kernel_size, kernel_size))
@@ -75,16 +84,27 @@ class InpaintConv(nn.Module):
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor | None = None):
         x = x.to(self.compute_dtype)
-        if self.pre_upsample:
-            # parity kernels from the float32 param, cast once inside
+        if self.s2d or self.pre_upsample:
+            # cell / parity kernels from the float32 param, cast once inside
             bias = self.bias.to(self.compute_dtype)
-            y = upsample2x_conv2d_epilogue(
-                x, self.weight, lambda m: self._epilogue(m + bias))
+            rewrite = (s2d_conv5x5_epilogue if self.s2d
+                       else upsample2x_conv2d_epilogue)
+            y = rewrite(x, self.weight, lambda m: self._epilogue(m + bias))
             return y, valid
         weight = self.weight.to(self.compute_dtype)
+        if self.conv_kind == "partial":
+            if valid is None:
+                valid = torch.ones(x.shape[:3] + (1,), dtype=torch.float32,
+                                   device=x.device)
+            y, valid_out = partial_conv(x, valid, weight, self.bias,
+                                        stride=self.stride,
+                                        dilation=self.dilation,
+                                        backend=self.backend)
+            return _activation(self.activation)(y), valid_out
         if self.conv_kind == "gated":
             y = gated_conv(x, weight, self.bias, stride=self.stride,
-                           dilation=self.dilation, activation=self.activation)
+                           dilation=self.dilation, activation=self.activation,
+                           backend=self.backend)
         else:
             y = self._epilogue(conv2d(x, weight, self.bias, stride=self.stride,
                                       dilation=self.dilation))

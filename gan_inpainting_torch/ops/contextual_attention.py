@@ -11,12 +11,14 @@ refinement branch), NHWC.
 5. Overlap-add the output patches back to (H, W) and divide by the exact
    overlap counts.
 
-On a CUDA tensor with f is b (the generator's use) the op runs the fused
-attention kernel plus the fold kernel (ops/kernels/); where a gradient is
-wanted it is a ``torch.autograd.Function`` whose backward runs the two
-backward kernels (ops/kernels/fused_attention_bwd.py). On a CPU tensor it
-runs the plain composition below, which materializes the patches and the
-(Lq, Lk) score matrix and is differentiated by autograd.
+Under the ``pallas`` backend (what ``auto`` resolves to for this op,
+ops/dispatch.py) on a CUDA tensor with f is b (the generator's use) the op
+runs the fused attention kernel plus the fold kernel (ops/kernels/); where
+a gradient is wanted it is a ``torch.autograd.Function`` whose backward
+runs the two backward kernels (ops/kernels/fused_attention_bwd.py). On a
+CPU tensor, and under the ``xla`` backend on any device, it runs the plain
+composition below, which materializes the patches and the (Lq, Lk) score
+matrix and is differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -24,7 +26,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from gan_inpainting_torch.ops.dispatch import section, use_kernel
+from gan_inpainting_torch.ops.dispatch import (
+    resolve_backend,
+    section,
+    use_kernel,
+)
 from gan_inpainting_torch.ops.patches import extract_patches, fold_patches
 
 NEG_INF = -1e9
@@ -139,7 +145,8 @@ class _FusedAttention(torch.autograd.Function):
 
 
 def contextual_attention(f, b, hole_mask, *, ksize: int = 3, rate: int = 2,
-                         softmax_scale: float = 10.0) -> torch.Tensor:
+                         softmax_scale: float = 10.0,
+                         backend: str = "auto") -> torch.Tensor:
     """Contextual attention.
 
     Args:
@@ -150,7 +157,8 @@ def contextual_attention(f, b, hole_mask, *, ksize: int = 3, rate: int = 2,
     Returns:
       (B, H, W, C) attended features, in f's dtype.
     """
-    if not use_kernel(b):
+    backend = resolve_backend(backend, op="contextual_attention")
+    if backend == "xla" or not use_kernel(b):
         return contextual_attention_plain(f, b, hole_mask, ksize=ksize,
                                           rate=rate,
                                           softmax_scale=softmax_scale)

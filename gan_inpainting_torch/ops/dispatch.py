@@ -1,10 +1,19 @@
-"""Kernel dispatch by tensor device, device resolution and launch counts.
+"""Kernel dispatch: backend names, tensor device, launch counts.
 
 Every op that owns a hand-written CUDA kernel has one wrapper that picks by
 the device of the tensor it is given: a CUDA tensor launches the kernel (or
 the wrapper raises), a CPU tensor takes the op's plain PyTorch version.
-There is no switch and no fallback from a kernel that failed to build or
-launch.
+There is no fallback from a kernel that failed to build or launch.
+
+Above the wrappers sits the config's ``model.kernel_backend`` switch, with
+the JAX package's three values kept letter for letter so that exported
+configs load and mean the same thing (:func:`resolve_backend`):
+
+* ``pallas`` — the op's hand-written CUDA kernel (on a CPU tensor the
+  wrapper's plain version);
+* ``xla``    — the library composition: cuDNN conv plus eager elementwise
+  passes, the dense plain attention;
+* ``auto``   — per op, what :data:`AUTO_CUDA` says.
 
 ``launches`` counts kernel launches per kernel name. Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -19,8 +28,62 @@ that, say, records CUDA events around the stretch.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
+
+VALID = ("auto", "xla", "pallas")
+
+# What "auto" means per op on a CUDA card, set by measurement on one NVIDIA
+# H100 80GB HBM3, 700.00 W: chip_smoke.py phases [5] and [6], device forward
+# at 64x256² bf16, the backends timed in turns (A B C C B A) within one run.
+# PERF.md §6 quotes the same run beside the kernels' own times.
+# * contextual_attention: the fused kernel (the plain path materializes the
+#   (Lq, Lk) score matrix; serve_v4_8 693.9 img/s with it, 637.5 without).
+# * gated_conv: the library composition. serve_v4_8 runs at 693.9 img/s
+#   with cuDNN convs and eager epilogues and at 577.3 img/s with every gated
+#   conv in the hand-written kernels: their mainloop reaches 169 TFLOP/s at
+#   192 -> 2x192 3x3 (2.06 ms), bound by shared-memory fill traffic, where
+#   cuDNN's conv takes 0.79 ms and conv plus eager epilogue 1.21 ms, so the
+#   fused epilogue does not pay for it yet. (The 4-channel stem is the
+#   exception, 2.43 against 4.99 ms at batch 64, and 48 -> 2x24 a tie.)
+# * partial_conv: the epilogue kernel. partialconv256 serves at 2964.6 img/s
+#   with it and at 2069.0 img/s with the eager epilogue (0.30 ms against
+#   1.64 ms per call at C = 48, 64x256²). The choice rests on the serve
+#   rates: the 16x256² train step is partly host-bound and its two times
+#   (63.1 and 58.2 ms, in turns) lie within the host's spread.
+AUTO_CUDA = {
+    "contextual_attention": "pallas",
+    "gated_conv": "xla",
+    "partial_conv": "pallas",
+}
+
+_local = threading.local()
+
+
+def resolve_backend(backend: str = "auto", op: str | None = None) -> str:
+    """``pallas`` or ``xla`` for one op, from a config value (or the value
+    forced by :func:`override_backend`)."""
+    forced = getattr(_local, "forced", None)
+    if forced is not None:
+        backend = forced
+    if backend not in VALID:
+        raise ValueError(f"backend must be one of {VALID}, got {backend!r}")
+    if backend == "auto":
+        return AUTO_CUDA.get(op, "pallas") if op else "pallas"
+    return backend
+
+
+@contextlib.contextmanager
+def override_backend(backend: str):
+    """Force a backend for all ops inside the context (tests, benchmarks)."""
+    prev = getattr(_local, "forced", None)
+    _local.forced = backend
+    try:
+        yield
+    finally:
+        _local.forced = prev
+
 
 launches: dict[str, int] = {}
 

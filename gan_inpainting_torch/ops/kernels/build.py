@@ -25,7 +25,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("contextual_attention", "contextual_attention_bwd", "fold")
+SOURCES = ("contextual_attention", "contextual_attention_bwd", "fold",
+           "gated_conv", "partial_epilogue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,113 @@
+"""Implicit-GEMM gated conv: no im2col in device memory.
+
+``gated_conv_direct`` replaces the Pallas kernel ``_kernel``
+(gan_inpainting_tpu/ops/pallas/direct_conv.py:48, entry
+``gated_conv_direct``): stride 1, odd window, any dilation — every gated
+conv of the generators but the stride-2 encoder convs. On a CUDA tensor it
+launches ``gi_gated_conv_direct`` of ``csrc/gated_conv.cu``: k² tap
+products of (pixels, Cin) × (Cin, F) for the feature half and the gate half
+into two float32 accumulators, then ``act(f + b_f) · sigmoid(g + b_g)``,
+so neither the patches nor the 2F-channel pre-activation reach device
+memory.
+
+On an H100 it is bounded by operations (2·M·k²·Cin·2F at 989 TFLOP/s in
+bf16; the activations are read and written once). The TPU kernel keeps a
+row group and its dilation halo resident in fast memory; a block's shared
+memory cannot hold that at dilation 16, so here a block gathers, per tap
+and per channel chunk, the shifted (pixels × chunk) tile with zeros outside
+the map — reuse across taps comes from L2. Tiles, variants (tensor-core
+bf16, CUDA-core float32) and the weight packing are described in the source
+note of ``csrc/gated_conv.cu``; the packing and the plan are shared with
+ops/kernels/gated_matmul.py.
+
+On a CPU tensor the wrapper takes the plain version (conv2d +
+``gated_epilogue``). The gradient recomputes through the plain composition,
+as the JAX kernel's custom VJP does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gan_inpainting_torch.ops.dispatch import count_launch, use_kernel
+from gan_inpainting_torch.ops.gated_conv import gated_conv_plain
+from gan_inpainting_torch.ops.kernels import build
+from gan_inpainting_torch.ops.kernels.gated_matmul import (
+    ACTIVATIONS,
+    SOURCE,
+    _check,
+    _check_cuda,
+    _GatedConv,
+    pack_weights,
+    pad_channels,
+    plan,
+)
+
+KERNEL = "gated_conv_direct"
+
+
+def direct_conv_supported(x_shape, k: int, stride: int, dilation: int,
+                          features: int = 1) -> bool:
+    """True for the forms the implicit-GEMM kernel takes: stride 1, odd
+    window, and index ranges that fit its 32-bit pixel arithmetic."""
+    b, h, w, cin = x_shape
+    return (stride == 1 and k % 2 == 1 and dilation >= 1
+            and b * h * w < 2 ** 31 and k * k * cin < 2 ** 24
+            and h + k * dilation < 2 ** 24 and w + k * dilation < 2 ** 24)
+
+
+def launch_direct(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
+                  features: int, k: int, dilation: int, block_n: int,
+                  activation: str) -> torch.Tensor:
+    """Launch ``gi_gated_conv_direct`` on a contiguous (B, H, W, Cin) map,
+    Cin a multiple of the gather vector, with weights packed by
+    :func:`pack_weights`."""
+    b, h, w, cin = x.shape
+    out = torch.empty((b, h, w, features), dtype=x.dtype, device=x.device)
+    lib = build.library(SOURCE)
+    fn = lib.gi_gated_conv_direct
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), wp.data_ptr(), bias.data_ptr(),
+                 out.data_ptr(), b, h, w, cin, features, wp.shape[2],
+                 block_n, k, dilation, ACTIVATIONS[activation],
+                 int(x.dtype == torch.bfloat16), stream)
+    count_launch(KERNEL)
+    build.check(lib, err, KERNEL)
+    return out
+
+
+def _forward_direct(x, weight, bias, stride, dilation, activation):
+    f = weight.shape[0] // 2
+    cin_pad, kc, bn, fp = plan(x.shape[3], f, x.dtype)
+    return launch_direct(pad_channels(x, cin_pad),
+                         pack_weights(weight, kc, fp, cin_pad),
+                         bias.float().contiguous(), f, weight.shape[2],
+                         dilation, bn, activation)
+
+
+def gated_conv_direct(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, *, stride: int = 1,
+                      dilation: int = 1,
+                      activation: str = "elu") -> torch.Tensor:
+    """x: (B, H, W, Cin), weight: (2F, Cin, k, k) in x's dtype, bias: (2F,)
+    → (B, H, W, F). Stride must be 1 and k odd: check
+    :func:`direct_conv_supported` first. Kernel on a CUDA tensor, plain on
+    the CPU."""
+    _check(x, weight, bias, activation)
+    if not direct_conv_supported(x.shape, weight.shape[2], stride, dilation,
+                                 weight.shape[0] // 2):
+        raise ValueError(
+            f"gated_conv_direct takes stride 1 and an odd window, got "
+            f"stride={stride} k={weight.shape[2]} x={tuple(x.shape)}")
+    if not use_kernel(x):
+        return gated_conv_plain(x, weight, bias, stride=1, dilation=dilation,
+                                activation=activation)
+    _check_cuda(x, weight, bias)
+    return _GatedConv.apply(x.contiguous(), weight, bias, 1, dilation,
+                            activation, _forward_direct)

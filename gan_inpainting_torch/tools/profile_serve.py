@@ -2,9 +2,13 @@
 
     python -m gan_inpainting_torch.tools.profile_serve [--batch 64]
         [--size 256] [--reps 3] [--no-autotune]
+        [--backend auto|xla|pallas] [--config NAME]
 
 Loads the pinned tex256_attn generator under the serve_v4_8 model override
-(bf16), runs the forward on synthetic uint8 inputs, and prints:
+(bf16) — or, with ``--config NAME`` (e.g. ``partialconv256``), builds that
+config's generator at full width from seed 0 — runs the forward on
+synthetic uint8 inputs under ``model.kernel_backend=<--backend>``, and
+prints:
 
 * device ms per generator stage and per conv layer (CUDA events around
   each module, one synchronise per layer — for attribution, not speed);
@@ -34,14 +38,32 @@ def main(argv=None) -> None:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--no-autotune", action="store_true")
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--backend", default="auto",
+                    choices=("auto", "xla", "pallas"))
+    ap.add_argument("--config", default=None,
+                    help="serve this named config from a seeded "
+                    "initialization instead of the pinned npz")
     args = ap.parse_args(argv)
 
+    from gan_inpainting_torch.configs.base import apply_overrides, get_config
     from gan_inpainting_torch.infer.inpaint import Inpainter
+    from gan_inpainting_torch.models.generator import build_generator
     from gan_inpainting_torch.models.layers import InpaintConv
 
-    inp = Inpainter.from_npz(NPZ, overrides=[
-        "model.fuse_upsample=true", f"infer.size_buckets={args.size}",
-        f"infer.batch_buckets={args.batch}"], device="cuda")
+    overrides = [f"model.kernel_backend={args.backend}",
+                 f"infer.size_buckets={args.size}",
+                 f"infer.batch_buckets={args.batch}"]
+    if args.config is None:
+        inp = Inpainter.from_npz(
+            NPZ, overrides=["model.fuse_upsample=true"] + overrides,
+            device="cuda")
+    else:
+        cfg = apply_overrides(get_config(args.config), overrides)
+        gen = build_generator(cfg.model, device="cuda", seed=0)
+        inp = Inpainter(cfg, gen.state_dict(), device="cuda")
+        del gen
+    print(f"config {inp.cfg.name}: {inp.cfg.model.generator}/"
+          f"{inp.cfg.model.conv_kind}, kernel_backend={args.backend}")
     if args.no_autotune:
         torch.backends.cudnn.benchmark = False
     fwd = inp._forward(inp._cfg_for_size(args.size).model.fuse_upsample)
@@ -131,6 +153,13 @@ def _print_gflop(inp, img, msk, size: int) -> None:
     from torch.utils.flop_counter import FlopCounterMode
 
     m = inp.cfg.model
+    from gan_inpainting_torch.ops.dispatch import resolve_backend
+
+    if (m.conv_kind == "gated"
+            and resolve_backend(m.kernel_backend, "gated_conv") == "pallas"):
+        print("GFLOP per image: not counted under the gated-conv kernels "
+              "(the counter does not see ctypes launches); run --backend xla")
+        return
     lk = (size // 4 // m.attention_rate) ** 2 if m.use_attention else 0
     attn = 2.0 * lk * lk * (9 + 4 * m.attention_rate ** 2) \
         * 4 * m.base_features / 1e9
@@ -148,6 +177,10 @@ def _category(kernel: str) -> str:
         return "attention"
     if "fold_kernel" in kernel:
         return "fold"
+    if "gated_conv_kernel" in kernel:
+        return "gated conv kernel"
+    if "partial_epilogue_kernel" in kernel:
+        return "partial epilogue kernel"
     if any(s in kernel for s in ("conv", "Conv", "xmma", "cutlass", "cudnn",
                                  "gemm")):
         return "conv"

@@ -60,6 +60,10 @@ def category(kernel: str) -> str:
         return "attention forward"
     if "fold_kernel" in kernel:
         return "fold"
+    if "gated_conv_kernel" in kernel:
+        return "gated conv kernel"
+    if "partial_epilogue_kernel" in kernel:
+        return "partial epilogue kernel"
     if "multi_tensor" in kernel or "adam" in kernel.lower():
         return "optimizer"
     if any(s in kernel for s in ("conv", "Conv", "xmma", "cutlass", "cudnn",

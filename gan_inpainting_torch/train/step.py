@@ -5,13 +5,14 @@
 Order, as in the JAX package: G forward without gradient → D step on the
 batch-concatenated (real, fake) pass, whose spectral-norm vectors move
 exactly once → R1 on the real images on every k-th step, weighted γ·k →
-G step against the *updated* D (adversarial + L1, optional TV and feature
-matching) → EMA of the generator. Metrics come back as 0-d tensors on the
-device, so a step does not wait for the card.
+G step against the *updated* D (adversarial + L1, optional VGG perceptual
+and style, TV and feature matching) → EMA of the generator. Metrics come
+back as 0-d tensors on the device, so a step does not wait for the card.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable
 
 import torch
@@ -19,6 +20,10 @@ import torch
 from gan_inpainting_torch.configs.base import Config
 from gan_inpainting_torch.data.pipeline import Batch
 from gan_inpainting_torch.losses import adversarial
+from gan_inpainting_torch.losses.perceptual import (
+    init_vgg,
+    perceptual_and_style_loss,
+)
 from gan_inpainting_torch.losses.reconstruction import l1_loss, tv_loss
 from gan_inpainting_torch.ops.dispatch import section
 from gan_inpainting_torch.train.state import (
@@ -41,12 +46,22 @@ def _micro(batch: Batch, accum: int) -> list[Batch]:
 
 def make_train_step(cfg: Config) -> Callable[[GANTrainState, Batch], dict]:
     """Build the train step of a config."""
-    if cfg.loss.perceptual_weight > 0 or cfg.loss.style_weight > 0:
-        raise NotImplementedError(
-            "loss.perceptual_weight / loss.style_weight > 0: the VGG "
-            "perceptual and style losses are not ported yet (ROADMAP Queue "
-            "1: losses/perceptual.py)")
     lc, tc = cfg.loss, cfg.train
+    use_vgg = lc.perceptual_weight > 0 or lc.style_weight > 0
+    if use_vgg and not lc.vgg_weights_path:
+        warnings.warn(
+            "perceptual/style loss enabled but loss.vgg_weights_path is "
+            "empty: falling back to a fixed-seed randomly initialized VGG "
+            "(test-only behavior). Set the path of a converted VGG16 .npz "
+            "for training.", stacklevel=2)
+    vggs: dict[torch.device, torch.nn.Module] = {}
+
+    def vgg_on(device: torch.device):
+        # built at the first step, on the device the batch lives on
+        if device not in vggs:
+            vggs[device] = init_vgg(lc.vgg_weights_path, device=device)
+        return vggs[device]
+
     adv_kind = lc.adversarial
     accum = tc.grad_accum
     g_lr = make_lr_schedule(cfg, tc.g_lr)
@@ -93,10 +108,14 @@ def make_train_step(cfg: Config) -> Callable[[GANTrainState, Batch], dict]:
         rec = l1_loss(gen.fine, mb.image, mb.mask, **l1_args)
         if gen.coarse is not None:
             rec = rec + l1_loss(gen.coarse, mb.image, mb.mask, **l1_args)
-        total = lc.gan_weight * adv + lc.l1_weight * rec
-        none = zero.to(rec.device)
-        aux = {"g_adv": adv, "g_l1": rec, "g_perceptual": none,
-               "g_style": none}
+        perc = style = zero.to(rec.device)
+        if use_vgg:
+            perc, style = perceptual_and_style_loss(
+                vgg_on(comp.device), comp, mb.image)
+        total = (lc.gan_weight * adv + lc.l1_weight * rec
+                 + lc.perceptual_weight * perc + lc.style_weight * style)
+        aux = {"g_adv": adv, "g_l1": rec, "g_perceptual": perc,
+               "g_style": style}
         if lc.tv_weight > 0:
             tv = tv_loss(comp, mb.mask)
             total = total + lc.tv_weight * tv

@@ -9,7 +9,8 @@ Float32 tolerance 2e-4 at these small shapes; bfloat16 runs the kernel on
 bf16 inputs against the plain version in float32 on the same values, with
 2^-7 of the largest input as the tolerance (weights and outputs rounded to
 bf16). TF32 is off. The backward kernels and the trainer follow below,
-each with its tolerance.
+each with its tolerance, then the gated-conv kernels and the partial-conv
+epilogue kernel.
 """
 
 import numpy as np
@@ -354,3 +355,226 @@ def test_checkpoint_resume_on_cuda(cuda, tmp_path):
     for a, b in zip(full.generator.parameters(),
                     resumed.generator.parameters()):
         torch.testing.assert_close(a, b, rtol=0, atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# gated-conv kernels and the partial-conv epilogue kernel
+# ---------------------------------------------------------------------------
+# Gated convs: float32 (CUDA-core variant, full float32 products) against
+# the plain version (cuDNN conv with TF32 off + eager epilogue), 2e-4 of the
+# largest reference entry; bfloat16 (tensor-core variant) on bf16 inputs
+# against the plain version in float32 on the same bf16 values, 2^-7 of the
+# largest reference entry (the output is rounded to bf16).
+
+GATED_SHAPES = [
+    # b, h, w, cin, f, k, stride, dilation
+    (2, 16, 16, 16, 16, 3, 1, 1),
+    (1, 13, 17, 5, 6, 5, 1, 1),      # a stem's form: padded Cin, odd sizes
+    (2, 12, 20, 48, 24, 3, 1, 2),    # chunks straddle taps, F padded to 32
+    (1, 8, 8, 8, 8, 3, 1, 1),        # K = 72: under two chunks of the ring
+    (1, 32, 32, 192, 192, 3, 1, 16),  # full width, dilation beyond the map
+    (1, 9, 11, 24, 70, 3, 1, 4),     # F above 64: two column blocks
+    (1, 6, 6, 4, 4, 1, 1, 1),        # K = 4 (8 padded): one chunk
+    (2, 16, 16, 48, 96, 3, 2, 1),    # stride 2: the im2col kernel
+    (1, 15, 13, 5, 7, 5, 2, 1),      # stride 2, odd everything
+    (1, 16, 16, 8, 8, 4, 1, 1),      # even window: the im2col kernel
+]
+
+
+def _gated_case(seed, b, h, w, cin, f, k, device, dtype):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, h, w, cin)).astype(
+        np.float32)).to(device)
+    wgt = torch.from_numpy((rng.standard_normal((2 * f, cin, k, k))
+                            / np.sqrt(k * k * cin)).astype(np.float32))
+    bias = torch.from_numpy(0.5 * rng.standard_normal(2 * f).astype(
+        np.float32))
+    return x.to(dtype), wgt.to(device).to(dtype), bias.to(device)
+
+
+@pytest.mark.parametrize("b,h,w,cin,f,k,stride,dilation", GATED_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", ["elu", "relu"])
+def test_gated_conv_kernels_match_plain(cuda, b, h, w, cin, f, k, stride,
+                                        dilation, dtype, activation):
+    from gan_inpainting_torch.ops.gated_conv import (
+        gated_conv,
+        gated_conv_plain,
+    )
+
+    x, wgt, bias = _gated_case(h * w + cin, b, h, w, cin, f, k, cuda, dtype)
+    dispatch.reset_launches()
+    got = gated_conv(x, wgt, bias, stride=stride, dilation=dilation,
+                     activation=activation, backend="pallas")
+    direct = stride == 1 and k % 2 == 1
+    assert dispatch.launches.get("gated_conv_direct", 0) == int(direct)
+    assert dispatch.launches.get("gated_matmul", 0) == int(not direct)
+    want = gated_conv_plain(x.float(), wgt.float(), bias, stride=stride,
+                            dilation=dilation, activation=activation)
+    assert got.dtype == dtype and got.shape == want.shape
+    frac = 2e-4 if dtype == torch.float32 else 2.0 ** -7
+    tol = frac * max(want.abs().max().item(), 1.0)
+    assert (got.float() - want).abs().max().item() <= tol
+    # under "xla" nothing is launched
+    dispatch.reset_launches()
+    gated_conv(x, wgt, bias, stride=stride, dilation=dilation,
+               activation=activation, backend="xla")
+    assert not any(dispatch.launches.values())
+
+
+@pytest.mark.parametrize("activation", ["leaky_relu", "tanh", "none"])
+@pytest.mark.parametrize("block_n", [32, 64])
+def test_gated_conv_activations_and_block_widths(cuda, activation, block_n):
+    from gan_inpainting_torch.ops.gated_conv import gated_conv_plain
+    from gan_inpainting_torch.ops.kernels.direct_conv import launch_direct
+    from gan_inpainting_torch.ops.kernels.gated_matmul import (
+        pack_weights,
+        plan,
+    )
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x, wgt, bias = _gated_case(3, 2, 16, 16, 32, 40, 3, cuda, dtype)
+        # both block widths, whichever plan() would pick for F = 40
+        cin_pad, kc, _, _ = plan(32, 40, dtype)
+        fp = -(-40 // block_n) * block_n
+        got = launch_direct(x, pack_weights(wgt, kc, fp, cin_pad), bias, 40,
+                            3, 2, block_n, activation)
+        want = gated_conv_plain(x.float(), wgt.float(), bias, dilation=2,
+                                activation=activation)
+        frac = 2e-4 if dtype == torch.float32 else 2.0 ** -7
+        tol = frac * max(want.abs().max().item(), 1.0)
+        assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_gated_conv_function_gradients_match_plain(cuda, stride):
+    from gan_inpainting_torch.ops.gated_conv import gated_conv
+
+    x, wgt, bias = _gated_case(5, 2, 16, 16, 16, 8, 3, cuda, torch.float32)
+    g = torch.randn(2, 16 // stride, 16 // stride, 8, device=cuda)
+    grads = {}
+    for backend in ("xla", "pallas"):
+        leaves = [t.clone().requires_grad_(True) for t in (x, wgt, bias)]
+        y = gated_conv(*leaves, stride=stride, backend=backend)
+        y.backward(g)
+        grads[backend] = [t.grad for t in leaves]
+    for a, b_ in zip(grads["xla"], grads["pallas"]):
+        torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-5)
+    # a frozen input (the stem sees the image) still gets weight gradients
+    wl = wgt.clone().requires_grad_(True)
+    gated_conv(x, wl, bias, stride=stride, backend="pallas").backward(g)
+    torch.testing.assert_close(wl.grad, grads["xla"][1], rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_gated_conv_kernels_refuse_other_dtypes(cuda):
+    from gan_inpainting_torch.ops.gated_conv import gated_conv
+
+    x, wgt, bias = _gated_case(6, 1, 8, 8, 8, 8, 3, cuda, torch.float32)
+    with pytest.raises(TypeError):
+        gated_conv(x.half(), wgt.half(), bias, backend="pallas")
+    with pytest.raises(TypeError, match="match"):
+        gated_conv(x, wgt.to(torch.bfloat16), bias, backend="pallas")
+    with pytest.raises(TypeError):
+        gated_conv(x.half(), wgt.half(), bias, stride=2, backend="pallas")
+    with pytest.raises(ValueError, match="one device"):
+        gated_conv(x, wgt, bias.cpu(), backend="pallas")
+
+
+PARTIAL_SHAPES = [(2, 16, 16, 8), (1, 13, 17, 5), (3, 9, 7, 24),
+                  (2, 32, 32, 48), (1, 8, 8, 192), (1, 5, 6, 1)]
+
+
+@pytest.mark.parametrize("b,h,w,c", PARTIAL_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_partial_epilogue_kernel_matches_plain(cuda, b, h, w, c, dtype):
+    """float32: 1e-6 (the same three float32 steps); bfloat16: the kernel
+    rounds once where the plain version rounds scale, product and sum, so
+    2^-7 of the largest reference entry. ``valid_out`` and the zero-count
+    pixels are exact."""
+    from gan_inpainting_torch.ops.kernels.partial_epilogue import (
+        partial_conv_epilogue,
+        partial_conv_epilogue_plain,
+    )
+
+    rng = np.random.default_rng(b * h * w * c)
+    raw = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(
+        np.float32)).to(cuda).to(dtype)
+    counts = torch.from_numpy(rng.integers(0, 10, (b, h, w, 1)).astype(
+        np.float32)).to(cuda)
+    counts[0, : h // 2] = 0.0
+    raw[0, 0] = 1e30              # finite garbage where count = 0
+    bias = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(cuda)
+    dispatch.reset_launches()
+    y, valid = partial_conv_epilogue(raw, counts, bias, 3)
+    assert dispatch.launches["partial_epilogue"] == 1
+    want_y, want_v = partial_conv_epilogue_plain(raw.float(), counts, bias, 3)
+    assert y.dtype == valid.dtype == dtype and valid.shape == (b, h, w, 1)
+    assert torch.equal(valid.float(), want_v)
+    dead = (counts == 0).expand_as(raw)
+    assert (y[dead] == 0).all()
+    tol = (1e-6 if dtype == torch.float32 else 2.0 ** -7) * max(
+        want_y.abs().max().item(), 1.0)
+    assert (y.float() - want_y).abs().max().item() <= tol
+
+
+def test_partial_epilogue_function_gradients(cuda):
+    from gan_inpainting_torch.ops.kernels.partial_epilogue import (
+        partial_conv_epilogue,
+        partial_conv_epilogue_plain,
+    )
+
+    rng = np.random.default_rng(9)
+    raw = torch.from_numpy(rng.standard_normal((2, 9, 11, 12)).astype(
+        np.float32)).to(cuda)
+    counts = torch.from_numpy(rng.integers(0, 10, (2, 9, 11, 1)).astype(
+        np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.standard_normal(12).astype(np.float32)).to(
+        cuda)
+    g = torch.randn_like(raw)
+    grads = []
+    for fn in (partial_conv_epilogue_plain, partial_conv_epilogue):
+        r, b_ = raw.clone().requires_grad_(True), bias.clone().requires_grad_(
+            True)
+        y, valid = fn(r, counts, b_, 3)
+        assert not valid.requires_grad
+        y.backward(g)
+        grads.append((r.grad, b_.grad))
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(grads[0][1], grads[1][1], rtol=1e-5, atol=1e-5)
+    with pytest.raises(TypeError):
+        partial_conv_epilogue(raw.half(), counts, bias, 3)
+
+
+def test_generators_on_cuda_agree_across_backends(cuda):
+    """A small float32 gated attention generator and a partial-conv one:
+    ``pallas`` launches its kernels and agrees with ``xla`` on the card."""
+    from gan_inpainting_torch.configs.base import apply_overrides, get_config
+    from gan_inpainting_torch.models.generator import build_generator
+
+    rng = np.random.default_rng(0)
+    masked = torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(
+        np.float32)).to(cuda)
+    mask = torch.zeros(2, 64, 64, 1, device=cuda)
+    mask[:, 16:40, 8:48] = 1.0
+    masked = masked * (1 - mask)
+    small = ["model.base_features=16", "model.dtype_policy=f32"]
+    for name, extra, expect in (
+            ("serve_v4_8", [], {"gated_conv_direct": 29, "gated_matmul": 6}),
+            ("celebahq256_freeform", [], {"gated_conv_direct": 28,
+                                          "gated_matmul": 4}),
+            ("partialconv256", [], {"partial_epilogue": 16})):
+        cfg = apply_overrides(get_config(name), small + extra)
+        outs = {}
+        for backend in ("xla", "pallas"):
+            gen = build_generator(cfg.model, device=cuda, seed=1,
+                                  backend=backend)
+            dispatch.reset_launches()
+            with torch.no_grad():
+                outs[backend] = gen(masked, mask).fine
+            if backend == "pallas":
+                for kname, n in expect.items():
+                    assert dispatch.launches.get(kname, 0) == n, (
+                        name, kname, dict(dispatch.launches))
+        torch.testing.assert_close(outs["pallas"], outs["xla"], rtol=2e-4,
+                                   atol=2e-4)

@@ -40,9 +40,10 @@ def _inputs(b, size, seed=0):
     return image * (1.0 - mask), mask
 
 
-def _run_both(name, overrides, size=32, b=2):
+def _run_both(name, overrides, size=32, b=2, port_only=()):
     jcfg, tcfg = _pair(name, overrides + ["model.base_features=8",
                                           "model.dtype_policy=f32"])
+    tcfg = apply_overrides(tcfg, list(port_only))
     masked, mask = _inputs(b, size)
     jgen = j_build_generator(jcfg.model)
     # the param tree's shapes from an abstract trace, values from numpy (an
@@ -117,14 +118,82 @@ def test_params_round_trip():
                                   k[..., 5].transpose(2, 0, 1))
 
 
-@pytest.mark.parametrize("override,what", [
-    ("model.conv_kind=partial", "partial"),
-    ("model.s2d_stem=true", "s2d"),
+@pytest.mark.parametrize("backend", ["auto", "xla", "pallas"])
+@pytest.mark.parametrize("fuse", [False, True])
+def test_partial_dilated_matches_flax(backend, fuse):
+    """``partialconv256``'s generator family: every layer but the head is a
+    partial conv, decoder blocks upsample explicitly and repeat ``valid``
+    (``fuse_upsample`` does not apply to them); every ``kernel_backend``
+    value gives the same output on the CPU."""
+    want, got, _, gen = _run_both(
+        "partialconv256", [f"model.fuse_upsample={fuse}"],
+        port_only=[f"model.kernel_backend={backend}"])
+    kinds = [m.conv_kind for m in gen.body.children()]
+    assert kinds == ["partial"] * 16 + ["plain"]
+    assert all(m.backend == backend for m in gen.body.children())
+    assert not any(m.pre_upsample for m in gen.body.children())
+    assert got.coarse is None and want.coarse is None
+    np.testing.assert_allclose(got.fine.numpy(), np.asarray(want.fine), **TOL)
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla", "pallas"])
+def test_coarse_to_fine_partial_matches_flax(backend):
+    want, got, _, _ = _run_both(
+        "celebahq256_freeform", ["model.conv_kind=partial",
+                                 "model.use_attention=true"],
+        port_only=[f"model.kernel_backend={backend}"])
+    np.testing.assert_allclose(got.coarse.numpy(), np.asarray(want.coarse),
+                               **TOL)
+    np.testing.assert_allclose(got.fine.numpy(), np.asarray(want.fine), **TOL)
+
+
+@pytest.mark.parametrize("name,extra", [
+    ("celebahq256_freeform", ["model.use_attention=true"]),
+    ("celebahq256_freeform", ["model.fuse_upsample=true"]),
+    ("celeba128_center", []),
+    ("partialconv256", []),        # partial stems stay full-resolution convs
 ])
-def test_unported_convs_raise(override, what):
-    _, tcfg = _pair("celebahq256_freeform", [override])
-    with pytest.raises(NotImplementedError, match=what):
-        build_generator(tcfg.model, device="cpu")
+def test_s2d_stem_matches_flax(name, extra):
+    want, got, _, gen = _run_both(name, extra + ["model.s2d_stem=true"])
+    stems = [m for m in gen.modules() if getattr(m, "s2d", False)]
+    assert len(stems) == {"celebahq256_freeform": 2 + ("model.use_attention"
+                          "=true" in extra), "celeba128_center": 1,
+                          "partialconv256": 0}[name]
+    # against the flax s2d path, and (same params, same math) the plain stem
+    np.testing.assert_allclose(got.fine.numpy(), np.asarray(want.fine), **TOL)
+    _, plain, _, _ = _run_both(name, extra)
+    np.testing.assert_allclose(got.fine.numpy(), plain.fine.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla", "pallas"])
+def test_kernel_backend_values_agree_on_the_cpu(backend):
+    """A gated attention generator under each ``kernel_backend`` value, and
+    through ``build_generator(backend=...)``, against flax."""
+    want, got, params_np, _ = _run_both(
+        "celebahq256_freeform", ["model.use_attention=true"],
+        port_only=[f"model.kernel_backend={backend}"])
+    np.testing.assert_allclose(got.fine.numpy(), np.asarray(want.fine), **TOL)
+    _, tcfg = _pair("celebahq256_freeform", [
+        "model.use_attention=true", "model.base_features=8",
+        "model.dtype_policy=f32"])
+    gen = build_generator(tcfg.model, device="cpu", backend=backend)
+    assert gen.backend == backend and gen.coarse.conv0.backend == backend
+    gen.load_state_dict(params_from_jax(params_np), strict=True)
+    masked, mask = _inputs(2, 32)
+    with torch.no_grad():
+        again = gen(torch.from_numpy(masked), torch.from_numpy(mask))
+    assert torch.equal(again.fine, got.fine)
+
+
+def test_unknown_conv_kind_and_misplaced_rewrites_raise():
+    from gan_inpainting_torch.models.layers import InpaintConv
+
+    with pytest.raises(ValueError, match="conv_kind"):
+        InpaintConv(4, 8, conv_kind="sparse")
+    with pytest.raises(ValueError, match="s2d"):
+        InpaintConv(4, 8, kernel_size=5, conv_kind="partial", s2d=True)
+    with pytest.raises(ValueError, match="pre_upsample"):
+        InpaintConv(4, 8, conv_kind="partial", pre_upsample=True)
 
 
 @pytest.mark.parametrize("name", ["tex256_attn", "qual256_stab", "qual512"])

@@ -38,6 +38,13 @@ def test_port_imports_no_jax():
         assert "gan_inpainting_torch.train.loop" in sys.modules
         assert "gan_inpainting_torch.cli" in sys.modules
         assert "gan_inpainting_torch.tools.profile_train" in sys.modules
+        for name in ("ops.partial_conv", "ops.s2d_conv", "ops.gated_conv",
+                     "ops.kernels.partial_epilogue", "ops.kernels.direct_conv",
+                     "ops.kernels.gated_matmul", "losses.perceptual",
+                     "tools.profile_serve"):
+            assert "gan_inpainting_torch." + name in sys.modules, name
+        assert set(build.SOURCES) >= {"gated_conv", "partial_epilogue"}
+        assert all((build.CSRC / (n + ".cu")).exists() for n in build.SOURCES)
         import chip_smoke
         import torch
         gen = build_generator(get_config("serve_v4_8").model, device="cpu")
@@ -118,6 +125,61 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     assert use_kernel(x) is False
     with pytest.raises(ValueError, match="no implementation"):
         use_kernel(x.to("meta"))
+
+
+def test_new_kernel_wrappers_take_plain_versions_on_cpu():
+    """Gated-conv and partial-epilogue wrappers on CPU tensors: the plain
+    versions, no launch, no build, under every backend value."""
+    from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.ops.gated_conv import gated_conv
+    from gan_inpainting_torch.ops.kernels import build
+    from gan_inpainting_torch.ops.kernels.direct_conv import gated_conv_direct
+    from gan_inpainting_torch.ops.kernels.gated_matmul import (
+        gated_conv_matmul,
+    )
+    from gan_inpainting_torch.ops.kernels.partial_epilogue import (
+        partial_conv_epilogue,
+    )
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((1, 8, 8, 4)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((6, 4, 3, 3)).astype(np.float32))
+    b = torch.zeros(6)
+    before = dict(dispatch.launches)
+    want = gated_conv(x, w, b, backend="xla")
+    assert torch.equal(gated_conv_direct(x, w, b), want)
+    assert torch.equal(gated_conv_matmul(x, w, b), want)
+    with dispatch.override_backend("pallas"):
+        assert torch.equal(gated_conv(x, w, b, backend="xla"), want)
+    assert gated_conv_matmul(x, w, b, stride=2).shape == (1, 4, 4, 3)
+    y, v = partial_conv_epilogue(x, torch.ones(1, 8, 8, 1), torch.zeros(4), 3)
+    assert y.shape == x.shape and v.shape == (1, 8, 8, 1)
+    assert dispatch.launches == before and not build._libs
+
+
+def test_cli_trains_partialconv256_on_the_cpu(tmp_path):
+    res = _run("""
+        import sys, warnings
+        from gan_inpainting_torch.cli import main
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rc = main(["train", "--config", "partialconv256", "--device",
+                       "cpu", "model.base_features=8", "model.disc_features=8",
+                       "model.kernel_backend=pallas", "model.dtype_policy=f32",
+                       "data.image_size=32", "data.batch_size=2",
+                       "data.eval_batch_size=2", "data.num_eval_batches=1",
+                       "train.steps=2", "train.log_every=1",
+                       "train.workdir=%s"])
+        assert rc == 0
+        assert any("randomly initialized VGG" in str(w.message)
+                   for w in caught)
+        assert not [m for m in sys.modules if m.split(".")[0] in
+                    ("jax", "flax", "optax", "gan_inpainting_tpu")]
+    """ % tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert "[train] step 2:" in res.stdout
+    assert "g_perceptual" in res.stdout and "g_style" in res.stdout
+    assert (tmp_path / "checkpoints" / "step_2.pt").exists()
 
 
 def test_cli_lists_configs_and_trains_on_the_cpu(tmp_path):

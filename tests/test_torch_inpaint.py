@@ -62,6 +62,45 @@ def test_pinned_npz_full_width_matches_jax():
     assert diff.max() <= 1, diff.max()
 
 
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_partialconv256_served_matches_jax(backend):
+    """``partialconv256`` (dilated generator, partial convs) at width 8,
+    float32, 64² batch 2, through both packages' serve forwards on the same
+    numpy-drawn params: uint8 within ±1, known pixels bit-exact."""
+    from gan_inpainting_tpu.configs.base import get_config as j_get_config
+    from gan_inpainting_tpu.models.generator import (
+        build_generator as j_build_generator,
+    )
+
+    from gan_inpainting_torch.io.convert import params_from_jax
+
+    small = ["model.base_features=8", "model.dtype_policy=f32"]
+    jcfg = j_overrides(j_get_config("partialconv256"), small)
+    cfg = apply_overrides(get_config("partialconv256"), small + [
+        f"model.kernel_backend={backend}", "infer.size_buckets=64",
+        "infer.batch_buckets=2"])
+    img = np.stack([_image(0, 64), _image(1, 64)])
+    mask = np.stack([_stroke_mask(2, 64), _stroke_mask(3, 64)])[..., None]
+    shapes = jax.eval_shape(
+        j_build_generator(jcfg.model).init, jax.random.key(0),
+        jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 64, 64, 1)))["params"]
+    rng = np.random.default_rng(4)
+    params = jax.tree_util.tree_map(
+        lambda s: (rng.standard_normal(s.shape)
+                   / np.sqrt(max(np.prod(s.shape[:-1]), 1))).astype(
+                       np.float32), shapes)
+    want = np.asarray(jax.jit(j_forward_fn(jcfg))(
+        params, jnp.asarray(img), jnp.asarray(mask)))
+    inp = Inpainter(cfg, params_from_jax(params), device="cpu")
+    got = inp.inpaint_batch(img, mask)
+    assert got.shape == want.shape and got.dtype == np.uint8
+    known = np.broadcast_to(mask == 0, img.shape)
+    np.testing.assert_array_equal(got[known], img[known])
+    assert (got[~known] != img[~known]).any()
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.max() <= 1, diff.max()
+
+
 def test_normalize_denormalize():
     u8 = torch.arange(256, dtype=torch.uint8)
     np.testing.assert_array_equal(denormalize(normalize(u8)).numpy(),
