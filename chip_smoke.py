@@ -41,7 +41,23 @@ Phases (each prints its lines; any failure exits non-zero):
    epilogue kernel — launch counts, known pixels bit-exact, float32 card
    vs CPU, img/s and ms/step for ``pallas`` and ``xla``, and one float32
    step of a small partial config on the card against the CPU;
-7. one JSON line of per-kernel numbers, then the result line.
+7. path C, large maps: the pinned generator served at a 2048² bucket (the
+   attention map 512×512×192, L = 65 536 cells, beyond the fused kernel's
+   shared memory) through the patch-attention forward kernel; one
+   ``places512_deepfill`` train step at 1×2048² bf16 from step 0 and one
+   more, through the patch forward, dQ and dK/dV kernels — launch counts,
+   known pixels bit-exact, metrics finite, parameters moved, the attention
+   branch's gradient, ms per request and per step, peak memory; and the
+   fused forward whose backward plan does not hold, its gradient through
+   the patch kernels against the plain gradient;
+8. one JSON line of per-kernel numbers, then the result line.
+
+Phase 2 also holds the three patch-attention kernels (forward, dQ, dK/dV)
+against their plain versions at the full widths (d 1728, dv 3072) at L
+16 384 and, over chunks of query rows, L 65 536, at an odd shape and
+through contextual attention with f ≠ b, in float32 and bfloat16, each
+with a sample that has no valid key; and times the fused and the patch
+route where both hold.
 
 Float32 checks turn TF32 off for cuDNN convs and matmuls. Imports nothing
 of JAX. Exits non-zero when no CUDA device is present.
@@ -53,6 +69,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -74,6 +91,10 @@ BWD_BF16_TOL_FRAC = 2.0 ** -6
 # products in another order; bf16 outputs rounded to bf16
 CONV_F32_TOL_FRAC = 2e-4
 CONV_BF16_TOL_FRAC = 2.0 ** -7
+# patch-attention kernels against their plain versions, float32: as a
+# fraction of the largest reference entry (sums of up to L·d products in
+# another order); bf16 uses BF16_TOL_FRAC (forward) and BWD_BF16_TOL_FRAC
+PATCH_F32_TOL_FRAC = 2e-4
 # served uint8 outputs of the bf16 kernel path against the bf16 library
 # path: hole pixels within this many levels, on at least this fraction
 BF16_SERVE_LEVELS, BF16_SERVE_FRAC = 2, 0.999
@@ -236,7 +257,9 @@ def check_kernels(torch, shape_name, bsz, hw, c, rng, smi):
         scale=scale), max(reps // 4, 3))
     attn_bytes = (xb.numel() * 2 + hole.numel() * 4
                   + bsz * 16 * lk * c * 2)
-    attn_ops = 2.0 * bsz * lk * lk * (9 + 16) * c
+    # products over the (query, valid key) pairs of this batch: a hole key's
+    # weight is 0, so the function needs none of its products
+    attn_ops = 2.0 * lk * int(valid.sum().item()) * (9 + 16) * c
     attn_bound, attn_by = _bound_ms(attn_bytes, attn_ops, H100_BF16_FLOPS)
 
     fold_ms = _time_ms(torch, lambda: fold_taps(taps_b, hs, ws, rate), reps)
@@ -410,12 +433,13 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
 
     taps = 4 * rate * rate
     map_bytes = 2 * maps.numel() * 2 + 3 * bsz * lk * 4
+    pairs = 2.0 * lk * int(valid.sum().item())    # (query, valid key) pairs
     dq_bound, dq_by = _bound_ms(
         map_bytes + taps_b.numel() * 2 + bsz * 9 * lk * c * 4,
-        2.0 * bsz * lk * lk * c * (9 + taps + 9), H100_BF16_FLOPS)
+        pairs * c * (9 + taps + 9), H100_BF16_FLOPS)
     dkv_bound, dkv_by = _bound_ms(
         map_bytes + bsz * (9 + taps) * lk * c * 4,
-        2.0 * bsz * lk * lk * c * (9 + 2 * taps + 9), H100_BF16_FLOPS)
+        pairs * c * (9 + 2 * taps + 9), H100_BF16_FLOPS)
     vq, gq, cq = plan_bwd(hs, ws, c, torch.bfloat16, "dq")
     vk, gk, ck = plan_bwd(hs, ws, c, torch.bfloat16, "dkv")
     print(f"[2] {shape_name} backward bf16 ms: dq {dq_ms:.3f} ({vq} G={gq} "
@@ -1255,6 +1279,560 @@ def partial_family(torch, rng, smi):
                 rates=rates, train_ms=ms)
 
 
+def _patch_inputs(torch, seed, b, lq, lk, d, dv, dtype, dead=True):
+    """Patch q, unit-norm k, v and an output gradient, made on the card
+    from a seed; 70 % of keys valid, with ``dead`` the last sample's
+    none."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, k, v, g = randn(b, lq, d), randn(b, lk, d), randn(b, lk, dv), \
+        randn(b, lq, dv)
+    k = k / k.norm(dim=-1, keepdim=True)
+    valid = torch.rand((b, lk), generator=gen, device="cuda") < 0.7
+    if dead:
+        valid[-1] = False
+    return (*(t.to(dtype).contiguous() for t in (q, k, v, g)), valid)
+
+
+def _patch_kernels(torch, q, k, valid, v, g):
+    """All three kernels: (out, lse, dq, dk, dv); the backward from the
+    kernel forward's own residuals."""
+    from gan_inpainting_torch.ops.kernels.patch_attention import (
+        launch_dkv,
+        launch_dq,
+        launch_fwd,
+    )
+
+    out, lse = launch_fwd(q, k, valid, v, 10.0, want_lse=True)
+    delta = (g.float() * out.float()).sum(-1)
+    dq = launch_dq(q, k, valid, v, g, lse, delta, 10.0)
+    dk, dv = launch_dkv(q, k, valid, v, g, lse, delta, 10.0)
+    return out, lse, dq, dk, dv
+
+
+def _patch_errors(torch, q, k, valid, v, g, got, chunk):
+    """Each kernel output against the plain versions, computed over chunks
+    of query rows: forward and dq are exact per query row, dk and dv are
+    the sums over the chunks. → {name: (max abs err, max |reference|)}, the
+    forward's lse as an absolute error. 64-bit indexing throughout."""
+    from gan_inpainting_torch.ops.kernels.patch_attention import (
+        patch_attention_bwd_plain,
+        patch_attention_plain,
+    )
+
+    out_k, lse_k, dq_k, dk_k, dv_k = got
+    kf, vf = k.float(), v.float()
+    errs = {n: [0.0, 0.0] for n in ("out", "lse", "dq", "dk", "dv")}
+    dk_p = torch.zeros(k.shape, device="cuda")
+    dv_p = torch.zeros(v.shape, device="cuda")
+
+    def upd(name, a, ref):
+        errs[name][0] = max(errs[name][0], (a.float() - ref).abs().max().item())
+        errs[name][1] = max(errs[name][1], ref.abs().max().item())
+
+    for c0 in range(0, q.shape[1], chunk):
+        sl = slice(c0, c0 + chunk)
+        o, lse = patch_attention_plain(q[:, sl].float(), kf, valid, vf,
+                                       softmax_scale=10.0, want_lse=True)
+        upd("out", out_k[:, sl], o)
+        upd("lse", lse_k[:, sl], lse)
+        del o, lse
+        dq, dk, dv = patch_attention_bwd_plain(
+            q[:, sl].float(), kf, valid, vf, out_k[:, sl].float(),
+            lse_k[:, sl], g[:, sl].float(), softmax_scale=10.0,
+            keep_float=True)
+        upd("dq", dq_k[:, sl], dq)
+        dk_p += dk
+        dv_p += dv
+        del dq, dk, dv
+    upd("dk", dk_k, dk_p)
+    upd("dv", dv_k, dv_p)
+    return {n: tuple(e) for n, e in errs.items()}
+
+
+def _patch_require(errs, f32, what):
+    """f32: 2e-4 of the largest reference entry (sums in another order);
+    bf16: 2^-7 (forward: p rounded to bf16) and 2^-6 (gradients: p and ds
+    rounded to bf16 for their products); lse 1e-3 absolute."""
+    for name, (err, ref) in errs.items():
+        if name == "lse":
+            tol = 1e-3
+        else:
+            frac = PATCH_F32_TOL_FRAC if f32 else (
+                BF16_TOL_FRAC if name == "out" else BWD_BF16_TOL_FRAC)
+            tol = frac * max(ref, 1.0)
+        _require(err <= tol, f"{what}: {name} max abs err {err:.3e} above "
+                             f"{tol:.3e}")
+
+
+def _patch_bounds(valid, lq, d, dv, elem):
+    """(bytes, operations) of each function: inputs read once, outputs
+    written once; q·k, p·v, dO·v, ds·k, ds·q, p·dO products over the
+    (query, valid key) pairs of this run's data, the only pairs the
+    functions need (an invalid key's weight and gradients are 0)."""
+    b, lk = valid.shape
+    ins = (b * lq * d + b * lk * d + b * lk * dv) * elem + b * lk
+    bwd_in = ins + b * lq * dv * elem + 2 * b * lq * 4
+    pairs = 2.0 * lq * int(valid.sum().item())
+    return {"fwd": (ins + b * lq * dv * elem + b * lq * 4, pairs * (d + dv)),
+            "dq": (bwd_in + b * lq * d * elem, pairs * (2 * d + dv)),
+            "dkv": (bwd_in + b * lk * (d + dv) * elem,
+                    pairs * (2 * d + 2 * dv))}
+
+
+def _sdpa_yardstick(torch, q, k, valid, v, g):
+    """One PyTorch call computing the same attention (never called by the
+    port): SDPA over the patches with an additive −1e9 mask, forward and
+    autograd backward; it does not zero a row with no valid key, so it is a
+    timing only. → (backend, fwd ms, bwd ms), or ("none", None, None)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    mask = torch.where(valid, 0.0, -1e9).to(q.dtype)[:, None, None, :]
+    qs, ks, vs = (t[:, None] for t in (q, k, v))
+    runs = []
+    for be in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([be]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                               scale=10.0)
+            runs.append(be.name)
+        except RuntimeError:
+            pass
+    torch.cuda.synchronize()
+    if not runs:
+        return "none", None, None
+    picked = "?"
+    try:    # the backend PyTorch's dispatcher picks for this call
+        choice = int(torch._fused_sdp_choice(qs, ks, vs, mask, 0.0, False,
+                                             scale=10.0))
+        picked = next((name for name, be in SDPBackend.__members__.items()
+                       if int(be.value) == choice), picked)
+    except (AttributeError, TypeError, RuntimeError):
+        pass
+    fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, scale=10.0), 2)
+    leaves = [t.detach().requires_grad_(True) for t in (qs, ks, vs)]
+    y = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=10.0)
+    gy = g[:, None]
+    bwd = _time_ms(torch, lambda: torch.autograd.grad(
+        y, leaves, gy, retain_graph=True), 2)
+    del y, leaves
+    return f"{picked}; runs: {'/'.join(runs)}", fwd, bwd
+
+
+def check_patch_kernels(torch, smi):
+    """Phase 2, patch attention: the forward, dQ and dK/dV kernels against
+    their plain versions at the full widths (d 1728, dv 3072) at L 16 384
+    and, over chunks of query rows, L 65 536; an odd shape; an f ≠ b map;
+    each with a sample that has no valid key; times at L 16 384 (kernel,
+    plain, SDPA) and L 65 536 (kernel) with every sample live, bounds from
+    the shapes and the valid keys."""
+    from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.ops.contextual_attention import (
+        _attention_inputs,
+        _fold,
+        contextual_attention,
+    )
+    from gan_inpainting_torch.ops.kernels.patch_attention import (
+        launch_dkv,
+        launch_dq,
+        launch_fwd,
+        patch_attention,
+        patch_attention_bwd,
+        patch_attention_bwd_plain,
+        patch_attention_plain,
+        plan,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, dv = 9 * 192, 16 * 192
+    dispatch.reset_launches()
+    res = {}
+    t0 = time.perf_counter()
+    # ---- correctness: full widths at L 16 384, L 65 536, odd, f ≠ b -------
+    for dtype in (f32, bf16):
+        for name, (b, lq) in (("L16384", (2, 16384)), ("L65536", (2, 65536)),
+                              ("odd", (2, 1000))):
+            dd, ddv = (36, 64) if name == "odd" else (d, dv)
+            q, k, v, g, valid = _patch_inputs(torch, lq + len(name), b, lq,
+                                              lq, dd, ddv, dtype)
+            got = _patch_kernels(torch, q, k, valid, v, g)
+            torch.cuda.synchronize()
+            for t in (got[0], got[2], got[3], got[4]):
+                _require(t[-1].abs().max().item() == 0.0
+                         and bool(torch.isfinite(t.float()).all()),
+                         f"patch {name} {dtype}: the sample with no valid "
+                         "key is not exactly 0")
+            errs = _patch_errors(torch, q, k, valid, v, g, got,
+                                 4096 if lq > 16384 else lq)
+            _patch_require(errs, dtype == f32, f"patch {name} {dtype}")
+            res[f"{name}_{str(dtype)[6:]}"] = errs
+            print(f"[2] patch attention {name} B={b} L={lq} d={dd} dv={ddv} "
+                  f"{str(dtype)[6:]}: max abs err / max|ref| " + ", ".join(
+                      f"{n} {e:.3e}/{r:.3g}" for n, (e, r) in errs.items())
+                  + f" ({plan(dd, ddv, dtype)})")
+            del q, k, v, g, valid, got
+            torch.cuda.empty_cache()
+    # f ≠ b through the op: a 128² map, rate 2, C 192
+    rng = np.random.default_rng(3)
+    x = torch.relu(torch.from_numpy(rng.standard_normal(
+        (2, 128, 128, 192)).astype(np.float32))).cuda()
+    hole = torch.from_numpy(_stroke_masks(rng, 2, 128, 128)[..., None]).cuda()
+    hole[1] = 1.0
+    other = x.flip(1).contiguous()
+    for dtype in (f32, bf16):
+        dispatch.reset_launches()
+        y = contextual_attention(x.to(dtype), other.to(dtype), hole)
+        n = dispatch.launches.get("patch_attention_fwd", 0)
+        # the plain attention in float32 on the same patches (in bf16 the
+        # normalized keys are rounded by the front end, which moves scores
+        # at scale 10 by more than the kernel's error)
+        pq, pk, pvalid, pv, _ = _attention_inputs(x.to(dtype),
+                                                  other.to(dtype), hole, 3, 2)
+        want = _fold(patch_attention_plain(
+            pq.float(), pk.float(), pvalid, pv.float(), softmax_scale=10.0),
+            x.shape, 2)
+        err = (y.float() - want).abs().max().item()
+        tol = (F32_TOL if dtype == f32
+               else BF16_TOL_FRAC * x.to(dtype).float().abs().max().item())
+        _require(n == 1 and err <= tol and y[1].abs().max().item() == 0.0,
+                 f"f != b contextual attention ({dtype}): {n} launches, "
+                 f"err {err:.3e} (tol {tol:.3e})")
+        res[f"f_not_b_{str(dtype)[6:]}"] = err
+        print(f"[2] contextual attention f != b, 2x128x128x192 {dtype}: "
+              f"patch_attention_fwd launches {n}, max abs err {err:.3e} "
+              f"(tol {tol:.3e}), all-hole sample 0")
+    del x, other, y, want, pq, pk, pv
+    check_s = time.perf_counter() - t0
+
+    # ---- times, bf16: L 16 384 B 2 (kernel, plain, SDPA), L 65 536 B 1;
+    # every sample has valid keys -------------------------------------------
+    out = {}
+    q, k, v, g, valid = _patch_inputs(torch, 7, 2, 16384, 16384, d, dv, bf16,
+                                      dead=False)
+    o, lse = launch_fwd(q, k, valid, v, 10.0, want_lse=True)
+    delta = (g.float() * o.float()).sum(-1)
+    ms = {
+        "fwd": _time_ms(torch, lambda: patch_attention(
+            q, k, valid, v, softmax_scale=10.0), 3),
+        "fwd_lse": _time_ms(torch, lambda: launch_fwd(
+            q, k, valid, v, 10.0, want_lse=True), 3),
+        "dq": _time_ms(torch, lambda: launch_dq(
+            q, k, valid, v, g, lse, delta, 10.0), 3),
+        "dkv": _time_ms(torch, lambda: launch_dkv(
+            q, k, valid, v, g, lse, delta, 10.0), 3),
+        "bwd": _time_ms(torch, lambda: patch_attention_bwd(
+            q, k, valid, v, o, lse, g, softmax_scale=10.0), 2)}
+    plain = {
+        "fwd": _time_ms(torch, lambda: patch_attention_plain(
+            q, k, valid, v, softmax_scale=10.0), 2),
+        "bwd": _time_ms(torch, lambda: patch_attention_bwd_plain(
+            q, k, valid, v, o, lse, g, softmax_scale=10.0), 2)}
+    backend, lib_fwd, lib_bwd = _sdpa_yardstick(torch, q, k, valid, v, g)
+    bounds = _patch_bounds(valid, 16384, d, dv, 2)
+    del q, k, v, g, valid, o, lse, delta
+    torch.cuda.empty_cache()
+    q, k, v, g, valid = _patch_inputs(torch, 8, 1, 65536, 65536, d, dv, bf16,
+                                      dead=False)
+    o, lse = launch_fwd(q, k, valid, v, 10.0, want_lse=True)
+    delta = (g.float() * o.float()).sum(-1)
+    big = {
+        "fwd": _time_ms(torch, lambda: patch_attention(
+            q, k, valid, v, softmax_scale=10.0), 1),
+        "dq": _time_ms(torch, lambda: launch_dq(
+            q, k, valid, v, g, lse, delta, 10.0), 1),
+        "dkv": _time_ms(torch, lambda: launch_dkv(
+            q, k, valid, v, g, lse, delta, 10.0), 1)}
+    big_bounds = _patch_bounds(valid, 65536, d, dv, 2)
+    del q, k, v, g, valid, o, lse, delta
+    torch.cuda.empty_cache()
+    for kname in ("fwd", "dq", "dkv"):
+        n_bytes, n_ops = bounds[kname]
+        bound, by = _bound_ms(n_bytes, n_ops, H100_BF16_FLOPS)
+        b_bytes, b_ops = big_bounds[kname]
+        big_bound, big_by = _bound_ms(b_bytes, b_ops, H100_BF16_FLOPS)
+        errs = res["L16384_bfloat16"]
+        err = {"fwd": errs["out"], "dq": errs["dq"], "dkv": max(
+            errs["dk"], errs["dv"], key=lambda e: e[0] / max(e[1], 1.0))}[
+                kname]
+        err32 = res["L16384_float32"]
+        err32 = {"fwd": err32["out"], "dq": err32["dq"],
+                 "dkv": max(err32["dk"], err32["dv"],
+                            key=lambda e: e[0] / max(e[1], 1.0))}[kname]
+        out[kname] = dict(
+            ms=ms[kname], plain_ms=plain["fwd" if kname == "fwd" else "bwd"],
+            library_ms=lib_fwd if kname == "fwd" else lib_bwd,
+            library=f"SDPA ({backend}), additive mask"
+                    + ("" if kname == "fwd" else ", autograd backward: "
+                       "dq, dk and dv in one call"),
+            bound_ms=bound, bound_by=by, max_abs_err=err[0],
+            max_abs_err_of=err[1], max_abs_err_f32=err32[0],
+            tflops=n_ops / ms[kname] / 1e9, shape="B2 L16384 d1728 dv3072",
+            at_2048_map=dict(ms=big[kname], bound_ms=big_bound,
+                             bound_by=big_by,
+                             tflops=b_ops / big[kname] / 1e9,
+                             shape="B1 L65536 d1728 dv3072"))
+    out["fwd"]["with_lse_ms"] = ms["fwd_lse"]
+    out["bwd_ms"] = ms["bwd"]
+    out["checks"] = res
+    print(f"[2] patch attention bf16 ms at B2 L16384 d1728 dv3072: forward "
+          f"{ms['fwd']:.2f} (with lse {ms['fwd_lse']:.2f}; plain "
+          f"{plain['fwd']:.2f}; SDPA {backend} {lib_fwd}), dq {ms['dq']:.2f}, "
+          f"dkv {ms['dkv']:.2f}, whole backward {ms['bwd']:.2f} (plain "
+          f"{plain['bwd']:.2f}; SDPA backward {lib_bwd}); bounds " + ", ".join(
+              f"{kk} {out[kk]['bound_ms']:.2f} ({out[kk]['tflops']:.1f} "
+              f"TFLOP/s)" for kk in ("fwd", "dq", "dkv")) + f" | {smi}")
+    print(f"[2] patch attention bf16 ms at B1 L65536 (the 2048² map): "
+          + ", ".join(f"{kk} {big[kk]:.1f} (bound "
+                      f"{out[kk]['at_2048_map']['bound_ms']:.1f}, "
+                      f"{out[kk]['at_2048_map']['tflops']:.1f} TFLOP/s)"
+                      for kk in ("fwd", "dq", "dkv"))
+          + f"; checks took {check_s:.1f} s | {smi}")
+    print(f"[2] patch kernels: launches in these checks and timings (not "
+          f"counted for any path): {dict(dispatch.launches)}")
+    return out
+
+
+def compare_routes(torch, smi, maps=((128, 128), (128, 256), (256, 256))):
+    """Phase 2: where both the fused and the patch route hold (B 2, C 192
+    maps of L = 4096, 8192 and 16 384 cells at rate 2: the 512² image, a
+    512×1024 one and the 1024² one), time both, forward without gradient
+    and forward + backward in bf16, the forward in float32, taken in turns
+    (fused, patch, patch, fused)."""
+    from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.ops.contextual_attention import (
+        _FusedAttention,
+        _patch_route,
+        contextual_attention,
+    )
+    from gan_inpainting_torch.ops.kernels.fold import fold_taps
+    from gan_inpainting_torch.ops.kernels.fused_attention import (
+        FUSED_MAX_CELLS,
+        fused_attention_taps,
+        fused_supported,
+    )
+    from gan_inpainting_torch.ops.kernels.fused_attention_bwd import (
+        bwd_supported,
+    )
+
+    rng = np.random.default_rng(4)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for h, w in maps:
+            cells = (h // 2) * (w // 2)
+            x = torch.relu(torch.from_numpy(rng.standard_normal(
+                (2, h, w, 192)).astype(np.float32))).cuda().to(dtype)
+            hole = torch.from_numpy(_stroke_masks(rng, 2, h, w)[..., None]) \
+                .cuda()
+            g = torch.randn(x.shape, device="cuda", dtype=dtype)
+            _require(fused_supported(x.shape, 3, 2, x.dtype)
+                     and bwd_supported(h // 2, w // 2, 192, x.dtype),
+                     f"the fused route should hold at {h}x{w}")
+
+            def fwd(route):
+                with torch.no_grad():
+                    if route == "patch":
+                        return _patch_route(x, x, hole, 3, 2, 10.0)
+                    return fold_taps(fused_attention_taps(x, hole),
+                                     h // 2, w // 2, 2)
+
+            def train(route):
+                leaf = x.detach().requires_grad_(True)
+                y = (_FusedAttention.apply(leaf, hole, 3, 2, 10.0)
+                     if route == "fused"
+                     else _patch_route(leaf, leaf, hole, 3, 2, 10.0))
+                y.backward(g)
+                return leaf.grad
+
+            # the op's own choice follows the measured threshold
+            dispatch.reset_launches()
+            with torch.no_grad():
+                contextual_attention(x, x, hole)
+            took = ("fused" if dispatch.launches.get(
+                "contextual_attention_fused") else "patch")
+            _require(took == ("fused" if cells <= FUSED_MAX_CELLS
+                              else "patch"),
+                     f"contextual attention took the {took} route at L "
+                     f"{cells}")
+            with_bwd = dtype == torch.bfloat16
+            diff = (fwd("fused").float() - fwd("patch").float()).abs().max() \
+                .item()
+            times = {k: [] for k in ("fused_fwd", "patch_fwd", "fused_train",
+                                     "patch_train")}
+            for route in ("fused", "patch", "patch", "fused"):
+                times[f"{route}_fwd"].append(_time_ms(
+                    torch, lambda: fwd(route), 1))
+                if with_bwd:
+                    times[f"{route}_train"].append(_time_ms(
+                        torch, lambda: train(route), 1))
+            ms = {k: float(np.mean(v)) for k, v in times.items() if v}
+            key = f"{str(dtype)[6:]}_L{cells}"
+            out[key] = dict(ms=ms, turns=times, forward_diff=diff,
+                            route_taken=took)
+            print(f"[2] routes at B2 {h}x{w}x192 (L {cells}) {dtype}: "
+                  f"forward fused {ms['fused_fwd']:.2f} vs patch "
+                  f"{ms['patch_fwd']:.2f} ms" + (
+                      f"; forward + backward fused {ms['fused_train']:.2f} "
+                      f"vs patch {ms['patch_train']:.2f} ms" if with_bwd
+                      else "") + f"; outputs differ by {diff:.3e}; the op "
+                  f"takes the {took} route | {smi}")
+            del x, hole, g
+            torch.cuda.empty_cache()
+    return out
+
+
+def path_c(torch, rng, smi):
+    """Phase 7, path C: large maps. (a) serve the pinned generator at a
+    2048² bucket; (b) train places512_deepfill at 1×2048²; (c) the fused
+    forward whose backward plan does not hold."""
+    from gan_inpainting_torch.infer.inpaint import Inpainter
+    from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.ops.contextual_attention import _FusedAttention
+    from gan_inpainting_torch.ops.kernels.fused_attention import (
+        fused_supported,
+    )
+    from gan_inpainting_torch.ops.kernels.fused_attention_bwd import (
+        bwd_supported,
+        contextual_attention_bwd_plain,
+    )
+
+    out = {}
+    # ---- (a) serve one 1×2048² request, bf16 ------------------------------
+    inp = Inpainter.from_npz(NPZ, overrides=[
+        "model.fuse_upsample=true", "infer.size_buckets=256,512,2048",
+        "infer.batch_buckets=1"], device="cuda")
+    imgs = _smooth_images(rng, 1, 2048, 2048)
+    masks = _stroke_masks(rng, 1, 2048, 2048)
+    dispatch.reset_launches()
+    _known_exact(inp.inpaint_batch(imgs, masks), imgs, masks,
+                 "path C 1x2048²")
+    torch.cuda.synchronize()
+    serve_launches = dict(dispatch.launches)
+    _require(serve_launches.get("patch_attention_fwd", 0) == 1
+             and not serve_launches.get("contextual_attention_fused", 0),
+             f"path C serve: launches {serve_launches}, expected one "
+             "patch_attention_fwd and no fused attention")
+    lat = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inp.inpaint_batch(imgs, masks)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    out["serve_2048_ms"] = lat
+    out["serve_launches"] = serve_launches
+    print(f"[7] path C serve_v4_8 (pinned tex256_attn) 1x2048² bf16: known "
+          f"pixels bit-exact, holes filled; launches {serve_launches}; "
+          f"ms per request (host uint8 in/out) {[round(t, 1) for t in lat]} "
+          f"| {smi}")
+    del inp
+    torch.cuda.empty_cache()
+
+    # ---- (b) train places512_deepfill at 1×2048², bf16, 2 steps ----------
+    out.update(_path_c_train(torch, smi))
+    torch.cuda.empty_cache()
+
+    # ---- (c) fused forward, backward through the patch kernels ---------
+    # a float32 344² map at C 32 (hs = ws = 172): the fused forward's core
+    # group holds its 29 584 score columns, neither backward kernel's rows.
+    # The op itself routes a map this large to the patch route (above
+    # FUSED_MAX_CELLS), so the fused route's Function is driven directly.
+    x = torch.relu(torch.from_numpy(rng.standard_normal(
+        (1, 344, 344, 32)).astype(np.float32))).cuda()
+    hole = torch.from_numpy(_stroke_masks(rng, 1, 344, 344)[..., None]).cuda()
+    g = torch.randn(x.shape, device="cuda")
+    _require(fused_supported(x.shape, 3, 2, x.dtype)
+             and not bwd_supported(172, 172, 32, x.dtype),
+             "path C (c): the map should hold the fused forward only")
+    leaf = x.clone().requires_grad_(True)
+    dispatch.reset_launches()
+    y = _FusedAttention.apply(leaf, hole, 3, 2, 10.0)
+    y.backward(g)
+    torch.cuda.synchronize()
+    fb_launches = dict(dispatch.launches)
+    want = contextual_attention_bwd_plain(x, hole, g)
+    err = ((leaf.grad - want).abs().max().item()
+           / max(want.abs().max().item(), 1.0))
+    fb_launches = {k: v for k, v in fb_launches.items() if v}
+    _require(fb_launches == {"contextual_attention_fused": 1, "fold_taps": 1,
+                             "patch_attention_fwd": 1,
+                             "patch_attention_bwd_dq": 1,
+                             "patch_attention_bwd_dkv": 1},
+             f"path C (c): launches {fb_launches}")
+    _require(err <= BWD_F32_TOL_FRAC and bool(torch.isfinite(
+        leaf.grad).all()), f"path C (c): gradient error {err:.3e}")
+    out.update(fallback_launches=fb_launches, fallback_grad_err=err)
+    print(f"[7] path C fused forward + patch backward (f32 1x344x344x32): "
+          f"launches {fb_launches}; gradient vs plain {err:.3e} of max "
+          f"(tol {BWD_F32_TOL_FRAC:g})")
+    return out
+
+
+def _path_c_train(torch, smi):
+    """Path C (b): places512_deepfill at 1×2048², bf16, 2 steps from step
+    0 — metrics finite, launches per step, parameters moved, the attention
+    branch's gradient, ms per step and the peak memory."""
+    from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.train.step import composite
+
+    torch.cuda.reset_peak_memory_stats()
+    names = ("patch_attention_fwd", "patch_attention_bwd_dq",
+             "patch_attention_bwd_dkv", "contextual_attention_fused")
+    per_step = dict(zip(names, (2, 1, 1, 0)))
+    cfg, state, step_fn, batches = _train_setup(
+        torch, "places512_deepfill", TRAIN_512 + [
+            "data.image_size=2048", "data.batch_size=1"])
+    before = [p.detach().clone() for p in state.generator.parameters()]
+    n_steps = 2
+    dispatch.reset_launches()
+    history, step_ms = [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history.append({k: float(v) for k, v in
+                        step_fn(state, batches[i % 2]).items()})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    train_launches = dict(dispatch.launches)
+    for i, h in enumerate(history):
+        _require(all(np.isfinite(v) for v in h.values()),
+                 f"path C step {i} metrics not finite: {h}")
+    for name in names:
+        _require(train_launches.get(name, 0) == per_step[name] * n_steps,
+                 f"path C train: {train_launches.get(name, 0)} launches of "
+                 f"{name} in {n_steps} steps, expected {per_step[name]} per "
+                 "step")
+    moved = sum((a - b.detach()).float().abs().sum().item()
+                for a, b in zip(before, state.generator.parameters()))
+    _require(moved > 0, "path C: generator parameters did not move")
+    del before
+    b0 = batches[0]
+    fine = state.generator(b0.masked, b0.mask).fine
+    loss = (composite(fine, b0.image, b0.mask) - b0.image).abs().mean()
+    branch = list(state.generator.refine_attn_enc.parameters())
+    grads = torch.autograd.grad(loss, branch)
+    _require(all(bool(torch.isfinite(g_).all()) and g_.abs().max().item() > 0
+                 for g_ in grads),
+             "path C: the attention branch got no gradient")
+    del fine, loss, grads
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res = dict(train_step_ms=step_ms, train_launches=train_launches,
+               train_peak_gib=peak, metrics_step1=history[-1])
+    print(f"[7] path C train places512_deepfill 1x2048² bf16, 2 steps from "
+          f"step 0: metrics finite, step 1 {history[-1]}; launches "
+          f"{train_launches}; |Δ| G {moved:.4g}; attention-branch gradient "
+          f"nonzero; ms per step {[round(t, 1) for t in step_ms]} (step 0 "
+          f"with R1 and cuDNN autotuning); peak memory {peak:.1f} GiB | {smi}")
+    del state, step_fn, batches
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1293,6 +1871,9 @@ def main() -> int:
                             192, rng, smi)
     conv = check_conv_kernels(torch, rng, smi)
     torch.cuda.empty_cache()
+    patch = check_patch_kernels(torch, smi)
+    routes = compare_routes(torch, smi)
+    torch.cuda.empty_cache()
     at_256, at_512, (img1, msk1, cpu_f32) = serve(torch, rng, smi)
     torch.cuda.empty_cache()
     tr = train(torch, smi)
@@ -1301,6 +1882,8 @@ def main() -> int:
                                            cpu_f32)
     torch.cuda.empty_cache()
     path_b = partial_family(torch, rng, smi)
+    torch.cuda.empty_cache()
+    large = path_c(torch, rng, smi)
 
     def row(name, kernel, res, launches, source, replaces, **extra):
         return dict(name=name, route="cuda", source=source,
@@ -1356,7 +1939,26 @@ def main() -> int:
             launches_train=path_b["train_launches"]["partial_epilogue"],
             also={"partial_c192": conv["partial_c192"]}),
     ]
-    print(json.dumps({"kernels": kernels, "card": smi, "train": {
+    # ms, bound, plain and library at B 2, L 16 384 (the dense plain
+    # version fits there); the 2048² map's own shape under "at_2048_map".
+    # launches: path C's one 1×2048² request and its two train steps
+    tpu_pa = "gan_inpainting_tpu/ops/pallas/patch_attention.py"
+    pa_src = "gan_inpainting_torch/csrc/patch_attention.cu"
+    trained = large["train_launches"]
+    for name, kname, line in (("patch_attention_fwd", "fwd", 64),
+                              ("patch_attention_bwd_dq", "dq", 156),
+                              ("patch_attention_bwd_dkv", "dkv", 186)):
+        kernels.append(row(
+            f"{name}@B2_L16384", kname, patch,
+            large["serve_launches"].get(name, 0) + trained.get(name, 0),
+            pa_src, f"{tpu_pa}:{line}",
+            launches_serve=large["serve_launches"].get(name, 0),
+            launches_train=trained.get(name, 0)))
+    print(json.dumps({"kernels": kernels, "card": smi, "large_map": {
+        **large,
+        "routes": routes,
+        "patch_whole_backward_ms": patch["bwd_ms"],
+        "patch_checks": patch["checks"]}, "train": {
         "places512_deepfill_8x512_ms_per_step": tr["ms_512"],
         "celebahq256_attention_16x256_ms_per_step": tr["ms_256"],
         "phases_ms_512": tr["parts_512"], "phases_ms_256": tr["parts_256"],

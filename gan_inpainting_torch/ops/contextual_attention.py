@@ -12,13 +12,26 @@ refinement branch), NHWC.
    overlap counts.
 
 Under the ``pallas`` backend (what ``auto`` resolves to for this op,
-ops/dispatch.py) on a CUDA tensor with f is b (the generator's use) the op
-runs the fused attention kernel plus the fold kernel (ops/kernels/); where
-a gradient is wanted it is a ``torch.autograd.Function`` whose backward
-runs the two backward kernels (ops/kernels/fused_attention_bwd.py). On a
-CPU tensor, and under the ``xla`` backend on any device, it runs the plain
-composition below, which materializes the patches and the (Lq, Lk) score
-matrix and is differentiated by autograd.
+ops/dispatch.py) on a CUDA tensor the op follows the JAX package's routing
+(gan_inpainting_tpu/ops/contextual_attention.py:154-181) with the card's
+own limits:
+
+* f is b, the fused kernel holds the map (``fused_supported``) and the
+  map has at most ``FUSED_MAX_CELLS`` cells, above which the patch route
+  measured faster (``fused_route``): the fused attention kernel plus the
+  fold kernel (ops/kernels/); where a
+  gradient is wanted it is :class:`_FusedAttention`, whose backward runs
+  the two fused backward kernels where their plan holds
+  (``bwd_supported``) and otherwise differentiates the patch composition
+  through the patch-attention kernels;
+* anything else (f ≠ b, ksize ≠ 3, larger maps, maps beyond the fused
+  kernel's shared memory): the plain front end builds Q, K, V, the patch-attention kernels
+  (ops/kernels/patch_attention.py) attend, the plain fold ÷ counts folds,
+  and autograd differentiates front end and fold around the kernels.
+
+On a CPU tensor, and under the ``xla`` backend on any device, it runs the
+plain composition below, which materializes the patches and the (Lq, Lk)
+score matrix and is differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -30,6 +43,10 @@ from gan_inpainting_torch.ops.dispatch import (
     resolve_backend,
     section,
     use_kernel,
+)
+from gan_inpainting_torch.ops.kernels.patch_attention import (
+    attend,
+    patch_attention_plain,
 )
 from gan_inpainting_torch.ops.patches import extract_patches, fold_patches
 
@@ -83,35 +100,42 @@ def _attention_inputs(f, b, hole_mask, ksize: int, rate: int):
     return q, k, key_valid, v, (hs, ws)
 
 
-def _patch_attention_plain(q, k, key_valid, v, softmax_scale: float):
-    """Dense attention over patch vectors: materializes (Lq, Lk) scores.
-    Products in float32 (as the JAX path's ``preferred_element_type``);
-    the weights are rounded to V's dtype before the PV product."""
-    scores = torch.matmul(q.float(), k.float().transpose(1, 2))
-    bias = torch.where(key_valid, 0.0, NEG_INF)[:, None, :]
-    attn = torch.softmax(softmax_scale * scores + bias, dim=-1)
-    attn = attn * key_valid[:, None, :].to(attn.dtype)
-    out = torch.matmul(attn.to(v.dtype).float(), v.float())
-    return out.to(v.dtype)
-
-
 def contextual_attention_plain(f, b, hole_mask, *, ksize: int = 3,
                                rate: int = 2, softmax_scale: float = 10.0):
     """The plain composition: patches, dense attention, fold ÷ counts."""
     bsz, h, w, c = f.shape
     q, k, key_valid, v, (hs, ws) = _attention_inputs(f, b, hole_mask, ksize,
                                                      rate)
-    yp = _patch_attention_plain(q, k, key_valid, v, softmax_scale)
-    yp = yp.reshape(bsz, hs, ws, 2 * rate, 2 * rate, c)
+    yp = patch_attention_plain(q, k, key_valid, v,
+                               softmax_scale=softmax_scale)
+    return _fold(yp, (bsz, h, w, c), rate).to(f.dtype)
+
+
+def _fold(yp, shape, rate: int):
+    """(B, Lq, 4r²C) output patches → (B, H, W, C): plain fold ÷ counts."""
+    bsz, h, w, c = shape
+    yp = yp.reshape(bsz, h // rate, w // rate, 2 * rate, 2 * rate, c)
     y, cnt = fold_patches(yp, rate, (h, w))
-    y = y / torch.clamp(cnt, min=1.0).to(y.dtype)
-    return y.to(f.dtype)
+    return y / torch.clamp(cnt, min=1.0).to(y.dtype)
+
+
+def _patch_route(f, b, hole_mask, ksize: int, rate: int,
+                 softmax_scale: float):
+    """Plain front end → patch-attention kernels → plain fold ÷ counts,
+    differentiated by autograd around the kernels' Function."""
+    q, k, key_valid, v, _ = _attention_inputs(f, b, hole_mask, ksize, rate)
+    yp = attend(q, k, key_valid, v, softmax_scale)
+    return _fold(yp, f.shape, rate)
 
 
 class _FusedAttention(torch.autograd.Function):
-    """Kernel + fold on a CUDA feature map, with the kernel backward. The
-    forward saves (b_feat, hole_mask, o_taps, lse); the hole mask gets no
-    gradient."""
+    """Fused kernel + fold on a CUDA feature map, with a kernel backward.
+    Where the fused backward's plan holds, the forward saves (b_feat,
+    hole_mask, o_taps, lse) and the backward runs the two fused backward
+    kernels; elsewhere it saves (b_feat, hole_mask) only and the backward
+    differentiates the patch composition, whose attention runs the patch
+    kernels (forward with lse, dQ, dK/dV), as the JAX package's
+    ``_fused_folded_bwd`` does. The hole mask gets no gradient."""
 
     @staticmethod
     def forward(ctx, b_feat, hole_mask, ksize, rate, softmax_scale):
@@ -119,14 +143,25 @@ class _FusedAttention(torch.autograd.Function):
         from gan_inpainting_torch.ops.kernels.fused_attention import (
             fused_attention_taps,
         )
+        from gan_inpainting_torch.ops.kernels.fused_attention_bwd import (
+            bwd_supported,
+        )
 
-        _, h, w, _ = b_feat.shape
-        taps, lse = fused_attention_taps(
-            b_feat, hole_mask, ksize=ksize, rate=rate,
-            softmax_scale=softmax_scale, want_lse=True)
-        ctx.save_for_backward(b_feat, hole_mask, taps, lse)
+        _, h, w, c = b_feat.shape
+        hs, ws = h // rate, w // rate
         ctx.args = (ksize, rate, softmax_scale)
-        return fold_taps(taps, h // rate, w // rate, rate)
+        ctx.in_kernel = bwd_supported(hs, ws, c, b_feat.dtype)
+        if ctx.in_kernel:
+            taps, lse = fused_attention_taps(
+                b_feat, hole_mask, ksize=ksize, rate=rate,
+                softmax_scale=softmax_scale, want_lse=True)
+            ctx.save_for_backward(b_feat, hole_mask, taps, lse)
+        else:
+            taps = fused_attention_taps(b_feat, hole_mask, ksize=ksize,
+                                        rate=rate,
+                                        softmax_scale=softmax_scale)
+            ctx.save_for_backward(b_feat, hole_mask)
+        return fold_taps(taps, hs, ws, rate)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -135,12 +170,20 @@ class _FusedAttention(torch.autograd.Function):
             contextual_attention_bwd,
         )
 
-        b_feat, hole_mask, taps, lse = ctx.saved_tensors
         ksize, rate, softmax_scale = ctx.args
         with section("attention_backward"):
-            db = contextual_attention_bwd(
-                b_feat, hole_mask, taps, lse, g, ksize=ksize, rate=rate,
-                softmax_scale=softmax_scale)
+            if ctx.in_kernel:
+                b_feat, hole_mask, taps, lse = ctx.saved_tensors
+                db = contextual_attention_bwd(
+                    b_feat, hole_mask, taps, lse, g, ksize=ksize, rate=rate,
+                    softmax_scale=softmax_scale)
+            else:
+                b_feat, hole_mask = ctx.saved_tensors
+                with torch.enable_grad():
+                    x = b_feat.detach().requires_grad_(True)
+                    y = _patch_route(x, x, hole_mask, ksize, rate,
+                                     softmax_scale)
+                    (db,) = torch.autograd.grad(y, x, g.to(y.dtype))
         return db, None, None, None, None
 
 
@@ -162,10 +205,11 @@ def contextual_attention(f, b, hole_mask, *, ksize: int = 3, rate: int = 2,
         return contextual_attention_plain(f, b, hole_mask, ksize=ksize,
                                           rate=rate,
                                           softmax_scale=softmax_scale)
-    if f is not b:
-        raise NotImplementedError(
-            "contextual attention with f != b on CUDA needs the patch "
-            "attention kernel (ROADMAP Queue 2: patch_attention.py)")
+    from gan_inpainting_torch.ops.kernels.fused_attention import fused_route
+
+    if f is not b or not fused_route(b.shape, ksize, rate, b.dtype):
+        return _patch_route(f, b, hole_mask, ksize, rate,
+                            softmax_scale).to(f.dtype)
     from gan_inpainting_torch.ops.kernels.fold import fold_taps
     from gan_inpainting_torch.ops.kernels.fused_attention import (
         fused_attention_taps,

@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("contextual_attention", "contextual_attention_bwd", "fold",
-           "gated_conv", "partial_epilogue")
+           "gated_conv", "partial_epilogue", "patch_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -51,18 +51,25 @@ _MMA_WARPS = 8
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def plan_group(lk: int, c: int) -> int:
-    """Query cells per block of the core variant: the largest G whose
-    float32 score rows (G × Lk, padded to 4) plus one staged Q tap (G × C)
-    fit in shared memory. Raises for an Lk no block can hold."""
+def _group(lk: int, c: int) -> int | None:
     lk_pad = -(-lk // 4) * 4
     for g in _GROUPS:
         if g * (lk_pad + c) * 4 <= SMEM_BYTES:
             return g
+    return None
+
+
+def plan_group(lk: int, c: int) -> int:
+    """Query cells per block of the core variant: the largest G whose
+    float32 score rows (G × Lk, padded to 4) plus one staged Q tap (G × C)
+    fit in shared memory. Raises for an Lk no block can hold."""
+    g = _group(lk, c)
+    if g is not None:
+        return g
     raise ValueError(
         f"fused attention: a score row of Lk={lk} keys (C={c}) does not fit "
         f"in {SMEM_BYTES} bytes of shared memory; larger maps need the "
-        "flash variant (ROADMAP Queue 2)")
+        "flash variant: the patch-attention kernels")
 
 
 def _mma_smem_bytes(g: int, lb: int) -> int:
@@ -72,13 +79,8 @@ def _mma_smem_bytes(g: int, lb: int) -> int:
     return 6 * g * lb + _MMA_WARPS * 8 * 32 * 4 + 2 * g * 4
 
 
-def plan(hs: int, ws: int, c: int,
-         dtype: torch.dtype) -> tuple[str, int, int]:
-    """(variant, G, cluster): the tensor-core ``mma`` variant where its
-    tiles fit the shape, with G query cells per cluster of blocks that
-    split the Lk keys between them (the largest G, then the smallest
-    cluster, whose per-block share of the score rows fits in shared
-    memory); else ``core`` with G query cells per block and no cluster."""
+def _plan(hs: int, ws: int, c: int,
+          dtype: torch.dtype) -> tuple[str, int, int] | None:
     lk = hs * ws
     if (dtype == torch.bfloat16 and c % 64 == 0 and ws % 32 == 0
             and lk % 256 == 0):
@@ -87,7 +89,52 @@ def plan(hs: int, ws: int, c: int,
                 if (lk % (256 * cl) == 0
                         and _mma_smem_bytes(g, lk // cl) <= SMEM_BYTES):
                     return "mma", g, cl
-    return "core", plan_group(lk, c), 1
+    g = _group(lk, c)
+    return None if g is None else ("core", g, 1)
+
+
+def plan(hs: int, ws: int, c: int,
+         dtype: torch.dtype) -> tuple[str, int, int]:
+    """(variant, G, cluster): the tensor-core ``mma`` variant where its
+    tiles fit the shape, with G query cells per cluster of blocks that
+    split the Lk keys between them (the largest G, then the smallest
+    cluster, whose per-block share of the score rows fits in shared
+    memory); else ``core`` with G query cells per block and no cluster.
+    Raises for a map no block can hold."""
+    return _plan(hs, ws, c, dtype) or ("core", plan_group(hs * ws, c), 1)
+
+
+def fused_supported(shape, ksize: int, rate: int,
+                    dtype: torch.dtype) -> bool:
+    """Whether the fused kernel takes a (B, H, W, C) feature map on the
+    card: ksize 3, H and W divisible by ``rate``, C % 4 == 0, a dtype it
+    takes, and a map whose score rows :func:`plan` can hold. Elsewhere
+    contextual attention goes through the patch-attention kernels
+    (ops/kernels/patch_attention.py)."""
+    _, h, w, c = shape
+    if (ksize != 3 or h % rate or w % rate or c % 4
+            or dtype not in _DTYPES):
+        return False
+    return _plan(h // rate, w // rate, c, dtype) is not None
+
+
+# Largest map, in query cells (hs·ws), on which contextual attention takes
+# the fused route; on a larger one the patch route is faster wherever both
+# hold. Measured on one NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py
+# phase [2], B 2, C 192, bf16, the two routes in turns): at 4096 cells
+# forward 7.42 vs 7.50 ms, forward + backward 29.47 vs 34.10 (fused
+# first); at 8192 cells 35.85 vs 25.90 and 146.80 vs 116.25; at 16 384
+# cells 166.87 vs 94.69 and 667.40 vs 431.71.
+FUSED_MAX_CELLS = 4096
+
+
+def fused_route(shape, ksize: int, rate: int, dtype: torch.dtype) -> bool:
+    """Whether contextual attention with queries = keys takes the fused
+    route: :func:`fused_supported` and at most :data:`FUSED_MAX_CELLS`
+    cells."""
+    _, h, w, _ = shape
+    return (fused_supported(shape, ksize, rate, dtype)
+            and (h // rate) * (w // rate) <= FUSED_MAX_CELLS)
 
 
 def _prepare(b_feat: torch.Tensor, hole_mask: torch.Tensor, ksize: int,
@@ -133,12 +180,14 @@ def fused_attention_taps_plain(b_feat: torch.Tensor, hole_mask: torch.Tensor,
     over the valid keys, 0 for a query with no valid key."""
     from gan_inpainting_torch.ops.contextual_attention import (
         _attention_inputs,
-        _patch_attention_plain,
+    )
+    from gan_inpainting_torch.ops.kernels.patch_attention import (
+        patch_attention_plain,
     )
 
     q, k, valid, v, _ = _attention_inputs(b_feat, b_feat, hole_mask, ksize,
                                           rate)
-    yp = _patch_attention_plain(q, k, valid, v, softmax_scale)
+    yp = patch_attention_plain(q, k, valid, v, softmax_scale=softmax_scale)
     bsz, lq, _ = yp.shape
     c = b_feat.shape[-1]
     taps = yp.reshape(bsz, lq, 4 * rate * rate, c).permute(0, 2, 1, 3) \
@@ -234,3 +283,57 @@ def fused_attention_taps(b_feat: torch.Tensor, hole_mask: torch.Tensor, *,
     maps, bias, rnorm, (hs, ws) = _prepare(b_feat, hole_mask, ksize, rate)
     return _launch(maps, bias, rnorm, hs, ws, rate, softmax_scale,
                    want_lse=want_lse)
+
+
+class _FusedPatchAttention(torch.autograd.Function):
+    """The fused kernel's output in patch-major layout; the backward
+    rebuilds Q, K, V with the plain front end and differentiates the
+    patch-attention kernels (gan_inpainting_tpu/ops/pallas/
+    fused_attention.py ``_fused_attention_bwd``). Saves (b_feat,
+    hole_mask)."""
+
+    @staticmethod
+    def forward(ctx, b_feat, hole_mask, ksize, rate, softmax_scale):
+        ctx.save_for_backward(b_feat, hole_mask)
+        ctx.args = (ksize, rate, softmax_scale)
+        return _patch_major(fused_attention_taps(
+            b_feat, hole_mask, ksize=ksize, rate=rate,
+            softmax_scale=softmax_scale))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        from gan_inpainting_torch.ops.contextual_attention import (
+            _attention_inputs,
+        )
+        from gan_inpainting_torch.ops.kernels.patch_attention import attend
+
+        b_feat, hole_mask = ctx.saved_tensors
+        ksize, rate, softmax_scale = ctx.args
+        with torch.enable_grad():
+            x = b_feat.detach().requires_grad_(True)
+            q, k, valid, v, _ = _attention_inputs(x, x, hole_mask, ksize,
+                                                  rate)
+            yp = attend(q, k, valid, v, softmax_scale)
+            (db,) = torch.autograd.grad(yp, x, g.to(yp.dtype))
+        return db, None, None, None, None
+
+
+def _patch_major(taps: torch.Tensor) -> torch.Tensor:
+    bsz, n_taps, lq, c = taps.shape
+    return taps.permute(0, 2, 1, 3).reshape(bsz, lq, n_taps * c)
+
+
+def fused_patch_attention(b_feat: torch.Tensor, hole_mask: torch.Tensor, *,
+                          ksize: int = 3, rate: int = 2,
+                          softmax_scale: float = 10.0) -> torch.Tensor:
+    """Attention output patches (B, Lq, 4r²C) straight from the feature
+    map, queries = keys = ``b_feat`` (the unfolded entry of the JAX
+    package). Check :func:`fused_supported` first. Where a gradient is
+    wanted it goes through the patch-attention kernels."""
+    if torch.is_grad_enabled() and b_feat.requires_grad:
+        return _FusedPatchAttention.apply(b_feat.contiguous(), hole_mask,
+                                          ksize, rate, softmax_scale)
+    return _patch_major(fused_attention_taps(
+        b_feat, hole_mask, ksize=ksize, rate=rate,
+        softmax_scale=softmax_scale))

@@ -76,13 +76,8 @@ def _core_group(lk: int, c: int) -> int | None:
     return None
 
 
-def plan_bwd(hs: int, ws: int, c: int, dtype: torch.dtype,
-             which: str) -> tuple[str, int, int]:
-    """(variant, G, cluster) for the ``"dq"`` or ``"dkv"`` kernel: G rows
-    whose shared-memory rows of L columns fit (dQ keeps dsr; dK/dV keeps
-    dsr and p) — for the ``mma`` variant the largest G, then the smallest
-    cluster of blocks that split the columns; ``core`` has no cluster.
-    Raises for a map no block can hold."""
+def _plan_bwd(hs: int, ws: int, c: int, dtype: torch.dtype,
+              which: str) -> tuple[str, int, int] | None:
     lk = hs * ws
     n_rows = 1 if which == "dq" else 2
     if dtype == torch.bfloat16 and c % 64 == 0 and ws % 32 == 0:
@@ -93,12 +88,33 @@ def plan_bwd(hs: int, ws: int, c: int, dtype: torch.dtype,
                         + 12 * g <= SMEM_BYTES):
                     return "mma", g, cl
     g = _core_group(lk, c)
-    if g is not None:
-        return "core", g, 1
+    return None if g is None else ("core", g, 1)
+
+
+def plan_bwd(hs: int, ws: int, c: int, dtype: torch.dtype,
+             which: str) -> tuple[str, int, int]:
+    """(variant, G, cluster) for the ``"dq"`` or ``"dkv"`` kernel: G rows
+    whose shared-memory rows of L columns fit (dQ keeps dsr; dK/dV keeps
+    dsr and p) — for the ``mma`` variant the largest G, then the smallest
+    cluster of blocks that split the columns; ``core`` has no cluster.
+    Raises for a map no block can hold."""
+    chosen = _plan_bwd(hs, ws, c, dtype, which)
+    if chosen is not None:
+        return chosen
     raise ValueError(
-        f"fused attention backward: rows of L={lk} cells (C={c}) do not fit "
-        f"in {SMEM_BYTES} bytes of shared memory; larger maps need the "
-        "streaming patch-attention kernels (ROADMAP Queue 2)")
+        f"fused attention backward: rows of L={hs * ws} cells (C={c}) do "
+        f"not fit in {SMEM_BYTES} bytes of shared memory; such maps take "
+        "the patch-attention kernels (ROADMAP Queue 2 item 5)")
+
+
+def bwd_supported(hs: int, ws: int, c: int, dtype: torch.dtype) -> bool:
+    """Whether both backward kernels take the (hs, ws, C) map: C % 4 == 0,
+    a dtype they take, and rows that :func:`plan_bwd` can hold for dQ and
+    for dK/dV. Elsewhere the gradient goes through the patch-attention
+    kernels (ops/contextual_attention.py ``_FusedAttention``)."""
+    return (c % 4 == 0 and dtype in _DTYPES
+            and _plan_bwd(hs, ws, c, dtype, "dq") is not None
+            and _plan_bwd(hs, ws, c, dtype, "dkv") is not None)
 
 
 def prepare_bwd(b_feat: torch.Tensor, hole_mask: torch.Tensor,

@@ -9,8 +9,8 @@ Float32 tolerance 2e-4 at these small shapes; bfloat16 runs the kernel on
 bf16 inputs against the plain version in float32 on the same values, with
 2^-7 of the largest input as the tolerance (weights and outputs rounded to
 bf16). TF32 is off. The backward kernels and the trainer follow below,
-each with its tolerance, then the gated-conv kernels and the partial-conv
-epilogue kernel.
+each with its tolerance, then the gated-conv kernels, the partial-conv
+epilogue kernel and the patch-attention kernels with the routes into them.
 """
 
 import numpy as np
@@ -132,8 +132,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fused_attention_taps(f, hole, ksize=5)
     with pytest.raises(ValueError, match="C % 4"):
         fused_attention_taps(f[..., :3].contiguous(), hole)
-    with pytest.raises(NotImplementedError):
-        contextual_attention(f, f.clone(), hole)
+    # f ≠ b is taken: by the patch-attention kernels, not the fused one
+    b = f.flip(1).contiguous()
+    dispatch.reset_launches()
+    got = contextual_attention(f, b, hole)
+    assert dispatch.launches.get("patch_attention_fwd") == 1
+    assert dispatch.launches.get("contextual_attention_fused", 0) == 0
+    torch.testing.assert_close(got, contextual_attention_plain(f, b, hole),
+                               rtol=2e-4, atol=2e-4)
     taps = torch.zeros(1, 16, 64, 4, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         fold_taps(taps.transpose(2, 3).contiguous().transpose(2, 3), 8, 8, 2)
@@ -244,13 +250,19 @@ def test_attention_autograd_on_cuda_matches_plain(cuda, b, h, w, c, rate):
 
     f, hole, g, _, _, _ = _bwd_case(h + w, b, h, w, c, rate, cuda,
                                     torch.float32)
+    from gan_inpainting_torch.ops.kernels.fused_attention import fused_route
+
     x = f.clone().requires_grad_(True)
     dispatch.reset_launches()
     y = contextual_attention(x, x, hole, rate=rate)
     # a non-contiguous upstream gradient, as a following permute would give
     y.backward(g.transpose(1, 2).contiguous().transpose(1, 2))
-    assert dispatch.launches["contextual_attention_bwd_dq"] == 1
-    assert dispatch.launches["contextual_attention_bwd_dkv"] == 1
+    # maps above the measured threshold take the patch kernels
+    kind = ("contextual_attention_bwd" if fused_route(f.shape, 3, rate,
+                                                      f.dtype)
+            else "patch_attention_bwd")
+    assert dispatch.launches[f"{kind}_dq"] == 1
+    assert dispatch.launches[f"{kind}_dkv"] == 1
     want = contextual_attention_bwd_plain(f, hole, g, rate=rate)
     tol = 2e-4 * max(want.abs().max().item(), 1.0)
     assert (x.grad - want).abs().max().item() <= tol
@@ -260,7 +272,7 @@ def test_attention_autograd_on_cuda_matches_plain(cuda, b, h, w, c, rate):
     with torch.no_grad():
         dispatch.reset_launches()
         contextual_attention(x, x, hole, rate=rate)
-        assert dispatch.launches["contextual_attention_bwd_dq"] == 0
+        assert dispatch.launches.get(f"{kind}_dq", 0) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -578,3 +590,144 @@ def test_generators_on_cuda_agree_across_backends(cuda):
                         name, kname, dict(dispatch.launches))
         torch.testing.assert_close(outs["pallas"], outs["xla"], rtol=2e-4,
                                    atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# patch-attention kernels
+# ---------------------------------------------------------------------------
+# Float32 (core variant) against the plain versions, 2e-4 of the largest
+# entry (sums in another order). bfloat16 inputs against the plain versions
+# in float32 on the same values: 2^-7 of the largest entry for the forward
+# (p rounded to bf16 before the PV product), 2^-6 for the gradients (p and
+# ds rounded to bf16 for their products, which the JAX backward does not).
+
+PATCH_SHAPES = [
+    (2, 64, 64, 36, 48),        # d, dv not multiples of 16
+    (2, 130, 70, 36, 64),       # Lq, Lk ragged against every tile
+    (1, 200, 333, 72, 128),
+    (2, 96, 96, 1728, 3072),    # the full widths at C = 192: clusters of 8
+]
+
+
+def _patch_case(seed, b, lq, lk, d, dv, device, dtype):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, lq, d)).astype(np.float32)
+    k = rng.standard_normal((b, lk, d))
+    k = (k / np.linalg.norm(k, axis=-1, keepdims=True)).astype(np.float32)
+    v = rng.standard_normal((b, lk, dv)).astype(np.float32)
+    g = rng.standard_normal((b, lq, dv)).astype(np.float32)
+    valid = rng.random((b, lk)) < 0.7
+    valid[-1] = False                    # a sample with no valid key
+    q, k, v, g = (torch.from_numpy(a).to(device, dtype) for a in (q, k, v, g))
+    return q, k, torch.from_numpy(valid).to(device), v, g
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max().item()
+            / max(want.float().abs().max().item(), 1.0))
+
+
+@pytest.mark.parametrize("b,lq,lk,d,dv", PATCH_SHAPES)
+@pytest.mark.parametrize("dtype,variant", [
+    (torch.float32, "core"), (torch.bfloat16, "core"),
+    (torch.bfloat16, "mma")])
+def test_patch_attention_kernels_match_plain(cuda, b, lq, lk, d, dv, dtype,
+                                             variant):
+    from gan_inpainting_torch.ops.kernels.patch_attention import (
+        launch_dkv,
+        launch_dq,
+        launch_fwd,
+        patch_attention_bwd_plain,
+        patch_attention_plain,
+    )
+
+    q, k, valid, v, g = _patch_case(lq + d, b, lq, lk, d, dv, cuda, dtype)
+    out_k, lse_k = launch_fwd(q, k, valid, v, 10.0, want_lse=True,
+                              variant=variant)
+    out_p, lse_p = patch_attention_plain(q.float(), k.float(), valid,
+                                         v.float(), softmax_scale=10.0,
+                                         want_lse=True)
+    f_tol = 2e-4 if dtype == torch.float32 else 2.0 ** -7
+    b_tol = 2e-4 if dtype == torch.float32 else 2.0 ** -6
+    torch.cuda.synchronize()
+    assert out_k.dtype == dtype and _rel(out_k, out_p) <= f_tol
+    assert (lse_k - lse_p).abs().max().item() <= 1e-3
+    assert out_k[-1].abs().max().item() == 0.0
+    assert lse_k[-1].abs().max().item() == 0.0
+    # the backward from the plain forward's residuals
+    out = out_p.to(dtype)
+    delta = (g.float() * out.float()).sum(-1)
+    dq = launch_dq(q, k, valid, v, g, lse_p, delta, 10.0, variant=variant)
+    dk, dv_ = launch_dkv(q, k, valid, v, g, lse_p, delta, 10.0,
+                         variant=variant)
+    want = patch_attention_bwd_plain(q.float(), k.float(), valid, v.float(),
+                                     out.float(), lse_p, g.float(),
+                                     softmax_scale=10.0, keep_float=True)
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv_), want):
+        assert got.dtype == dtype and torch.isfinite(got.float()).all()
+        assert _rel(got, ref) <= b_tol, (name, _rel(got, ref))
+        assert got[-1].abs().max().item() == 0.0, name
+
+
+def test_patch_attention_autograd_on_cuda(cuda):
+    from gan_inpainting_torch.ops.kernels.patch_attention import (
+        attend,
+        patch_attention_plain,
+    )
+
+    q, k, valid, v, g = _patch_case(3, 2, 100, 90, 72, 64, cuda,
+                                    torch.float32)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    dispatch.reset_launches()
+    y = attend(leaves[0], leaves[1], valid, leaves[2], 10.0)
+    y.backward(g)
+    # reset_launches keeps the names earlier tests launched, at 0
+    assert {name: n for name, n in dispatch.launches.items() if n} == {
+        "patch_attention_fwd": 1, "patch_attention_bwd_dq": 1,
+        "patch_attention_bwd_dkv": 1}
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    patch_attention_plain(ref[0], ref[1], valid, ref[2],
+                          softmax_scale=10.0).backward(g)
+    for a, b_ in zip(leaves, ref):
+        assert _rel(a.grad, b_.grad) <= 2e-4
+
+
+@pytest.mark.parametrize("case", ["f_not_b", "ksize5", "no_fused_bwd"])
+def test_contextual_attention_patch_routes_on_cuda(cuda, case, monkeypatch):
+    """Every route into the patch kernels: f ≠ b, ksize ≠ 3, and the fused
+    forward whose backward plan is refused."""
+    from gan_inpainting_torch.ops.kernels import fused_attention_bwd as fab
+    from gan_inpainting_torch.ops.kernels.fused_attention_bwd import (
+        contextual_attention_bwd_plain,
+    )
+
+    f, hole = _case(7, 3, 32, 32, 8, cuda)
+    rng = np.random.default_rng(8)
+    g = torch.from_numpy(rng.standard_normal(f.shape).astype(
+        np.float32)).to(cuda)
+    ksize = 5 if case == "ksize5" else 3
+    if case == "no_fused_bwd":
+        monkeypatch.setattr(fab, "bwd_supported", lambda *a: False)
+    x = f.clone().requires_grad_(True)
+    other = x.flip(2) if case == "f_not_b" else x
+    dispatch.reset_launches()
+    y = contextual_attention(x, other, hole, ksize=ksize)
+    y.backward(g)
+    fused = 1 if case == "no_fused_bwd" else 0
+    assert dispatch.launches.get("contextual_attention_fused", 0) == fused
+    assert dispatch.launches.get("contextual_attention_bwd_dq", 0) == 0
+    for name in ("patch_attention_fwd", "patch_attention_bwd_dq",
+                 "patch_attention_bwd_dkv"):
+        assert dispatch.launches.get(name) == 1, name
+    want_y = contextual_attention_plain(f, f.flip(2) if case == "f_not_b"
+                                        else f, hole, ksize=ksize)
+    torch.testing.assert_close(y.detach(), want_y, rtol=2e-4, atol=2e-4)
+    if case == "f_not_b":
+        ref = f.clone().requires_grad_(True)
+        contextual_attention_plain(ref, ref.flip(2), hole).backward(g)
+        want = ref.grad
+    else:
+        want = contextual_attention_bwd_plain(f, hole, g, ksize=ksize)
+    assert _rel(x.grad, want) <= 2e-4
+    assert x.grad[1].abs().max().item() == 0.0

@@ -41,9 +41,10 @@ def test_port_imports_no_jax():
         for name in ("ops.partial_conv", "ops.s2d_conv", "ops.gated_conv",
                      "ops.kernels.partial_epilogue", "ops.kernels.direct_conv",
                      "ops.kernels.gated_matmul", "losses.perceptual",
-                     "tools.profile_serve"):
+                     "tools.profile_serve", "ops.kernels.patch_attention"):
             assert "gan_inpainting_torch." + name in sys.modules, name
-        assert set(build.SOURCES) >= {"gated_conv", "partial_epilogue"}
+        assert set(build.SOURCES) >= {"gated_conv", "partial_epilogue",
+                                      "patch_attention"}
         assert all((build.CSRC / (n + ".cu")).exists() for n in build.SOURCES)
         import chip_smoke
         import torch
