@@ -163,6 +163,26 @@ def _bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _im2col_rows(x, k, stride, dil):
+    """(B, H, W, C) → (1, 1, B·Ho·Wo, k²·C) TF-SAME im2col rows, taps
+    outermost: the Pallas kernel's operand, timed as a yardstick against
+    the strided route of the gated-conv kernel."""
+    import torch.nn.functional as F
+
+    from gan_inpainting_torch.ops.patches import same_pads
+
+    _, h, w, _ = x.shape
+    eff = (k - 1) * dil + 1
+    ph, pw = same_pads(h, eff, stride), same_pads(w, eff, stride)
+    xp = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+    b, _, _, c = xp.shape
+    sb, sh, sw, sc = xp.stride()
+    ho, wo = -(-h // stride), -(-w // stride)
+    taps = xp.as_strided((b, ho, wo, k, k, c), (
+        sb, sh * stride, sw * stride, sh * dil, sw * dil, sc))
+    return taps.reshape(1, 1, b * ho * wo, k * k * c)
+
+
 def check_kernels(torch, shape_name, bsz, hw, c, rng, smi):
     """Phase 2 at one shape: both kernels against their plain versions."""
     import torch.nn.functional as F
@@ -477,14 +497,8 @@ def check_conv_kernels(torch, rng, smi):
         gated_conv,
         gated_conv_plain,
     )
+    from gan_inpainting_torch.ops.kernels import gated_matmul as gm
     from gan_inpainting_torch.ops.kernels.direct_conv import launch_direct
-    from gan_inpainting_torch.ops.kernels.gated_matmul import (
-        _im2col,
-        launch_matmul,
-        pack_weights,
-        pad_channels,
-        plan,
-    )
     from gan_inpainting_torch.ops.kernels.partial_epilogue import (
         partial_conv_epilogue,
         partial_conv_epilogue_plain,
@@ -533,45 +547,78 @@ def check_conv_kernels(torch, rng, smi):
         lib_ms = _time_ms(torch, lambda: conv2d(xb, wb, bias, stride=stride,
                                                 dilation=dil), reps)
         # the bound is the function's: x and the weights read once, the
-        # output written once, 2·M·K·2F operations. What a route moves on
-        # top of that (the im2col below) is reported beside it.
+        # output written once, 2·M·K·2F operations (the im2col rows of the
+        # yardstick route below are not in it).
         m = b * ho * ho
         k_dim = k * k * cin
         n_bytes = (xb.numel() + wb.numel() + m * f) * 2 + bias.numel() * 4
         extra = {}
-        cin_pad, kc, bn, fp = plan(cin, f, bf16)
-        wp = pack_weights(wb, kc, fp, cin_pad)
-        xp = pad_channels(xb, cin_pad)
+        p = gm.plan(cin, f, bf16)
+        wp = gm.pack_weights(wb, p)
+        xp = gm.pad_channels(xb, p.cin_pad)
         if stride == 1 and k % 2:
+            tile = gm.a_tile(p, b, ho, ho, 1)
             kernel_ms = _time_ms(torch, lambda: launch_direct(
-                xp, wp, bias, f, k, dil, bn, act), reps)
+                xp, wp, bias, f, k, dil, p, act), reps)
         else:
-            cols, _ = _im2col(xp, k, stride, dil)
-            x2d = cols.reshape(m, k * k * cin_pad)
-            kernel_ms = _time_ms(torch, lambda: launch_matmul(
-                x2d, wp, bias, f, bn, act), reps)
-            del cols, x2d
-            # the im2col, written by the host prep and read by the kernel:
-            # traffic of this route, kept out of the bound
-            extra = dict(
-                im2col_bytes=2 * m * k * k * cin_pad * 2,
-                im2col_ms=_time_ms(torch, lambda: _im2col(
-                    xp, k, stride, dil)[0].reshape(m, k * k * cin_pad), reps))
+            # the route the wrapper takes (the strided taps of the map) and,
+            # in turns with it (A B B A), the kernel over materialized
+            # im2col rows as a flat 1×1 map — the Pallas kernel's route
+            cols = _im2col_rows(xp, k, stride, dil)
+            dense = p._replace(kpt=p.cin_pad)      # the im2col's K order
+            flat = dense._replace(kpt=cols.shape[-1])
+            wpd = gm.pack_weights(wb, dense)
+            g_flat = gm.ConvGeom(1, 1, 1, 0, 0, 1, m)
+            runs = {"im2col": lambda: gm.launch_gated(
+                        cols, wpd, bias, f, g_flat, flat, act, gm.KERNEL),
+                    "strided": lambda: gm.launch_strided(
+                        xp, wp, bias, f, k, stride, dil, p, act)}
+            wraps = {"im2col": lambda: gm.launch_gated(
+                         _im2col_rows(xp, k, stride, dil), wpd, bias, f,
+                         g_flat, flat, act, gm.KERNEL),
+                     "strided": lambda: gated_conv(xb, wb, bias,
+                                                   backend="pallas", **kw)}
+            want_flat = gated_conv_plain(xb.float(), wb.float(), bias, **kw)
+            errs = {r: (run().float().reshape(want_flat.shape)
+                        - want_flat).abs().max().item()
+                    for r, run in runs.items()}
+            _require(max(errs.values()) <= CONV_BF16_TOL_FRAC * ref,
+                     f"{name}: a strided route disagrees ({errs})")
+            errb = max(errb, *errs.values())
+            kt = {r: [] for r in runs}
+            wt = {r: [] for r in runs}
+            for r in ("im2col", "strided", "strided", "im2col"):
+                kt[r].append(_time_ms(torch, runs[r], reps))
+                wt[r].append(_time_ms(torch, wraps[r], reps))
+            tile = gm.a_tile(p, b, ho, ho, stride)
+            kernel_ms = float(np.mean(kt["strided"]))
+            del cols
+            extra = dict(routes={r: dict(kernel_ms=kt[r], wrapper_ms=wt[r])
+                                 for r in runs})
+            print(f"[2] {name}: routes in turns (im2col, strided, strided, "
+                  f"im2col), ms kernel / with its host prep: " + "; ".join(
+                      f"{r} {' '.join(f'{t:.3f}' for t in kt[r])} / "
+                      f"{' '.join(f'{t:.3f}' for t in wt[r])}" for r in runs)
+                  + f"; the wrapper takes the strided taps; max_abs_err "
+                  f"{errs}")
         bound, by = _bound_ms(n_bytes, 2.0 * m * k_dim * 2 * f,
                               H100_BF16_FLOPS)
         tflops = 2.0 * m * k_dim * 2 * f / kernel_ms / 1e9
+        flop_per_byte = 1.0 / gm.fill_bytes_per_flop(p)
+        a_path = f"TMA box {tile}" if tile else "cp.async gather"
         print(f"[2] {name}: max_abs_err f32 {err32:.3e} (tol "
               f"{CONV_F32_TOL_FRAC * ref:.3e}) bf16 {errb:.3e} (tol "
               f"{CONV_BF16_TOL_FRAC * ref:.3e}); bf16 ms {ms:.3f} (kernel "
-              f"only {kernel_ms:.3f} = {tflops:.1f} TFLOP/s, Cin padded to "
-              f"{cin_pad}, KC={kc} BN={bn}), plain {plain_ms:.3f}, conv2d+bias "
-              f"alone {lib_ms:.3f}, bound {bound:.4f} by {by}"
-              + "".join(f", {k_} {v:.4g}" for k_, v in extra.items())
-              + f" | {smi}")
+              f"only {kernel_ms:.3f} = {tflops:.1f} TFLOP/s; plan {p}, A by "
+              f"{a_path}, {flop_per_byte:.1f} FLOP per byte filled), plain "
+              f"{plain_ms:.3f}, conv2d+bias alone {lib_ms:.3f}, bound "
+              f"{bound:.4f} by {by} | {smi}")
         return dict(ms=ms, kernel_only_ms=kernel_ms, plain_ms=plain_ms,
                     library_ms=lib_ms, bound_ms=bound, bound_by=by,
                     max_abs_err=errb, max_abs_err_f32=err32,
-                    shape=name, cin_pad=cin_pad, kc=kc, block_n=bn, **extra)
+                    shape=name, plan=p._asdict(), a_path=a_path,
+                    tflops=tflops, flop_per_fill_byte=flop_per_byte,
+                    **extra)
 
     out["direct_d1"] = gated("gated_conv_direct 192->2x192 3x3 d1 64x64² ",
                              64, 64, 192, 192, 3, 1, 1, 10)
@@ -581,11 +628,12 @@ def check_conv_kernels(torch, rng, smi):
                                8, 256, 4, 48, 5, 1, 1, 10)
     out["matmul_s2"] = gated("gated_matmul 96->2x192 3x3 s2 64x128²->64²",
                              64, 128, 96, 192, 3, 2, 1, 10)
-    # the other forms of path A: the 32-column blocks (F = 96 and F = 24),
-    # Cin = 48 and 384, the relu epilogue, the first stride-2 conv
-    out["direct_f96"] = gated("gated_conv_direct 96->2x96 3x3 64x128² (BN32)",
+    # the other forms of path A: F = 96 and F = 24 (wgmma N 192 and 48),
+    # Cin = 48 (gathered) and 384, the relu epilogue, the first stride-2
+    # conv
+    out["direct_f96"] = gated("gated_conv_direct 96->2x96 3x3 64x128²      ",
                               64, 128, 96, 96, 3, 1, 1, 5)
-    out["direct_f24"] = gated("gated_conv_direct 48->2x24 3x3 16x256² (BN32)",
+    out["direct_f24"] = gated("gated_conv_direct 48->2x24 3x3 16x256²      ",
                               16, 256, 48, 24, 3, 1, 1, 5)
     out["direct_c384"] = gated("gated_conv_direct 384->2x192 3x3 64x64²   ",
                                64, 64, 384, 192, 3, 1, 1, 5)
@@ -696,6 +744,7 @@ def train(torch, smi):
 
     from gan_inpainting_torch.io.checkpoint import CheckpointManager
     from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.tools.profile_train import time_steps
     from gan_inpainting_torch.train.state import create_state
     from gan_inpainting_torch.train.step import composite
 
@@ -792,6 +841,37 @@ def train(torch, smi):
           f"{ {k: round(v, 1) for k, v in parts_512.items()} }; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB "
           f"| {smi}")
+    # ---- AUTO_CUDA["gated_conv"] on this step: the library composition
+    # and the kernels (whose backward recomputes through the library), in
+    # turns A B B A, 4 steps each without R1, after two warm steps each
+    saved, at = dispatch.AUTO_CUDA["gated_conv"], state.step
+    gated_turns = {"xla": [], "pallas": []}
+    gated_launches = {}
+    for choice in ("xla", "pallas", "xla", "pallas", "pallas", "xla"):
+        dispatch.AUTO_CUDA["gated_conv"] = choice
+        state.step = 1
+        if choice not in gated_launches:
+            dispatch.reset_launches()
+            for i in range(2):
+                step_fn(state, batches[i])
+            torch.cuda.synchronize()
+            gated_launches[choice] = {
+                k: v // 2 for k, v in dispatch.launches.items()
+                if k in ("gated_conv_direct", "gated_matmul")}
+            continue
+        gated_turns[choice].append(time_steps(step_fn, state, batches, 4))
+    dispatch.AUTO_CUDA["gated_conv"], state.step = saved, at
+    _require(not any(gated_launches["xla"].values())
+             and gated_launches["pallas"].get("gated_conv_direct", 0) > 0
+             and gated_launches["pallas"].get("gated_matmul", 0) > 0,
+             f"gated-conv launches per step {gated_launches}")
+    gain, spread = _decide(gated_turns["xla"], gated_turns["pallas"])
+    print(f"[4] {cfg.data.batch_size}x512² step ms with "
+          f"AUTO_CUDA['gated_conv'] = xla {gated_turns['xla']} / pallas "
+          f"{gated_turns['pallas']} (in turns; pallas launches per step "
+          f"{gated_launches['pallas']}): pallas "
+          f"{'slower' if gain < 0 else 'faster'} by {abs(gain):.1f} ms, "
+          f"spread {spread:.1f} ms | {smi}")
     del state, step_fn, batches, before
     torch.cuda.empty_cache()
 
@@ -861,7 +941,8 @@ def train(torch, smi):
           f"{drift:.3e})")
     return dict(launches_512=launches_512, launches_256=launches_256,
                 ms_512=ms_512, ms_256=ms_256, parts_512=parts_512,
-                parts_256=parts_256)
+                parts_256=parts_256, gated_turns_512=gated_turns,
+                gated_launches_512=gated_launches)
 
 
 def serve(torch, rng, smi):
@@ -970,21 +1051,28 @@ def _within_one(a, b):
     return float((diff <= 1).mean()), int(diff.max())
 
 
-def _serve_rates(torch, inpainters, imgs, masks, reps=3):
+def _serve_rates(torch, inpainters, imgs, masks, reps=3, gated=None):
     """img/s of each Inpainter at one batch: through ``inpaint_batch`` and
-    of the device forward alone; taken in turns, A B C C B A. Each entry
-    also holds the uint8 ``output`` of the batch."""
+    of the device forward alone; taken in turns, A B C C B A. ``gated``
+    names, per entry, the value of ``AUTO_CUDA["gated_conv"]`` during its
+    turns. Each entry also holds the uint8 ``output`` of the batch and the
+    forward ms of each turn."""
+    from gan_inpainting_torch.ops import dispatch
+
     dev_img = torch.from_numpy(imgs).cuda()
     dev_msk = torch.from_numpy(masks[..., None]).cuda()
     n = imgs.shape[0]
     api = {k: [] for k in inpainters}
     fwd = {k: [] for k in inpainters}
-    # first use of the bucket
-    outputs = {k: inp.inpaint_batch(imgs, masks)
-               for k, inp in inpainters.items()}
-    order = list(inpainters) + list(inpainters)[::-1]
-    for k in order:
+    saved = dispatch.AUTO_CUDA["gated_conv"]
+    gated = gated or {}
+    outputs = {}
+    for k in list(inpainters) + list(inpainters) + list(inpainters)[::-1]:
         inp = inpainters[k]
+        dispatch.AUTO_CUDA["gated_conv"] = gated.get(k, saved)
+        if k not in outputs:           # first use of the bucket
+            outputs[k] = inp.inpaint_batch(imgs, masks)
+            continue
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -993,11 +1081,20 @@ def _serve_rates(torch, inpainters, imgs, masks, reps=3):
         api[k].append((time.perf_counter() - t0) / reps)
         f = inp._forward(inp._cfg_for_size(imgs.shape[1]).model.fuse_upsample)
         fwd[k].append(_time_ms(torch, lambda: f(dev_img, dev_msk), reps))
+    dispatch.AUTO_CUDA["gated_conv"] = saved
     return {k: dict(api_img_s=n / float(np.mean(api[k])),
-                    fwd_ms=float(np.mean(fwd[k])),
+                    fwd_ms=float(np.mean(fwd[k])), fwd_turns_ms=fwd[k],
                     fwd_img_s=n * 1e3 / float(np.mean(fwd[k])),
                     output=outputs[k])
             for k in inpainters}
+
+
+def _decide(turns_a, turns_b):
+    """(mean of a − mean of b, the larger spread of the two): b gains when
+    the first exceeds the second."""
+    gain = float(np.mean(turns_a) - np.mean(turns_b))
+    spread = max(max(t) - min(t) for t in (turns_a, turns_b))
+    return gain, float(spread)
 
 
 def _hole_agreement(a, b, masks):
@@ -1074,8 +1171,12 @@ def serve_kernel_backend(torch, rng, smi, img1, msk1, cpu_f32):
     # ---- throughput, 64×256² bf16, the three backend values --------------
     imgs = _smooth_images(rng, 64, 256, 256)
     masks = _stroke_masks(rng, 64, 256, 256)
+    auto = load("auto")
     rates = _serve_rates(torch, {"pallas": inp, "xla": load("xla"),
-                                 "auto": load("auto")}, imgs, masks)
+                                 "auto[gated=xla]": auto,
+                                 "auto[gated=pallas]": auto}, imgs, masks,
+                         gated={"auto[gated=xla]": "xla",
+                                "auto[gated=pallas]": "pallas"})
     # the timed configuration itself: bf16 through every kernel variant and
     # block width of the 35 layers (WMMA, BN 32 and 64, elu and relu)
     # against the library composition on the same 64 images. bf16 rounding
@@ -1092,6 +1193,17 @@ def serve_kernel_backend(torch, rng, smi, img1, msk1, cpu_f32):
               f"{k} {r['fwd_ms']:.2f} / {r['fwd_img_s']:.1f} "
               f"({r['api_img_s']:.1f})" for k, r in rates.items())
           + f" | {smi}")
+    gain, spread = _decide(rates["auto[gated=xla]"]["fwd_turns_ms"],
+                           rates["auto[gated=pallas]"]["fwd_turns_ms"])
+    rates["gated_conv_decision"] = dict(
+        pallas_gain_ms=gain, spread_ms=spread, gains=gain > spread,
+        auto_cuda=dispatch.AUTO_CUDA["gated_conv"])
+    print(f"[5] AUTO_CUDA['gated_conv']: the kernels take the forward "
+          f"{gain:.2f} ms below the library composition (turns "
+          f"{rates['auto[gated=xla]']['fwd_turns_ms']} / "
+          f"{rates['auto[gated=pallas]']['fwd_turns_ms']}), spread "
+          f"{spread:.2f} ms: {'a gain' if gain > spread else 'no gain'}; "
+          f"set to {dispatch.AUTO_CUDA['gated_conv']!r}")
     return total, rates
 
 
@@ -1859,6 +1971,20 @@ def main() -> int:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"[1] ptxas {name}: {len(regs)} kernels, e.g. "
               f"{regs[0] if regs else 'no ptxas report'}")
+    # the gated-conv kernels one by one, and the wgmma instructions in the
+    # SASS of each bf16 variant
+    hgmma = {fn: n for fn, n in build.sass_counts("gated_conv",
+                                                  "HGMMA").items()}
+    for fn, used, spills in build.ptxas_report("gated_conv"):
+        short = fn[fn.find("gated_"):].split("EE")[0]   # name + template
+        print(f"[1] ptxas gated_conv {short}: {used}; {spills}; "
+              f"HGMMA in SASS {hgmma.get(fn, 0)}")
+    for line in build.build_log.get("gated_conv", "").splitlines():
+        if "warning" in line.lower() or "serialized" in line:
+            print(f"[1] ptxas gated_conv: {line.strip()}")
+    _require(all(n > 0 for fn, n in hgmma.items() if "wgmma" in fn)
+             and any("wgmma" in fn for fn in hgmma),
+             "the bf16 gated-conv kernels hold no HGMMA instruction")
 
     rng = np.random.default_rng(0)
     res256 = check_kernels(torch, "256² (B=8, 64x64x192)", 8, 64, 192, rng,
@@ -1960,6 +2086,7 @@ def main() -> int:
         "patch_whole_backward_ms": patch["bwd_ms"],
         "patch_checks": patch["checks"]}, "train": {
         "places512_deepfill_8x512_ms_per_step": tr["ms_512"],
+        "places512_deepfill_8x512_gated_conv_turns_ms": tr["gated_turns_512"],
         "celebahq256_attention_16x256_ms_per_step": tr["ms_256"],
         "phases_ms_512": tr["parts_512"], "phases_ms_256": tr["parts_256"],
         "partialconv256_16x256_ms_per_step": path_b["train_ms"]},

@@ -91,6 +91,13 @@ class InpaintConv(nn.Module):
                        else upsample2x_conv2d_epilogue)
             y = rewrite(x, self.weight, lambda m: self._epilogue(m + bias))
             return y, valid
+        if self.conv_kind == "gated":
+            # the float32 parameter itself: conv2d casts it, and the kernel
+            # path keeps one packed copy per parameter version
+            y = gated_conv(x, self.weight, self.bias, stride=self.stride,
+                           dilation=self.dilation, activation=self.activation,
+                           backend=self.backend)
+            return y, _resize_valid(valid, self.stride)
         weight = self.weight.to(self.compute_dtype)
         if self.conv_kind == "partial":
             if valid is None:
@@ -101,13 +108,8 @@ class InpaintConv(nn.Module):
                                         dilation=self.dilation,
                                         backend=self.backend)
             return _activation(self.activation)(y), valid_out
-        if self.conv_kind == "gated":
-            y = gated_conv(x, weight, self.bias, stride=self.stride,
-                           dilation=self.dilation, activation=self.activation,
-                           backend=self.backend)
-        else:
-            y = self._epilogue(conv2d(x, weight, self.bias, stride=self.stride,
-                                      dilation=self.dilation))
+        y = self._epilogue(conv2d(x, weight, self.bias, stride=self.stride,
+                                  dilation=self.dilation))
         return y, _resize_valid(valid, self.stride)
 
 

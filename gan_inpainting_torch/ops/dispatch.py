@@ -35,18 +35,21 @@ import torch
 VALID = ("auto", "xla", "pallas")
 
 # What "auto" means per op on a CUDA card, set by measurement on one NVIDIA
-# H100 80GB HBM3, 700.00 W: chip_smoke.py phases [5] and [6], device forward
-# at 64x256² bf16, the backends timed in turns (A B C C B A) within one run.
-# PERF.md §6 quotes the same run beside the kernels' own times.
+# H100 80GB HBM3, 700.00 W: chip_smoke.py phases [4], [5] and [6], the
+# backends timed in turns within one run. PERF.md §6 quotes the same runs
+# beside the kernels' own times.
 # * contextual_attention: the fused kernel (the plain path materializes the
 #   (Lq, Lk) score matrix; serve_v4_8 693.9 img/s with it, 637.5 without).
-# * gated_conv: the library composition. serve_v4_8 runs at 693.9 img/s
-#   with cuDNN convs and eager epilogues and at 577.3 img/s with every gated
-#   conv in the hand-written kernels: their mainloop reaches 169 TFLOP/s at
-#   192 -> 2x192 3x3 (2.06 ms), bound by shared-memory fill traffic, where
-#   cuDNN's conv takes 0.79 ms and conv plus eager epilogue 1.21 ms, so the
-#   fused epilogue does not pay for it yet. (The 4-channel stem is the
-#   exception, 2.43 against 4.99 ms at batch 64, and 48 -> 2x24 a tie.)
+# * gated_conv: the library composition, by the rule that the kernels
+#   must gain on serving by more than the spread of the turns and must not
+#   slow the train step by more than its spread. Serving gains: the
+#   serve_v4_8 64x256² forward takes 67.33 / 67.39 ms with every gated
+#   conv in the wgmma kernels (950 img/s) against 92.37 / 92.35 ms with
+#   cuDNN convs and eager epilogues (693 img/s). Training loses: the
+#   places512_deepfill 8x512² step takes 317.16 / 316.78 ms against
+#   305.58 / 305.18 ms, since the kernels' backward recomputes the forward
+#   through the library (as the JAX kernels' custom VJP), so a step with
+#   gradients pays for the kernel on top.
 # * partial_conv: the epilogue kernel. partialconv256 serves at 2964.6 img/s
 #   with it and at 2069.0 img/s with the eager epilogue (0.30 ms against
 #   1.64 ms per call at C = 48, 64x256²). The choice rests on the serve

@@ -100,6 +100,39 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def ptxas_report(name: str) -> list[tuple[str, str, str]]:
+    """(function, "Used … registers …", "… spill stores, … spill loads") of
+    every kernel in ``build_log[name]`` (nvcc's -Xptxas -v output)."""
+    out, fn, spills = [], "", ""
+    for line in build_log.get(name, "").splitlines():
+        if "Compiling entry function" in line:
+            fn, spills = line.split("'")[1], ""
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append((fn, line.split(":", 1)[-1].strip(), spills))
+    return out
+
+
+def sass_counts(name: str, opcode: str) -> dict[str, int]:
+    """Instructions whose SASS opcode starts with ``opcode``, per kernel of
+    the built ``csrc/<name>.cu`` (``cuobjdump -sass`` from the toolkit)."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_target(name,
+                                                           nvcc_path()))],
+                          capture_output=True, text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    fn = ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn and "/*" in line and line.split("*/", 1)[-1].strip() \
+                .lstrip("@!P0123456789T ").startswith(opcode):
+            counts[fn] += 1
+    return counts
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launch in ``lib``."""
     if err != 0:

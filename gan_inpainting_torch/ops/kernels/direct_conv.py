@@ -4,21 +4,22 @@
 (gan_inpainting_tpu/ops/pallas/direct_conv.py:48, entry
 ``gated_conv_direct``): stride 1, odd window, any dilation — every gated
 conv of the generators but the stride-2 encoder convs. On a CUDA tensor it
-launches ``gi_gated_conv_direct`` of ``csrc/gated_conv.cu``: k² tap
-products of (pixels, Cin) × (Cin, F) for the feature half and the gate half
-into two float32 accumulators, then ``act(f + b_f) · sigmoid(g + b_g)``,
-so neither the patches nor the 2F-channel pre-activation reach device
-memory.
+launches ``gi_gated_conv`` of ``csrc/gated_conv.cu``: k² tap products of
+(pixels, Cin) × (Cin, F) for the feature half and the gate half into
+float32 accumulators, then ``act(f + b_f) · sigmoid(g + b_g)``, so neither
+the patches nor the 2F-channel pre-activation reach device memory.
 
 On an H100 it is bounded by operations (2·M·k²·Cin·2F at 989 TFLOP/s in
 bf16; the activations are read and written once). The TPU kernel keeps a
 row group and its dilation halo resident in fast memory; a block's shared
-memory cannot hold that at dilation 16, so here a block gathers, per tap
-and per channel chunk, the shifted (pixels × chunk) tile with zeros outside
-the map — reuse across taps comes from L2. Tiles, variants (tensor-core
-bf16, CUDA-core float32) and the weight packing are described in the source
-note of ``csrc/gated_conv.cu``; the packing and the plan are shared with
-ops/kernels/gated_matmul.py.
+memory cannot hold that at dilation 16, so here, per tap and 32-channel
+slab, TMA copies the shifted box of a block's 128 pixels with zeros
+outside the map (the bf16 kernel: wgmma tiles, the weight slab multicast
+over a cluster of blocks; a 16-byte gather where no box fits, as at the
+8-channel stem and Cin = 48) — reuse across taps comes from L2. Tiles,
+variants and the weight packing are in the source note of
+``csrc/gated_conv.cu``; the plan, the packing, the packed-weight cache and
+the launch are shared with ops/kernels/gated_matmul.py.
 
 On a CPU tensor the wrapper takes the plain version (conv2d +
 ``gated_epilogue``). The gradient recomputes through the plain composition,
@@ -27,20 +28,18 @@ as the JAX kernel's custom VJP does.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from gan_inpainting_torch.ops.dispatch import count_launch, use_kernel
+from gan_inpainting_torch.ops.dispatch import use_kernel
 from gan_inpainting_torch.ops.gated_conv import gated_conv_plain
-from gan_inpainting_torch.ops.kernels import build
 from gan_inpainting_torch.ops.kernels.gated_matmul import (
-    ACTIVATIONS,
-    SOURCE,
+    GatedPlan,
     _check,
     _check_cuda,
     _GatedConv,
-    pack_weights,
+    conv_geom,
+    launch_gated,
+    packed_weights,
     pad_channels,
     plan,
 )
@@ -59,46 +58,30 @@ def direct_conv_supported(x_shape, k: int, stride: int, dilation: int,
 
 
 def launch_direct(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
-                  features: int, k: int, dilation: int, block_n: int,
+                  features: int, k: int, dilation: int, p: GatedPlan,
                   activation: str) -> torch.Tensor:
-    """Launch ``gi_gated_conv_direct`` on a contiguous (B, H, W, Cin) map,
-    Cin a multiple of the gather vector, with weights packed by
-    :func:`pack_weights`."""
-    b, h, w, cin = x.shape
-    out = torch.empty((b, h, w, features), dtype=x.dtype, device=x.device)
-    lib = build.library(SOURCE)
-    fn = lib.gi_gated_conv_direct
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
-                   + [ctypes.c_void_p])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), wp.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), b, h, w, cin, features, wp.shape[2],
-                 block_n, k, dilation, ACTIVATIONS[activation],
-                 int(x.dtype == torch.bfloat16), stream)
-    count_launch(KERNEL)
-    build.check(lib, err, KERNEL)
-    return out
+    """Launch the kernel on a contiguous (B, H, W, cin_pad) map with
+    weights packed by ``pack_weights`` for plan ``p``."""
+    g = conv_geom(x.shape[1], x.shape[2], k, 1, dilation)
+    return launch_gated(x, wp, bias, features, g, p, activation, KERNEL)
 
 
-def _forward_direct(x, weight, bias, stride, dilation, activation):
+def _forward_direct(x, weight, bias, dilation, activation):
     f = weight.shape[0] // 2
-    cin_pad, kc, bn, fp = plan(x.shape[3], f, x.dtype)
-    return launch_direct(pad_channels(x, cin_pad),
-                         pack_weights(weight, kc, fp, cin_pad),
-                         bias.float().contiguous(), f, weight.shape[2],
-                         dilation, bn, activation)
+    p = plan(x.shape[3], f, x.dtype)
+    return launch_direct(pad_channels(x, p.cin_pad),
+                         packed_weights(weight, p, x.dtype), bias, f,
+                         weight.shape[2], dilation, p, activation)
 
 
 def gated_conv_direct(x: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor, *, stride: int = 1,
                       dilation: int = 1,
                       activation: str = "elu") -> torch.Tensor:
-    """x: (B, H, W, Cin), weight: (2F, Cin, k, k) in x's dtype, bias: (2F,)
-    → (B, H, W, F). Stride must be 1 and k odd: check
-    :func:`direct_conv_supported` first. Kernel on a CUDA tensor, plain on
-    the CPU."""
+    """x: (B, H, W, Cin), weight: (2F, Cin, k, k) in x's dtype (or float32
+    master weights), bias: (2F,) → (B, H, W, F). Stride must be 1 and k
+    odd: check :func:`direct_conv_supported` first. Kernel on a CUDA
+    tensor, plain on the CPU."""
     _check(x, weight, bias, activation)
     if not direct_conv_supported(x.shape, weight.shape[2], stride, dilation,
                                  weight.shape[0] // 2):
@@ -109,5 +92,8 @@ def gated_conv_direct(x: torch.Tensor, weight: torch.Tensor,
         return gated_conv_plain(x, weight, bias, stride=1, dilation=dilation,
                                 activation=activation)
     _check_cuda(x, weight, bias)
-    return _GatedConv.apply(x.contiguous(), weight, bias, 1, dilation,
-                            activation, _forward_direct)
+    x = x.contiguous()
+    bias32 = bias.float().contiguous()
+    return _GatedConv.apply(x, weight, bias, 1, dilation, activation,
+                            lambda: _forward_direct(x, weight, bias32,
+                                                    dilation, activation))

@@ -1,39 +1,39 @@
-"""Gated conv as a fused gated matmul over a materialized im2col.
+"""Gated conv at any stride, and the plan, packing and launch of
+``csrc/gated_conv.cu`` shared with ops/kernels/direct_conv.py.
 
 ``gated_conv_matmul`` replaces the Pallas kernel ``_gated_matmul_kernel``
 (gan_inpainting_tpu/ops/pallas/fused_matmul.py:76, entry
-``gated_conv_pallas``). Host prep in PyTorch: :func:`_im2col` gathers the
-(M, k²·Cin) patch rows (TF-SAME, the odd pixel on the high side at stride
-2) and :func:`pack_weights` lays both weight halves out as the kernel reads
-them. On a CUDA tensor the product and the whole epilogue — bias,
-activation, sigmoid gate, product — run in ``gi_gated_matmul`` of
-``csrc/gated_conv.cu`` (one mainloop shared with the implicit-GEMM entry in
-ops/kernels/direct_conv.py); the 2F-channel pre-activation never reaches
-device memory. It takes any stride and dilation, and is where
-``gated_conv(..., backend="pallas")`` sends what the implicit-GEMM kernel
-refuses (the generators' stride-2 convs).
+``gated_conv_pallas``), which multiplies the rows of a materialized im2col:
+the forms the implicit-GEMM wrapper does not take, the generators'
+stride-2 convs and even windows. Here ``gi_gated_conv`` reads the strided
+taps of the map itself (TMA boxes with element strides, or the gather), so
+no im2col reaches device memory, and fuses the whole epilogue (bias,
+activation, sigmoid gate, product), so the 2F-channel pre-activation does
+not either. (The kernel over materialized im2col rows ran as fast, but
+the im2col itself cost as much again: chip_smoke.py [2] times both.)
 
 On an H100 the product is bounded by operations (2·M·K·2F at 989 TFLOP/s
-in bf16) and the bytes of x, the weights and the output. The im2col adds a
-write and a read of M·K elements on top: traffic of this route, not of
-the function, so it is reported beside the bound and not inside it. The
-kernel's tiles, variants and packing are described in the source note of
-``csrc/gated_conv.cu``.
+in bf16). The bf16 kernel (wgmma fed by TMA, or by a cp.async gather where
+no TMA box fits) and the float32 one (CUDA cores) are described in the
+source note of ``csrc/gated_conv.cu``. Here: :func:`plan` picks the tiles
+per (Cin, F, dtype), :func:`a_tile` the TMA box of a block's 128 pixels
+per map, :func:`pack_weights` lays the weights out as the kernel reads
+them, and :func:`packed_weights` keeps one packed copy per weight tensor
+until the tensor changes. :func:`gated_conv_mirror` repeats the kernel's
+index algebra (the walk over tiles, box rows, tap rows, packed rows and
+column blocks) in PyTorch for the CPU tests.
 
 On a CPU tensor the wrapper takes the plain version
 (:func:`gan_inpainting_torch.ops.gated_conv.gated_conv_plain`: conv2d +
 ``gated_epilogue``). The gradient, as in the JAX package, recomputes
-through that plain composition: no backward kernel. An input whose channel
-count is no multiple of the kernel's 16-byte gather vector (the 4-channel
-stem in bf16) is padded with zero channels first, and the packed weights
-with zero rows.
-``gated_matmul_mirror`` repeats the kernel's index algebra (im2col order
-against packed-weight order) in PyTorch for the CPU tests.
+through that plain composition: no backward kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -50,21 +50,80 @@ KERNEL = "gated_matmul"
 SOURCE = "gated_conv"
 ACTIVATIONS = {"none": 0, "elu": 1, "relu": 2, "leaky_relu": 3, "tanh": 4}
 _DTYPES = (torch.float32, torch.bfloat16)
+BLOCK_M = 128                 # output pixels per tile
+SLAB = 32                     # K per stage of either kernel
+WGMMA_BLOCK_F = (24, 48, 96)  # features per column block (wgmma N = 2·BF)
+
+
+class GatedPlan(NamedTuple):
+    """Tiles of one gated conv: ``kind`` "wgmma" (bf16) or "fma"
+    (float32); the map's channels padded to ``cin_pad``; ``kpt`` K rows
+    per tap in the packed weights; ``block_f`` features per column block
+    and ``n_col`` column blocks; ``cluster`` blocks along M sharing each
+    weight slab (bf16)."""
+    kind: str
+    cin_pad: int
+    kpt: int
+    block_f: int
+    n_col: int
+    cluster: int
 
 
 def _rup(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def plan(cin: int, features: int,
-         dtype: torch.dtype) -> tuple[int, int, int, int]:
-    """(Cin_pad, KC, BN, FP) for a gated conv of ``cin`` channels: Cin
-    padded to the kernel's 16-byte gather vector, the depth of one K chunk,
-    the feature columns per block (32 where that pads F less, else 64) and
-    F padded to them."""
-    kc, vec = (64, 8) if dtype == torch.bfloat16 else (32, 4)
+def plan(cin: int, features: int, dtype: torch.dtype) -> GatedPlan:
+    """bf16: Cin padded to the 16-byte vector; K rows per tap padded to a
+    whole 32-row slab where that wastes at most a third (48 → 64: TMA then
+    feeds the slab), else to 8 (the stem); the smallest of 24 / 48 / 96
+    features per block that holds F (96 and ⌈F / 96⌉ blocks above), the
+    weight slab multicast over 4 blocks (2 at 24, so a slice stays a whole
+    8-row swizzle atom). float32: Cin padded to 4, 32 or 64 features per
+    block, whichever pads F less."""
+    if dtype == torch.bfloat16:
+        block_f = next((b for b in WGMMA_BLOCK_F if features <= b),
+                       WGMMA_BLOCK_F[-1])
+        cluster = 4 if (2 * block_f // 4) % 8 == 0 else 2
+        cin8, cin32 = _rup(cin, 8), _rup(cin, SLAB)
+        kpt = cin32 if 3 * cin32 <= 4 * cin8 else cin8
+        return GatedPlan("wgmma", cin8, kpt, block_f,
+                         -(-features // block_f), cluster)
     block_n = 32 if _rup(features, 32) < _rup(features, 64) else 64
-    return _rup(cin, vec), kc, block_n, _rup(features, block_n)
+    return GatedPlan("fma", _rup(cin, 4), _rup(cin, 4), block_n,
+                     -(-features // block_n), 1)
+
+
+def fill_bytes_per_flop(p: GatedPlan) -> float:
+    """Bytes a block fills from L2 per FLOP it computes, per K stage: the
+    A tile and this block's share of the weight slab (bf16), or the A tile
+    and both weight halves (float32)."""
+    n = 2 * p.block_f
+    elem = 2 if p.kind == "wgmma" else 4
+    filled = (BLOCK_M * SLAB + n * SLAB / p.cluster) * elem
+    return filled / (2.0 * BLOCK_M * n * SLAB)
+
+
+def a_tile(p: GatedPlan, batch: int, ho: int, wo: int,
+           stride: int) -> tuple[int, int, int] | None:
+    """(pixels along W, rows, images) of the TMA box holding a tile's 128
+    output pixels, or None where the kernel gathers instead: float32, taps
+    not aligned to the 32-row slab, or pixels that do not form a box."""
+    if p.kind != "wgmma" or p.kpt % SLAB:
+        return None
+    if wo % BLOCK_M == 0:
+        tile = (BLOCK_M, 1, 1)
+    elif BLOCK_M % wo == 0:
+        rows = BLOCK_M // wo
+        if ho % rows == 0:
+            tile = (wo, rows, 1)
+        elif rows % ho == 0:
+            tile = (wo, ho, rows // ho)
+        else:
+            return None
+    else:
+        return None
+    return tile if max(tile[0], tile[1]) * stride <= 256 else None
 
 
 def pad_channels(x: torch.Tensor, cin_pad: int) -> torch.Tensor:
@@ -74,49 +133,154 @@ def pad_channels(x: torch.Tensor, cin_pad: int) -> torch.Tensor:
         x, (0, cin_pad - x.shape[-1]))
 
 
-def pack_weights(weight: torch.Tensor, kc: int, fp: int,
-                 cin_pad: int | None = None) -> torch.Tensor:
-    """(2F, Cin, k, k), features first → (K_pad, 2, FP) in (tap, channel)
-    row order over ``cin_pad`` channels (zero rows for the padded ones),
-    zero rows up to a whole number of ``kc`` chunks and zero columns from F
-    to FP."""
+def pack_weights(weight: torch.Tensor, p: GatedPlan) -> torch.Tensor:
+    """(2F, Cin, k, k), features first → the kernel's layout, K in (tap,
+    channel) order, ``kpt`` rows per tap (zero rows past Cin) and zero rows
+    up to a whole slab:
+
+    * wgmma: (slabs, n_col·2·block_f, 32), K-major — slab s holds K rows
+      32·s … 32·s + 31; packed row j·2·BF + i is feature j·BF + i of
+      column block j and row j·2·BF + BF + i its gate (zero past F). One
+      TMA box (32, rows, 1) loads a block's share of a slab.
+    * fma: (K_pad, 2, n_col·block_f), half 0 the features and half 1 the
+      gates, zero columns past F.
+    """
     f2, cin, kh, kw = weight.shape
     f = f2 // 2
-    cin_pad = cin if cin_pad is None else cin_pad
-    k_dim = kh * kw * cin_pad
+    k_dim = kh * kw * p.kpt
     w = weight.reshape(2, f, cin, kh, kw).permute(3, 4, 2, 0, 1)
-    w = F.pad(w, (0, fp - f, 0, 0, 0, cin_pad - cin)).reshape(k_dim, 2, fp)
-    return F.pad(w, (0, 0, 0, 0, 0, _rup(k_dim, kc) - k_dim)).contiguous()
+    fp = p.block_f * p.n_col
+    w = F.pad(w, (0, fp - f, 0, 0, 0, p.kpt - cin)).reshape(k_dim, 2, fp)
+    w = F.pad(w, (0, 0, 0, 0, 0, _rup(k_dim, SLAB) - k_dim))
+    if p.kind == "fma":
+        return w.contiguous()
+    # (K_pad, 2, n_col, BF) → (slabs, n_col, 2, BF, 32)
+    w = w.reshape(-1, SLAB, 2, p.n_col, p.block_f).permute(0, 3, 2, 4, 1)
+    return w.reshape(-1, p.n_col * 2 * p.block_f, SLAB).contiguous()
 
 
-def _im2col(x: torch.Tensor, window: int, stride: int, dilation: int):
-    """(B, H, W, C) → (B, Ho, Wo, window²·C) with TF-SAME padding, taps
-    outermost and channels innermost on the last axis."""
-    _, h, w, _ = x.shape
-    eff = (window - 1) * dilation + 1
-    ph, pw = same_pads(h, eff, stride), same_pads(w, eff, stride)
-    ho, wo = -(-h // stride), -(-w // stride)
-    xp = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
-    b, _, _, c = xp.shape
-    sb, sh, sw, sc = xp.stride()
-    # one strided view over the padded map, (B, Ho, Wo, k, k, C), made
-    # contiguous by the reshape: a single copy instead of k² slices and a
-    # concatenation
-    taps = xp.as_strided(
-        (b, ho, wo, window, window, c),
-        (sb, sh * stride, sw * stride, sh * dilation, sw * dilation, sc))
-    return taps.reshape(b, ho, wo, window * window * c), (ho, wo)
+_packed: dict[int, tuple] = {}
 
 
-def gated_matmul_mirror(x2d: torch.Tensor, wp: torch.Tensor,
-                        bias: torch.Tensor, features: int,
-                        activation: str) -> torch.Tensor:
-    """What the kernel computes from its own operands, in float32: rows of
-    the im2col times the packed halves, bias, gate."""
-    k_dim = x2d.shape[1]
-    pre = torch.cat([x2d.float() @ wp[:k_dim, h, :features].float()
-                     for h in (0, 1)], -1) + bias.float()
-    return gated_epilogue(pre, activation)
+def packed_weights(weight: torch.Tensor, p: GatedPlan,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """:func:`pack_weights` of ``weight`` in ``dtype``, kept per weight
+    tensor and (dtype, plan), and repacked when (data_ptr, _version)
+    changes — an optimizer's in-place step bumps ``_version`` — so a
+    served layer packs once. Inference tensors, which keep no version, are
+    packed per call."""
+    if weight.is_inference():
+        return pack_weights(weight.detach().to(dtype), p)
+    state = (weight.data_ptr(), weight._version)
+    hit = _packed.get(id(weight))
+    if hit is None or hit[0]() is not weight or hit[1] != state:
+        ref = weakref.ref(weight, lambda _, i=id(weight): _packed.pop(i, None))
+        hit = _packed[id(weight)] = (ref, state, {})
+    layouts = hit[2]
+    if (dtype, p) not in layouts:
+        layouts[(dtype, p)] = pack_weights(weight.detach().to(dtype), p)
+    return layouts[(dtype, p)]
+
+
+class ConvGeom(NamedTuple):
+    """A gated conv's geometry as the kernel takes it: window, stride,
+    dilation, low-side TF-SAME pads and the output map."""
+    k: int
+    stride: int
+    dilation: int
+    pad_y: int
+    pad_x: int
+    ho: int
+    wo: int
+
+
+def conv_geom(h: int, w: int, k: int, stride: int,
+              dilation: int) -> ConvGeom:
+    eff = (k - 1) * dilation + 1
+    return ConvGeom(k, stride, dilation, same_pads(h, eff, stride)[0],
+                    same_pads(w, eff, stride)[0], -(-h // stride),
+                    -(-w // stride))
+
+
+def tap_rows(x: torch.Tensor, g: ConvGeom, kpt: int) -> torch.Tensor:
+    """(B, H, W, C) → (B·Ho·Wo, k²·kpt): each output pixel's window in
+    (tap, channel) order as the kernel reads it — input pixel (oy·s −
+    pad_y + ky·d, ox·s − pad_x + kx·d), zero outside the map (the TF-SAME
+    pads, the odd pixel on the high side at stride 2) and in channels C …
+    kpt − 1."""
+    b, h, w, c = x.shape
+    taps = torch.arange(g.k) * g.dilation
+    iy = (torch.arange(g.ho) * g.stride - g.pad_y)[:, None] + taps
+    ix = (torch.arange(g.wo) * g.stride - g.pad_x)[:, None] + taps
+    xp = F.pad(x, (0, kpt - c))
+    rows = xp[:, iy.clamp(0, h - 1)][:, :, :, ix.clamp(0, w - 1)]
+    inside = (((iy >= 0) & (iy < h))[:, :, None, None, None]
+              & ((ix >= 0) & (ix < w))[None, None, :, :, None])
+    rows = torch.where(inside, rows, torch.zeros((), dtype=x.dtype))
+    # (B, Ho, ky, Wo, kx, kpt) → (B, Ho, Wo, ky, kx, kpt)
+    return rows.permute(0, 1, 3, 2, 4, 5).reshape(b * g.ho * g.wo, -1)
+
+
+def gated_conv_mirror(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
+                      features: int, g: ConvGeom, p: GatedPlan,
+                      activation: str) -> torch.Tensor:
+    """What ``gi_gated_conv`` computes from its own operands, in float32:
+    x (B, H, W, cin_pad) and ``wp`` from :func:`pack_weights`. Tile groups
+    are walked as the persistent kernel walks them (C blocks along M × one
+    column block each; every output written once is asserted); on the TMA
+    path each tile's box rows must be its 128 consecutive pixels
+    (asserted). Returns (B, Ho, Wo, F)."""
+    b = x.shape[0]
+    m_total = b * g.ho * g.wo
+    tile = a_tile(p, b, g.ho, g.wo, g.stride)
+    a = tap_rows(x.float(), g, p.kpt)
+    if p.kind == "wgmma":
+        k_pad = wp.shape[0] * SLAB
+        # (slabs, n_col·2·BF, 32) → (K_pad, 2, n_col·BF)
+        wk = wp.float().permute(0, 2, 1).reshape(k_pad, p.n_col, 2,
+                                                 p.block_f)
+        wk = wk.transpose(1, 2).reshape(k_pad, 2, -1)
+    else:
+        wk = wp.float()
+    a = F.pad(a, (0, wk.shape[0] - a.shape[1]))
+    out = torch.full((m_total, features), float("nan"))
+    groups = -(-m_total // (BLOCK_M * p.cluster)) * p.n_col
+    for q in range(groups):
+        col = q % p.n_col
+        n = torch.arange(col * p.block_f, min((col + 1) * p.block_f,
+                                              features))
+        for rank in range(p.cluster):
+            m0 = (q // p.n_col * p.cluster + rank) * BLOCK_M
+            rows = m0 + torch.arange(BLOCK_M)
+            if tile is not None:
+                _check_box(tile, g, b, m0, rows)
+            rows = rows[rows < m_total]
+            if not len(rows) or not len(n):
+                continue
+            pre = a[rows] @ wk[:, :, n].reshape(wk.shape[0], -1)
+            y = gated_epilogue(torch.cat(
+                [pre[:, :len(n)] + bias[n].float(),
+                 pre[:, len(n):] + bias[features + n].float()], -1),
+                activation)
+            assert out[rows[:, None], n].isnan().all(), "tile written twice"
+            out[rows[:, None], n] = y
+    assert not out.isnan().any(), "a tile was not written"
+    return out.reshape(b, g.ho, g.wo, features)
+
+
+def _check_box(tile, g: ConvGeom, batch: int, m0: int, rows: torch.Tensor):
+    """The TMA box of the tile at pixel ``m0`` lists its pixels in the
+    order of ``rows``: (images, rows, pixels along W), W fastest."""
+    tw, th, _ = tile
+    r = rows - m0
+    b0, rem = divmod(m0, g.ho * g.wo)
+    oy0, ox0 = divmod(rem, g.wo)
+    bb, oy, ox = b0 + r // (tw * th), oy0 + r // tw % th, ox0 + r % tw
+    inside = (bb < batch) & (oy < g.ho) & (ox < g.wo)
+    assert torch.equal(((bb * g.ho + oy) * g.wo + ox)[inside],
+                       rows[inside]), "box order != pixel order"
+    assert bool(inside[rows < batch * g.ho * g.wo].all()), \
+        "a pixel outside its tile's box"
 
 
 def _check(x, weight, bias, activation):
@@ -133,35 +297,51 @@ def _check(x, weight, bias, activation):
 
 
 def _check_cuda(x, weight, bias):
+    """The kernels take float32 or bf16 maps; the weights in x's dtype, or
+    float32 parameters that the packing casts (a layer's master weights)."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"gated conv kernels take {_DTYPES}, got {x.dtype}")
-    if weight.dtype != x.dtype:
+    if weight.dtype not in (x.dtype, torch.float32):
         raise TypeError(f"weight {weight.dtype} must match x {x.dtype}")
     if weight.device != x.device or bias.device != x.device:
         raise ValueError("x, weight and bias must be on one device")
 
 
-def launch_matmul(x2d: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
-                  features: int, block_n: int,
-                  activation: str) -> torch.Tensor:
-    """Launch ``gi_gated_matmul`` on contiguous (M, K) rows, K a multiple
-    of the gather vector, with weights packed by :func:`pack_weights`."""
-    m, k_dim = x2d.shape
-    out = torch.empty((m, features), dtype=x2d.dtype, device=x2d.device)
+def launch_gated(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
+                 features: int, g: ConvGeom, p: GatedPlan,
+                 activation: str, counter: str) -> torch.Tensor:
+    """Launch ``gi_gated_conv`` on a contiguous (B, H, W, cin_pad) map with
+    weights from :func:`pack_weights`; adds one to ``counter``'s launches.
+    Returns (B, Ho, Wo, F)."""
+    b, h, w, cin = x.shape
+    if x.data_ptr() % 16:
+        x = x.clone()                 # TMA and the 16-byte gather
+    tile = a_tile(p, b, g.ho, g.wo, g.stride) or (0, 0, 0)
+    out = torch.empty((b, g.ho, g.wo, features), dtype=x.dtype,
+                      device=x.device)
     lib = build.library(SOURCE)
-    fn = lib.gi_gated_matmul
+    fn = lib.gi_gated_conv
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    stream = torch.cuda.current_stream(x2d.device).cuda_stream
-    with torch.cuda.device(x2d.device):
-        err = fn(x2d.data_ptr(), wp.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), m, k_dim, features, wp.shape[2], block_n,
-                 ACTIVATIONS[activation], int(x2d.dtype == torch.bfloat16),
-                 stream)
-    count_launch(KERNEL)
-    build.check(lib, err, KERNEL)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 21
+                   + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), wp.data_ptr(), bias.data_ptr(),
+                 out.data_ptr(), b, h, w, cin, g.ho, g.wo, features, g.k,
+                 g.stride, g.dilation, g.pad_y, g.pad_x, p.kpt, p.block_f,
+                 p.n_col, p.cluster, *tile, ACTIVATIONS[activation],
+                 int(x.dtype == torch.bfloat16), stream)
+    count_launch(counter)
+    build.check(lib, err, counter)
     return out
+
+
+def launch_strided(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
+                   features: int, k: int, stride: int, dilation: int,
+                   p: GatedPlan, activation: str) -> torch.Tensor:
+    """The kernel on a contiguous (B, H, W, cin_pad) map at any stride."""
+    g = conv_geom(x.shape[1], x.shape[2], k, stride, dilation)
+    return launch_gated(x, wp, bias, features, g, p, activation, KERNEL)
 
 
 class _GatedConv(torch.autograd.Function):
@@ -172,7 +352,7 @@ class _GatedConv(torch.autograd.Function):
     def forward(ctx, x, weight, bias, stride, dilation, activation, fwd):
         ctx.save_for_backward(x, weight, bias)
         ctx.args = (stride, dilation, activation)
-        return fwd(x, weight, bias, stride, dilation, activation)
+        return fwd()
 
     @staticmethod
     def backward(ctx, g):
@@ -189,27 +369,27 @@ class _GatedConv(torch.autograd.Function):
 
 
 def _forward_matmul(x, weight, bias, stride, dilation, activation):
-    b = x.shape[0]
     f = weight.shape[0] // 2
-    cin_pad, kc, bn, fp = plan(x.shape[3], f, x.dtype)
-    cols, (ho, wo) = _im2col(pad_channels(x, cin_pad), weight.shape[2],
-                             stride, dilation)
-    x2d = cols.reshape(b * ho * wo, cols.shape[-1])
-    out = launch_matmul(x2d, pack_weights(weight, kc, fp, cin_pad),
-                        bias.float().contiguous(), f, bn, activation)
-    return out.reshape(b, ho, wo, f)
+    p = plan(x.shape[3], f, x.dtype)
+    return launch_strided(pad_channels(x, p.cin_pad),
+                          packed_weights(weight, p, x.dtype), bias, f,
+                          weight.shape[2], stride, dilation, p, activation)
 
 
 def gated_conv_matmul(x: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor, *, stride: int = 1,
                       dilation: int = 1,
                       activation: str = "elu") -> torch.Tensor:
-    """x: (B, H, W, Cin), weight: (2F, Cin, k, k) in x's dtype, bias: (2F,)
-    → (B, Ho, Wo, F), TF-SAME. Kernel on a CUDA tensor, plain on the CPU."""
+    """x: (B, H, W, Cin), weight: (2F, Cin, k, k) in x's dtype (or float32
+    master weights), bias: (2F,) → (B, Ho, Wo, F), TF-SAME. Kernel on a
+    CUDA tensor, plain on the CPU."""
     _check(x, weight, bias, activation)
     if not use_kernel(x):
         return gated_conv_plain(x, weight, bias, stride=stride,
                                 dilation=dilation, activation=activation)
     _check_cuda(x, weight, bias)
-    return _GatedConv.apply(x.contiguous(), weight, bias, stride, dilation,
-                            activation, _forward_matmul)
+    x = x.contiguous()
+    bias32 = bias.float().contiguous()
+    return _GatedConv.apply(x, weight, bias, stride, dilation, activation,
+                            lambda: _forward_matmul(x, weight, bias32, stride,
+                                                    dilation, activation))

@@ -9,10 +9,13 @@ config's model at batch 1 records, for every gated conv that
 ``kernel_backend=pallas`` sends to a kernel, its (Cin → 2·F, window, stride,
 dilation, input map) and how often the form occurs. For every distinct form
 it prints, in bf16: ms of the hand-written kernel alone (weights packed,
-im2col made beforehand) under each block width BN, ms through ``gated_conv(backend="pallas")`` (with packing and, at
-stride 2, the im2col), ms of the plain version (cuDNN conv + eager
-epilogue) and of the conv with bias alone, and the kernel's TFLOP/s. The
-last line sums each column over one forward's layers.
+at stride 2 on the strided taps of the map) under each tile
+choice the plan can make (24, 48 or 96 features per block; the plan's own
+marked *), with each choice's TFLOP/s and fill FLOP per byte, and how A is
+fed (TMA box or gather); ms through ``gated_conv(backend="pallas")``
+(packed weights cached), ms of the plain version (cuDNN conv + eager
+epilogue) and of the conv with bias alone. The last line sums each column
+over one forward's layers.
 """
 
 from __future__ import annotations
@@ -77,23 +80,16 @@ def main(argv=None) -> None:
         gated_conv,
         gated_conv_plain,
     )
+    from gan_inpainting_torch.ops.kernels import gated_matmul as gm
     from gan_inpainting_torch.ops.kernels.direct_conv import launch_direct
-    from gan_inpainting_torch.ops.kernels.gated_matmul import (
-        _im2col,
-        launch_matmul,
-        pack_weights,
-        pad_channels,
-        plan,
-    )
 
     torch.backends.cudnn.benchmark = True
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(0)
     layers = gated_layers(args.config, args.size)
     print(f"{torch.cuda.get_device_name(0)}, {args.config} at {args.size}², "
-          f"batch {args.batch}, bf16; ms")
-    print("n  layer                       BN32    BN64    wrapper plain   "
-          "conv    TFLOP/s(best)")
+          f"batch {args.batch}, bf16; ms; per tile choice: BF kernel ms "
+          f"TFLOP/s FLOP-per-fill-byte (* = the plan's)")
     total = dict(kernel=0.0, wrapper=0.0, plain=0.0, conv=0.0)
     for n, cin, f, k, stride, dil, side in layers:
         x = torch.randn((args.batch, side, side, cin), generator=g,
@@ -102,39 +98,43 @@ def main(argv=None) -> None:
              / (k * k * cin) ** 0.5).to(bf16)
         bias = torch.zeros(2 * f, device=dev)
         kw = dict(stride=stride, dilation=dil, activation="elu")
-        kernel_ms = {}
-        for bn in (32, 64):
-            cin_pad, kc, _, _ = plan(cin, f, bf16)
-            fp = -(-f // bn) * bn
-            wp = pack_weights(w, kc, fp, cin_pad)
-            xp = pad_channels(x, cin_pad)
-            if stride == 1:
-                kernel_ms[bn] = _time_ms(lambda: launch_direct(
-                    xp, wp, bias, f, k, dil, bn, "elu"), args.reps)
+        out_side = -(-side // stride)
+        flops = 2.0 * args.batch * out_side ** 2 * k * k * cin * 2 * f
+        chosen = gm.plan(cin, f, bf16)
+        # every column-block width: the plan for F = BF, then F's blocks
+        choices = [gm.plan(cin, bf, bf16)._replace(n_col=-(-f // bf))
+                   for bf in gm.WGMMA_BLOCK_F]
+        xp = gm.pad_channels(x, chosen.cin_pad)
+        cells, kernel_ms = [], {}
+        for p in choices:
+            wp = gm.pack_weights(w, p)
+            if stride == 1 and k % 2:
+                run = (lambda wp=wp, p=p: launch_direct(
+                    xp, wp, bias, f, k, dil, p, "elu"))
             else:
-                cols, _ = _im2col(xp, k, stride, dil)
-                x2d = cols.reshape(-1, cols.shape[-1])
-                kernel_ms[bn] = _time_ms(lambda: launch_matmul(
-                    x2d, wp, bias, f, bn, "elu"), args.reps)
-                del cols, x2d
+                run = (lambda wp=wp, p=p: gm.launch_strided(
+                    xp, wp, bias, f, k, stride, dil, p, "elu"))
+            kernel_ms[p] = _time_ms(run, args.reps)
+            cells.append(f"{p.block_f}{'*' if p == chosen else ' '} "
+                         f"{kernel_ms[p]:.3f} {flops / kernel_ms[p] / 1e9:.0f} "
+                         f"{1 / gm.fill_bytes_per_flop(p):.0f}")
+        tile = gm.a_tile(chosen, args.batch, out_side, out_side, stride)
         wrapper = _time_ms(lambda: gated_conv(x, w, bias, backend="pallas",
                                               **kw), args.reps)
         plain = _time_ms(lambda: gated_conv_plain(x, w, bias, **kw),
                          args.reps)
         conv = _time_ms(lambda: conv2d(x, w, bias, stride=stride,
                                        dilation=dil), args.reps)
-        best = min(kernel_ms.values())
-        out_side = -(-side // stride)
-        flops = 2.0 * args.batch * out_side ** 2 * k * k * cin * 2 * f
-        print(f"{n}  {cin:>3}->2x{f:<3} k{k} s{stride} d{dil:<2} {side:>3}² "
-              f" {kernel_ms[32]:7.3f} {kernel_ms[64]:7.3f} {wrapper:7.3f} "
-              f"{plain:7.3f} {conv:7.3f}   {flops / best / 1e9:6.1f}")
-        for key, val in (("kernel", best), ("wrapper", wrapper),
+        a_path = f"TMA {tile}" if tile else "gather"
+        print(f"{n}  {cin:>3}->2x{f:<3} k{k} s{stride} d{dil:<2} {side:>3}²  "
+              f"{' | '.join(cells)} | A {a_path} | wrapper {wrapper:.3f} "
+              f"plain {plain:.3f} conv {conv:.3f}")
+        for key, val in (("kernel", kernel_ms[chosen]), ("wrapper", wrapper),
                          ("plain", plain), ("conv", conv)):
             total[key] += n * val
-    print(f"per forward ({sum(ly[0] for ly in layers)} layers): " "best kernel {kernel:.2f}, wrapper "
-          "{wrapper:.2f}, plain {plain:.2f}, conv alone {conv:.2f}".format(
-              **total))
+    print(f"per forward ({sum(ly[0] for ly in layers)} layers): " "planned "
+          "kernel {kernel:.2f}, wrapper {wrapper:.2f}, plain {plain:.2f}, "
+          "conv alone {conv:.2f}".format(**total))
 
 
 if __name__ == "__main__":

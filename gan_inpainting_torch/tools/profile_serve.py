@@ -177,7 +177,7 @@ def _category(kernel: str) -> str:
         return "attention"
     if "fold_kernel" in kernel:
         return "fold"
-    if "gated_conv_kernel" in kernel:
+    if "gated_conv_kernel" in kernel or "gated_wgmma_kernel" in kernel:
         return "gated conv kernel"
     if "partial_epilogue_kernel" in kernel:
         return "partial epilogue kernel"

@@ -60,7 +60,7 @@ def category(kernel: str) -> str:
         return "attention forward"
     if "fold_kernel" in kernel:
         return "fold"
-    if "gated_conv_kernel" in kernel:
+    if "gated_conv_kernel" in kernel or "gated_wgmma_kernel" in kernel:
         return "gated conv kernel"
     if "partial_epilogue_kernel" in kernel:
         return "partial epilogue kernel"

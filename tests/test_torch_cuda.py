@@ -390,6 +390,10 @@ GATED_SHAPES = [
     (2, 16, 16, 48, 96, 3, 2, 1),    # stride 2: the im2col kernel
     (1, 15, 13, 5, 7, 5, 2, 1),      # stride 2, odd everything
     (1, 16, 16, 8, 8, 4, 1, 1),      # even window: the im2col kernel
+    (2, 8, 16, 96, 96, 3, 1, 1),     # bf16: TMA box (16, 8, 1), N 192
+    (3, 4, 8, 192, 192, 3, 1, 2),    # box (8, 4, 4), ragged M, 2 columns
+    (2, 16, 16, 96, 192, 3, 2, 1),   # stride 2 at Cin 96, high-side pad
+    (1, 8, 8, 384, 40, 3, 1, 1),     # box (8, 8, 2), half a block, F 40
 ]
 
 
@@ -435,8 +439,11 @@ def test_gated_conv_kernels_match_plain(cuda, b, h, w, cin, f, k, stride,
 
 
 @pytest.mark.parametrize("activation", ["leaky_relu", "tanh", "none"])
-@pytest.mark.parametrize("block_n", [32, 64])
+@pytest.mark.parametrize("block_n", [0, 1])
 def test_gated_conv_activations_and_block_widths(cuda, activation, block_n):
+    """Both column-block widths of each variant at F = 40 (float32 32 / 64,
+    bf16 48 / 96), whichever plan() would pick, on the TMA path (Cin 32,
+    16x16 map) and on the gather (Cin 24)."""
     from gan_inpainting_torch.ops.gated_conv import gated_conv_plain
     from gan_inpainting_torch.ops.kernels.direct_conv import launch_direct
     from gan_inpainting_torch.ops.kernels.gated_matmul import (
@@ -444,18 +451,20 @@ def test_gated_conv_activations_and_block_widths(cuda, activation, block_n):
         plan,
     )
 
-    for dtype in (torch.float32, torch.bfloat16):
-        x, wgt, bias = _gated_case(3, 2, 16, 16, 32, 40, 3, cuda, dtype)
-        # both block widths, whichever plan() would pick for F = 40
-        cin_pad, kc, _, _ = plan(32, 40, dtype)
-        fp = -(-40 // block_n) * block_n
-        got = launch_direct(x, pack_weights(wgt, kc, fp, cin_pad), bias, 40,
-                            3, 2, block_n, activation)
-        want = gated_conv_plain(x.float(), wgt.float(), bias, dilation=2,
-                                activation=activation)
-        frac = 2e-4 if dtype == torch.float32 else 2.0 ** -7
-        tol = frac * max(want.abs().max().item(), 1.0)
-        assert (got.float() - want).abs().max().item() <= tol
+    for dtype, widths in ((torch.float32, (32, 64)),
+                          (torch.bfloat16, (48, 96))):
+        for cin in (32, 24):
+            x, wgt, bias = _gated_case(3, 2, 16, 16, cin, 40, 3, cuda, dtype)
+            bf = widths[block_n]
+            p = plan(cin, 40, dtype)._replace(block_f=bf,
+                                              n_col=-(-40 // bf))
+            got = launch_direct(x, pack_weights(wgt, p), bias, 40, 3, 2, p,
+                                activation)
+            want = gated_conv_plain(x.float(), wgt.float(), bias,
+                                    dilation=2, activation=activation)
+            frac = 2e-4 if dtype == torch.float32 else 2.0 ** -7
+            tol = frac * max(want.abs().max().item(), 1.0)
+            assert (got.float() - want).abs().max().item() <= tol
 
 
 @pytest.mark.parametrize("stride", [1, 2])
