@@ -6,7 +6,10 @@
 Phases (each prints its lines; any failure exits non-zero):
 
 1. device and build: the card's name and power limit, and the build of
-   every CUDA kernel from ``gan_inpainting_torch/csrc`` with nvcc;
+   every CUDA kernel from ``gan_inpainting_torch/csrc`` with nvcc; the
+   registers, spills and HGMMA (and, for the attention forwards' wgmma
+   mainloop, UTMALDG) counts of the wgmma kernels, each required > 0 and
+   the attention forwards' spills 0;
 2. kernels against their plain PyTorch versions on the card, at the
    256² serve shape (B=8, map 64×64×192) and the 512² shape (B=2, map
    128×128×192), in float32 and bfloat16, with times of the kernel, the
@@ -42,8 +45,8 @@ Phases (each prints its lines; any failure exits non-zero):
    vs CPU, img/s and ms/step for ``pallas`` and ``xla``, and one float32
    step of a small partial config on the card against the CPU;
 7. path C, large maps: the pinned generator served at a 2048² bucket (the
-   attention map 512×512×192, L = 65 536 cells, beyond the fused kernel's
-   shared memory) through the patch-attention forward kernel; one
+   attention map 512×512×192, L = 65 536 cells, past the measured
+   fused-route threshold) through the patch-attention forward kernel; one
    ``places512_deepfill`` train step at 1×2048² bf16 from step 0 and one
    more, through the patch forward, dQ and dK/dV kernels — launch counts,
    known pixels bit-exact, metrics finite, parameters moved, the attention
@@ -56,8 +59,10 @@ Phase 2 also holds the three patch-attention kernels (forward, dQ, dK/dV)
 against their plain versions at the full widths (d 1728, dv 3072) at L
 16 384 and, over chunks of query rows, L 65 536, at an odd shape and
 through contextual attention with f ≠ b, in float32 and bfloat16, each
-with a sample that has no valid key; and times the fused and the patch
-route where both hold.
+with a sample that has no valid key; the bf16 forward (and its lse) at
+ragged L 1000 and 4097, d 200, dv 300; and times the fused and the patch
+route where both hold. The fused forward's lse is held against the plain
+one (1e-3) at the 256² and 512² shapes.
 
 Float32 checks turn TF32 off for cuDNN convs and matmuls. Imports nothing
 of JAX. Exits non-zero when no CUDA device is present.
@@ -238,6 +243,16 @@ def check_kernels(torch, shape_name, bsz, hw, c, rng, smi):
     pb_ref = fused_attention_taps_plain(xb.float(), hole)
     errb = (kb.float() - pb_ref).abs().max().item()
     tolb = BF16_TOL_FRAC * xb.float().abs().max().item()
+    # the forward's lse (training asks for it) against the plain one
+    _, lse_k = fused_attention_taps(xb, hole, want_lse=True)
+    _, lse_p = fused_attention_taps_plain(xb.float(), hole, want_lse=True)
+    err_lse = (lse_k - lse_p).abs().max().item()
+    _require(err_lse <= 1e-3, f"fused lse off by {err_lse:.3e} at "
+                              f"{shape_name}")
+    if bsz > 2:
+        _require(kb[1].abs().max().item() == 0.0
+                 and lse_k[1].abs().max().item() == 0.0,
+                 "bf16 all-hole sample: taps or lse not 0")
     taps_b = pb_ref.to(torch.bfloat16)
     fold_k = fold_taps(taps_b, hs, ws, rate)
     fold_p = fold_taps_plain(taps_b.float(), hs, ws, rate)
@@ -245,7 +260,8 @@ def check_kernels(torch, shape_name, bsz, hw, c, rng, smi):
     tolb_fold = BF16_TOL_FRAC * taps_b.float().abs().max().item()
     torch.cuda.synchronize()
     print(f"[2] {shape_name} attention max_abs_err f32 {err32:.3e} "
-          f"(tol {F32_TOL:g}) bf16 {errb:.3e} (tol {tolb:.3e}); "
+          f"(tol {F32_TOL:g}) bf16 {errb:.3e} (tol {tolb:.3e}), lse "
+          f"{err_lse:.3e} (tol 1e-3); "
           f"fold f32 {f32_fold:.3e} bf16 {errb_fold:.3e} "
           f"(tol {tolb_fold:.3e})")
     _require(err32 <= F32_TOL and errb <= tolb and f32_fold <= 1e-5
@@ -293,7 +309,8 @@ def check_kernels(torch, shape_name, bsz, hw, c, rng, smi):
     fold_ops = bsz * hw * hw * c * 5.0
     fold_bound, fold_by = _bound_ms(fold_bytes, fold_ops, H100_BF16_FLOPS)
     print(f"[2] {shape_name} bf16 ms: attention {attn_ms:.3f} ({variant} "
-          f"G={group} cluster={cluster} kernel only {kernel_only_ms:.3f}, "
+          f"G={group} cluster={cluster} kernel only {kernel_only_ms:.3f} = "
+          f"{attn_ops / kernel_only_ms / 1e9:.1f} TFLOP/s of valid pairs, "
           f"core variant {core_ms:.3f} "
           f"err {err_core:.3e}, plain {attn_plain_ms:.3f}, sdpa "
           f"{attn_lib_ms:.3f}, bound {attn_bound:.4f} by {attn_by}); fold "
@@ -307,7 +324,8 @@ def check_kernels(torch, shape_name, bsz, hw, c, rng, smi):
         core_variant_ms=core_ms, core_variant_max_abs_err=err_core,
         plain_ms=attn_plain_ms,
         library_ms=attn_lib_ms, bound_ms=attn_bound, bound_by=attn_by,
-        max_abs_err=errb, max_abs_err_f32=err32)
+        tflops=attn_ops / kernel_only_ms / 1e9, max_abs_err=errb,
+        max_abs_err_f32=err32, lse_max_abs_err=err_lse)
     out["fold"] = dict(
         ms=fold_ms, plain_ms=fold_plain_ms, library_ms=fold_lib_ms,
         bound_ms=fold_bound, bound_by=fold_by, max_abs_err=errb_fold,
@@ -1591,6 +1609,30 @@ def check_patch_kernels(torch, smi):
                   + f" ({plan(dd, ddv, dtype)})")
             del q, k, v, g, valid, got
             torch.cuda.empty_cache()
+    # the bf16 forward where L is ragged against its 64-row tiles and
+    # 128-key steps and d, dv against its 64-wide units (dv 300 is padded
+    # to 304 for the tensor map): out and lse, the dead sample exactly 0
+    for b, lq in ((3, 1000), (1, 4097)):
+        q, k, v, g, valid = _patch_inputs(torch, lq, b, lq, lq, 200, 300,
+                                          bf16, dead=b > 1)
+        o, lse = launch_fwd(q, k, valid, v, 10.0, want_lse=True)
+        o_p, lse_p = patch_attention_plain(q.float(), k.float(), valid,
+                                           v.float(), softmax_scale=10.0,
+                                           want_lse=True)
+        err = (o.float() - o_p).abs().max().item()
+        ref = o_p.abs().max().item()
+        err_lse = (lse - lse_p).abs().max().item()
+        _require(err <= BF16_TOL_FRAC * max(ref, 1.0) and err_lse <= 1e-3
+                 and (b == 1 or (o[-1].abs().max().item() == 0.0
+                                 and lse[-1].abs().max().item() == 0.0)),
+                 f"patch forward B={b} L={lq} d=200 dv=300: err {err:.3e}, "
+                 f"lse err {err_lse:.3e}")
+        res[f"ragged_B{b}_L{lq}_bfloat16"] = {"out": (err, ref),
+                                              "lse": (err_lse, 0.0)}
+        print(f"[2] patch attention forward B={b} L={lq} d=200 dv=300 "
+              f"bf16: max abs err {err:.3e}/{ref:.3g}, lse {err_lse:.3e} "
+              f"({plan(200, 300, bf16)})")
+        del q, k, v, g, valid, o, lse, o_p, lse_p
     # f ≠ b through the op: a 128² map, rate 2, C 192
     rng = np.random.default_rng(3)
     x = torch.relu(torch.from_numpy(rng.standard_normal(
@@ -1985,6 +2027,22 @@ def main() -> int:
     _require(all(n > 0 for fn, n in hgmma.items() if "wgmma" in fn)
              and any("wgmma" in fn for fn in hgmma),
              "the bf16 gated-conv kernels hold no HGMMA instruction")
+    # the attention forwards' wgmma mainloop (csrc/attention_wgmma.cuh):
+    # one instance per mode (0 fused, 1 patch) and cluster size
+    for src in ("contextual_attention", "patch_attention"):
+        hg = build.sass_counts(src, "HGMMA")
+        tma = build.sass_counts(src, "UTMALDG")
+        rows = [r for r in build.ptxas_report(src)
+                if "attention_wgmma" in r[0]]
+        for fn, used, spills in rows:
+            short = fn[fn.find("attention_wgmma"):].split("EEv")[0]
+            print(f"[1] ptxas {src} {short}: {used}; {spills}; HGMMA "
+                  f"{hg.get(fn, 0)}, UTMALDG {tma.get(fn, 0)} in SASS")
+        _require(len(rows) == 4 and all(
+            hg.get(fn, 0) > 0 and tma.get(fn, 0) > 0
+            and " 0 bytes spill stores" in spills
+            for fn, _, spills in rows),
+            f"the {src} wgmma forward lacks HGMMA or UTMALDG, or spills")
 
     rng = np.random.default_rng(0)
     res256 = check_kernels(torch, "256² (B=8, 64x64x192)", 8, 64, 192, rng,
@@ -2016,7 +2074,7 @@ def main() -> int:
                     replaces=replaces, launches=launches, **res[kernel],
                     **extra)
 
-    attn_src = "gan_inpainting_torch/csrc/contextual_attention.cu"
+    attn_src = "gan_inpainting_torch/csrc/attention_wgmma.cuh"
     fold_src = "gan_inpainting_torch/csrc/fold.cu"
     tpu_fa = "gan_inpainting_tpu/ops/pallas/fused_attention.py"
     bwd_src = "gan_inpainting_torch/csrc/contextual_attention_bwd.cu"
@@ -2077,7 +2135,7 @@ def main() -> int:
         kernels.append(row(
             f"{name}@B2_L16384", kname, patch,
             large["serve_launches"].get(name, 0) + trained.get(name, 0),
-            pa_src, f"{tpu_pa}:{line}",
+            attn_src if kname == "fwd" else pa_src, f"{tpu_pa}:{line}",
             launches_serve=large["serve_launches"].get(name, 0),
             launches_train=trained.get(name, 0)))
     print(json.dumps({"kernels": kernels, "card": smi, "large_map": {

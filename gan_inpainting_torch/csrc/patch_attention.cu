@@ -46,20 +46,24 @@
 // in the kernel: out-of-range rows and columns load as zeros, out-of-range
 // keys count as invalid, nothing out of range is stored. Offsets are 64-bit.
 //
-// Two variants of the products, same tiles and fragment layout:
-//   * mma (bf16): tensor cores through mma.sync m16n8k16, float32 sums;
-//     p (forward and dV) and ds (dQ, dK) rounded to bf16 for the products;
-//   * core (float32, or bf16 for comparison): the same 16×8 fragments
-//     computed with FMAs on the CUDA cores.
+// Two variants of the products in this template, same tiles and fragment
+// layout:
+//   * mma (bf16 dQ and dK/dV): tensor cores through mma.sync m16n8k16,
+//     float32 sums; p (dV) and ds (dQ, dK) rounded to bf16 for the
+//     products;
+//   * core (float32, or bf16 for comparison; all three kernels): the same
+//     16×8 fragments computed with FMAs on the CUDA cores.
 // Operand fragments load with ldmatrix. Tiles are staged from global
-// memory with 16-byte cp.async copies; in the forward the value tile of a
-// step and the key tile of the next one are in flight while the cluster
-// exchanges scores and weights. No wgmma or TMA yet.
+// memory with 16-byte cp.async copies. The bf16 forward is not this
+// template's: gi_patch_attention_fwd_wgmma at the end of this file runs
+// the cluster mainloop of attention_wgmma.cuh (wgmma fed by TMA, 128 keys
+// per step) with its kPatch producer.
 #include <cooperative_groups.h>
 #include <math_constants.h>
 
 #include <cstdint>
 
+#include "attention_wgmma.cuh"
 #include "common.cuh"
 
 namespace {
@@ -686,8 +690,9 @@ int dispatch(const Args& a, int is_bf16, int variant, int cl, void* stream) {
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
-    if (!is_bf16) return cudaErrorInvalidValue;
-    return launch<bf16, true, MODE>(a, cl, s);
+    // the bf16 forward is gi_patch_attention_fwd_wgmma
+    if (!is_bf16 || MODE == kFwd) return cudaErrorInvalidValue;
+    if constexpr (MODE != kFwd) return launch<bf16, true, MODE>(a, cl, s);
   }
   if (is_bf16) return launch<bf16, false, MODE>(a, cl, s);
   return launch<float, false, MODE>(a, cl, s);
@@ -696,8 +701,8 @@ int dispatch(const Args& a, int is_bf16, int variant, int cl, void* stream) {
 }  // namespace
 
 // Each returns a cudaError_t (0 on success). variant 0 = core, 1 = mma
-// (bf16 only); cluster = blocks per cluster (1, 2, 4 or 8). lse may be
-// null in the forward (no log-sum-exp written).
+// (bf16 dQ and dK/dV only); cluster = blocks per cluster (1, 2, 4 or 8).
+// lse may be null in the forward (no log-sum-exp written).
 extern "C" int gi_patch_attention_fwd(const void* q, const void* k,
                                       const unsigned char* valid,
                                       const void* v, void* out, float* lse,
@@ -732,4 +737,52 @@ extern "C" int gi_patch_attention_dkv(const void* q, const void* k,
   Args a = {q, k, v, valid, dout, lse, delta, dk, dv_out, nullptr,
             B, Lq, Lk, d, dv, scale};
   return dispatch<kDkv>(a, is_bf16, variant, cluster, stream);
+}
+
+// The bf16 forward on wgmma fed by TMA (attention_wgmma.cuh, kPatch): d
+// and dv multiples of 8 (16-byte rows for the tensor maps); cluster 1, 2,
+// 4 or 8 blocks, enough that each holds ≤ 4 of the ⌈d/64⌉ d units and ≤ 6
+// of the ⌈dv/64⌉ dv units. lse may be null. Returns a cudaError_t.
+extern "C" int gi_patch_attention_fwd_wgmma(const void* q, const void* k,
+                                            const unsigned char* valid,
+                                            const void* v, void* out,
+                                            float* lse, int B, int Lq, int Lk,
+                                            int d, int dv, float scale,
+                                            int cluster, void* stream) {
+  if (B < 1 || Lq < 1 || Lk < 1 || d < 8 || dv < 8 || d % 8 != 0 ||
+      dv % 8 != 0)
+    return cudaErrorInvalidValue;
+  auto map3 = [](CUtensorMap* tm, const void* ptr, int width, int rows,
+                 int batch, int box_rows) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
+                                static_cast<cuuint64_t>(rows),
+                                static_cast<cuuint64_t>(batch)};
+    const cuuint64_t strides[2] = {
+        static_cast<cuuint64_t>(width) * 2,
+        static_cast<cuuint64_t>(rows) * width * 2};
+    const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+    return gi::attn::encode_map(tm, ptr, 3, dims, strides, box);
+  };
+  CUtensorMap tq{}, tk{}, tv{};
+  int err = map3(&tq, q, d, Lq, B, gi::attn::kBR);
+  if (err == cudaSuccess) err = map3(&tk, k, d, Lk, B, gi::attn::kBC);
+  if (err == cudaSuccess) err = map3(&tv, v, dv, Lk, B, gi::attn::kBC);
+  if (err != cudaSuccess) return err;
+  gi::attn::Params p{};
+  p.B = B;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.d = d;
+  p.dv = dv;
+  p.n1 = (d + 63) / 64;
+  p.n2 = (dv + 63) / 64;
+  p.ws = 1;
+  p.cpt = 1;
+  p.rate = 1;
+  p.scale = scale;
+  p.valid = valid;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse = lse;
+  return gi::attn::launch<gi::attn::kPatch>(tq, tk, tv, p, cluster,
+                                            static_cast<cudaStream_t>(stream));
 }

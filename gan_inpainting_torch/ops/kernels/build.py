@@ -47,8 +47,8 @@ def nvcc_path() -> str:
 
 def _target(name: str, nvcc: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    common = (CSRC / "common.cuh").read_bytes()
-    key = hashlib.sha256(src + common + " ".join(NVCC_FLAGS).encode()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()
                          + nvcc.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
@@ -85,11 +85,14 @@ def build_all(names=SOURCES) -> float:
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, targets[n])
+                targets[n].with_suffix(".log").write_text(log)
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(failed))
         for n, t in targets.items():
             _libs[n] = ctypes.CDLL(str(t))
+            if n not in build_log and t.with_suffix(".log").exists():
+                build_log[n] = t.with_suffix(".log").read_text()
     return time.perf_counter() - t0
 
 
@@ -102,7 +105,8 @@ def library(name: str) -> ctypes.CDLL:
 
 def ptxas_report(name: str) -> list[tuple[str, str, str]]:
     """(function, "Used … registers …", "… spill stores, … spill loads") of
-    every kernel in ``build_log[name]`` (nvcc's -Xptxas -v output)."""
+    every kernel in ``build_log[name]`` (nvcc's -Xptxas -v output, kept
+    beside the library for a build loaded from an earlier process)."""
     out, fn, spills = [], "", ""
     for line in build_log.get(name, "").splitlines():
         if "Compiling entry function" in line:

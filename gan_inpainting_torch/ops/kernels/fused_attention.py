@@ -3,22 +3,23 @@
 ``fused_attention_taps`` replaces the Pallas kernels
 ``_fused_kernel_singlek`` (gan_inpainting_tpu/ops/pallas/fused_attention.py:136,
 the 256² serve regime) and ``_fused_kernel`` (:52, the flash regime at 512²)
-with one CUDA kernel, ``csrc/contextual_attention.cu``. The host prep
-(:func:`_prepare`) builds the r² sub-pixel parity maps with a one-cell
-halo, the hole bias and the key reciprocal norms; the kernel builds every
-Q/K/V tile from the maps, so no patch tensor and no (Lq, Lk) score matrix
-reaches device memory. The whole score row of a group of G query cells
-sits in shared memory — one block's, or split over a cluster of blocks —
-which is why the TPU's two regimes collapse into one here.
+with ``csrc/contextual_attention.cu``. The host prep (:func:`_prepare`)
+builds the r² sub-pixel parity maps with a one-cell halo, the hole bias
+and the key reciprocal norms; the kernel builds every Q/K/V tile from the
+maps, so no patch tensor and no (Lq, Lk) score matrix reaches device
+memory.
 
-The kernel has two variants (:func:`plan` picks): ``mma``, bf16 tensor-core
-tiles, for the serve shapes (bf16, C % 64 == 0, ws % 32 == 0, Lk % 256 ==
-0), with the keys split over a cluster of up to 8 blocks where one block
-cannot hold 32 score rows; and ``core``, float32 FMAs on the CUDA cores,
-one block per group, for every other shape and for float32. Bound on an
-H100: 2·Lq·Lk·(9 + 16)·C
-operations per image against a few MB of maps and output — bounded by
-operations.
+The kernel has two variants (:func:`plan` picks): ``wgmma`` for bf16 maps
+with C % 64 == 0 and rows of 32, 64 or a multiple of 128 cells (every
+serve and train map of the configs): the cluster mainloop of
+``csrc/attention_wgmma.cuh``, wgmma fed by TMA, d and dv split over a
+cluster of up to 8 blocks, a flash recurrence over 128-key steps, so the
+TPU's two regimes are one here too; and ``core``, float32 FMAs on the CUDA
+cores, whole score rows of a group of query cells in shared memory, for
+every other shape and for float32. :func:`fused_attention_mirror` is the
+wgmma variant's arithmetic in PyTorch. Bound on an H100: 2·Lq·Lk·(9 +
+16)·C operations per image against a few MB of maps and output — bounded
+by operations.
 
 With ``want_lse`` (training) the kernel also writes the per-query
 log-sum-exp of the scores over the valid keys, (B, Lq) float32, 0 for a
@@ -40,14 +41,13 @@ import torch.nn.functional as F
 
 from gan_inpainting_torch.ops.dispatch import count_launch, use_kernel
 from gan_inpainting_torch.ops.kernels import build
+from gan_inpainting_torch.ops.kernels.patch_attention import wgmma_cluster
 
 KERNEL = "contextual_attention_fused"
 NEG_INF = -1e9
 SMEM_BYTES = 232448      # shared memory one block may opt into on Hopper
 _GROUPS = (32, 16, 8, 4, 2, 1)
 _CLUSTERS = (1, 2, 4, 8)              # portable thread block cluster sizes
-_VARIANTS = {"core": 0, "mma": 1}
-_MMA_WARPS = 8
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -72,59 +72,64 @@ def plan_group(lk: int, c: int) -> int:
         "flash variant: the patch-attention kernels")
 
 
-def _mma_smem_bytes(g: int, lb: int) -> int:
-    """Shared memory of one mma block: float32 scores plus bf16 weights of
-    G rows × lb keys, an 8×32 float staging tile per warp, and the rows'
-    partial max and sum."""
-    return 6 * g * lb + _MMA_WARPS * 8 * 32 * 4 + 2 * g * 4
+def wgmma_takes(hs: int, ws: int, c: int, rate: int,
+                dtype: torch.dtype) -> int | None:
+    """Cluster size of the ``wgmma`` variant (csrc/attention_wgmma.cuh) for
+    a map, or None where it does not take it: bf16, C % 64 == 0, 64-query
+    tiles and 128-key steps that are TMA boxes of whole map rows (ws 32, 64
+    or a multiple of 128, hs·ws % 128 == 0), and a cluster whose blocks
+    each hold ≤ 4 of the 9C/64 d units and ≤ 6 of the 4r²C/64 dv units."""
+    if (dtype != torch.bfloat16 or c % 64 or (hs * ws) % 128
+            or not (ws in (32, 64) or ws % 128 == 0)):
+        return None
+    return wgmma_cluster(9 * c // 64, 4 * rate * rate * c // 64)
 
 
-def _plan(hs: int, ws: int, c: int,
-          dtype: torch.dtype) -> tuple[str, int, int] | None:
-    lk = hs * ws
-    if (dtype == torch.bfloat16 and c % 64 == 0 and ws % 32 == 0
-            and lk % 256 == 0):
-        for g in (32, 16, 8):
-            for cl in _CLUSTERS:
-                if (lk % (256 * cl) == 0
-                        and _mma_smem_bytes(g, lk // cl) <= SMEM_BYTES):
-                    return "mma", g, cl
-    g = _group(lk, c)
+def _plan(hs: int, ws: int, c: int, dtype: torch.dtype,
+          rate: int = 2) -> tuple[str, int, int] | None:
+    cl = wgmma_takes(hs, ws, c, rate, dtype)
+    if cl is not None:
+        return "wgmma", 64, cl
+    g = _group(hs * ws, c)
     return None if g is None else ("core", g, 1)
 
 
-def plan(hs: int, ws: int, c: int,
-         dtype: torch.dtype) -> tuple[str, int, int]:
-    """(variant, G, cluster): the tensor-core ``mma`` variant where its
-    tiles fit the shape, with G query cells per cluster of blocks that
-    split the Lk keys between them (the largest G, then the smallest
-    cluster, whose per-block share of the score rows fits in shared
-    memory); else ``core`` with G query cells per block and no cluster.
-    Raises for a map no block can hold."""
-    return _plan(hs, ws, c, dtype) or ("core", plan_group(hs * ws, c), 1)
+def plan(hs: int, ws: int, c: int, dtype: torch.dtype,
+         rate: int = 2) -> tuple[str, int, int]:
+    """(variant, G, cluster): the ``wgmma`` variant (64 query cells per
+    cluster of blocks that split d and dv, a flash recurrence over the
+    keys, so any map size) where :func:`wgmma_takes` holds; else ``core``
+    with G query cells per block, their whole score rows in shared memory,
+    and no cluster. Raises for a map neither holds."""
+    return (_plan(hs, ws, c, dtype, rate)
+            or ("core", plan_group(hs * ws, c), 1))
 
 
 def fused_supported(shape, ksize: int, rate: int,
                     dtype: torch.dtype) -> bool:
     """Whether the fused kernel takes a (B, H, W, C) feature map on the
     card: ksize 3, H and W divisible by ``rate``, C % 4 == 0, a dtype it
-    takes, and a map whose score rows :func:`plan` can hold. Elsewhere
-    contextual attention goes through the patch-attention kernels
+    takes, and a map :func:`plan` can hold. Elsewhere contextual attention
+    goes through the patch-attention kernels
     (ops/kernels/patch_attention.py)."""
     _, h, w, c = shape
     if (ksize != 3 or h % rate or w % rate or c % 4
             or dtype not in _DTYPES):
         return False
-    return _plan(h // rate, w // rate, c, dtype) is not None
+    return _plan(h // rate, w // rate, c, dtype, rate) is not None
 
 
 # Largest map, in query cells (hs·ws), on which contextual attention takes
-# the fused route; on a larger one the patch route is faster wherever both
-# hold. Measured on one NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py
-# phase [2], B 2, C 192, bf16, the two routes in turns): at 4096 cells
-# forward 7.42 vs 7.50 ms, forward + backward 29.47 vs 34.10 (fused
-# first); at 8192 cells 35.85 vs 25.90 and 146.80 vs 116.25; at 16 384
-# cells 166.87 vs 94.69 and 667.40 vs 431.71.
+# the fused route; on a larger one the patch route is as fast or faster
+# wherever both hold. Measured on one NVIDIA H100 80GB HBM3, 700.00 W
+# (chip_smoke.py phase [2], B 2, C 192, bf16, both forwards on wgmma, the
+# routes in turns, two runs; fused first): at 4096 cells forward 3.46 /
+# 3.51 vs 3.48 / 3.87 ms, forward + backward 25.69 / 25.74 vs 29.97 /
+# 31.14; at 8192 cells forward 11.96 / 11.82 vs 11.71 / 12.15 (a tie),
+# forward + backward 124.63 / 123.81 vs 103.39 / 103.60; at 16 384 cells
+# 42.65 / 42.73 vs 42.13 / 42.27 and 548.53 / 548.58 vs 381.25 / 381.11.
+# The fused backward kernels decide it. float32: the patch route is
+# faster at every size, from 4096 cells up (52.2 vs 31.8 ms there).
 FUSED_MAX_CELLS = 4096
 
 
@@ -201,6 +206,67 @@ def fused_attention_taps_plain(b_feat: torch.Tensor, hole_mask: torch.Tensor,
     return taps, torch.where(valid.any(-1, keepdim=True), lse, 0.0)
 
 
+def fused_attention_mirror(maps, bias, rnorm, hs: int, ws: int, rate: int,
+                           scale: float, *, cluster: int,
+                           block_c: int = 128, unit: int = 64):
+    """The wgmma variant's arithmetic (csrc/attention_wgmma.cuh, kFused) in
+    PyTorch on prepared inputs (:func:`_prepare`) → (taps (B, 4r², Lq, C)
+    in the maps' dtype, lse (B, Lq) float32).
+
+    d is cut into ``unit``-wide (tap, channel) units in tap-major order; the
+    ``cluster`` ranks hold units [r·n1/CL, (r+1)·n1/CL) and the scores of a
+    step are their partial contractions summed in rank order. Steps of
+    ``block_c`` keys: s = S·(rnorm·scale) + bias, running max m, α =
+    exp(m_old − m_new), p = exp(s − m_new) on valid keys, the sum l
+    rescaled by α and given p unrounded, every tap's accumulator rescaled
+    by α and given bf16(p)·V_tap (p rounded to the maps' dtype), V_tap a
+    shifted window of parity map (par, off). Then out = acc / l and lse = m
+    + log l, both 0 where l = 0."""
+    bsz, c = maps.shape[0], maps.shape[-1]
+    lk = hs * ws
+    mf = maps.float()
+    qk = [mf[:, 0, 0, dp:dp + hs, dq:dq + ws].reshape(bsz, lk, c)
+          for dp in range(3) for dq in range(3)]
+    units = [(t, c0) for t in range(9) for c0 in range(0, c, unit)]
+    n1 = len(units)
+    ranks = [units[r * n1 // cluster:(r + 1) * n1 // cluster]
+             for r in range(cluster)]
+    half = rate // 2
+    vt = []
+    for tap in range(4 * rate * rate):
+        vp, vq = divmod(tap, 2 * rate)
+        pp, op = (vp - half + rate) % rate, (vp - half + rate) // rate
+        pq, oq = (vq - half + rate) % rate, (vq - half + rate) // rate
+        vt.append(mf[:, pp, pq, op:op + hs, oq:oq + ws].reshape(bsz, lk, c))
+    m = torch.full((bsz, lk, 1), -1e30, device=maps.device)
+    l_ = torch.zeros((bsz, lk, 1), device=maps.device)
+    acc = torch.zeros((bsz, len(vt), lk, c), device=maps.device)
+    for k0 in range(0, lk, block_c):
+        ks = slice(k0, k0 + block_c)
+        s = None
+        for rank in ranks:
+            part = torch.zeros((bsz, lk, min(block_c, lk - k0)),
+                               device=maps.device)
+            for t, c0 in rank:
+                cs = slice(c0, c0 + unit)
+                part = part + torch.matmul(qk[t][..., cs],
+                                           qk[t][:, ks, cs].transpose(1, 2))
+            s = part if s is None else s + part
+        s = s * (rnorm[:, None, ks] * scale) + bias[:, None, ks]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(bias[:, None, ks] >= 0, torch.exp(s - m_new), 0.0)
+        l_ = l_ * alpha + p.sum(-1, keepdim=True)
+        pr = p.to(maps.dtype).float()
+        acc = acc * alpha[:, None] + torch.stack(
+            [torch.matmul(pr, v[:, ks]) for v in vt], 1)
+        m = m_new
+    inv = torch.where(l_ > 0, 1.0 / torch.clamp(l_, min=1e-30), 0.0)
+    lse = torch.where(l_ > 0, m + torch.log(torch.clamp(l_, min=1e-30)),
+                      0.0)
+    return (acc * inv[:, None]).to(maps.dtype), lse[..., 0]
+
+
 def _launch(maps: torch.Tensor, bias: torch.Tensor, rnorm: torch.Tensor,
             hs: int, ws: int, rate: int, scale: float,
             variant: str | None = None, want_lse: bool = False):
@@ -222,31 +288,41 @@ def _launch(maps: torch.Tensor, bias: torch.Tensor, rnorm: torch.Tensor,
         raise ValueError("maps must be contiguous")
     if c % 4:
         raise ValueError(f"fused attention kernel needs C % 4 == 0, got {c}")
-    chosen, group, cluster = plan(hs, ws, c, maps.dtype)
+    chosen, group, cluster = plan(hs, ws, c, maps.dtype, rate)
     if variant is not None and variant != chosen:
         if variant == "core":
             group, cluster = plan_group(lk, c), 1
         else:
-            raise ValueError(f"the mma variant does not take hs={hs} ws={ws} "
-                             f"C={c} {maps.dtype}")
+            raise ValueError(f"the {variant} variant does not take hs={hs} "
+                             f"ws={ws} C={c} {maps.dtype}")
     variant = variant or chosen
     out = torch.empty((bsz, 4 * rate * rate, lk, c), dtype=maps.dtype,
                       device=maps.device)
     lse = (torch.empty((bsz, lk), dtype=torch.float32, device=maps.device)
            if want_lse else None)
     lib = build.library("contextual_attention")
-    fn = lib.gi_fused_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(maps.device).cuda_stream
-    with torch.cuda.device(maps.device):
-        err = fn(maps.data_ptr(), bias.data_ptr(), rnorm.data_ptr(),
-                 out.data_ptr(), lse.data_ptr() if want_lse else None, bsz,
-                 hs, ws, c, rate, float(scale),
-                 int(maps.dtype == torch.bfloat16), _VARIANTS[variant], group,
-                 cluster, stream)
+    lse_ptr = lse.data_ptr() if want_lse else None
+    if variant == "wgmma":
+        fn = lib.gi_fused_attention_wgmma
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        with torch.cuda.device(maps.device):
+            err = fn(maps.data_ptr(), bias.data_ptr(), rnorm.data_ptr(),
+                     out.data_ptr(), lse_ptr, bsz, hs, ws, c, rate,
+                     float(scale), cluster, stream)
+    else:
+        fn = lib.gi_fused_attention
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_float] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        with torch.cuda.device(maps.device):
+            err = fn(maps.data_ptr(), bias.data_ptr(), rnorm.data_ptr(),
+                     out.data_ptr(), lse_ptr, bsz, hs, ws, c, rate,
+                     float(scale), int(maps.dtype == torch.bfloat16), group,
+                     stream)
     count_launch(KERNEL)
     build.check(lib, err, KERNEL)
     return (out, lse) if want_lse else out

@@ -46,7 +46,6 @@ from gan_inpainting_torch.ops.kernels.fold import fold_counts_inv
 from gan_inpainting_torch.ops.kernels.fused_attention import (
     _CLUSTERS,
     _DTYPES,
-    _VARIANTS,
     SMEM_BYTES,
     _prepare,
 )
@@ -56,6 +55,7 @@ KERNEL_DKV = "contextual_attention_bwd_dkv"
 _MMA_STAGE_BYTES = 8 * 2 * 8 * 32 * 4     # per-warp u and dp staging tiles
 _MMA_GROUPS = (32, 16, 8)
 _CORE_GROUPS = (8, 4, 2, 1)
+_VARIANTS = {"core": 0, "mma": 1}
 
 
 def v_tap_geometry(rate: int) -> list[tuple[int, int, int, int]]:

@@ -2,8 +2,10 @@
 
 ``patch_attention`` and ``patch_attention_bwd`` replace the Pallas kernels
 ``_fwd_kernel`` (gan_inpainting_tpu/ops/pallas/patch_attention.py:64),
-``_bwd_dq_kernel`` (:156) and ``_bwd_dkv_kernel`` (:186) with three CUDA
-kernels in ``csrc/patch_attention.cu``:
+``_bwd_dq_kernel`` (:156) and ``_bwd_dkv_kernel`` (:186) with CUDA kernels
+in ``csrc/patch_attention.cu`` (the bf16 forward: the cluster mainloop of
+``csrc/attention_wgmma.cuh``, wgmma fed by TMA, 128 keys per step; the
+rest: a cluster template on mma.sync or CUDA-core FMAs):
 
     s = scale·q·k + bias, bias −1e9 on an invalid key
     out[q] = Σ_k softmax_k(s)·valid_k·v[k]       0 where no key is valid
@@ -20,7 +22,8 @@ and maps whose score rows do not fit shared memory (the 2048² image), and
 the gradient where the fused backward's plan does not fit. The patch
 widths are large there (d = 9C = 1728, dv = 4r²C = 3072 at C = 192, rate
 2), so one row tile is shared by a cluster of up to 8 blocks, each holding
-a slice of d and of dv (:func:`plan`; the design is in the CUDA source).
+a slice of d and of dv (:func:`plan`; the designs are in the CUDA
+sources).
 Bound on an H100: 2·Lq·Lk·(d + dv) operations (forward), 2·Lq·Lk·(2d + dv)
 (dQ), 2·Lq·Lk·(2d + 2dv) (dK/dV) against (Lq + Lk)·(d + dv) input
 elements — bounded by operations.
@@ -31,8 +34,8 @@ not autograd), which a CPU tensor takes and the card's checks compare
 with; and :func:`patch_attention_mirror`, the kernels' tiling in PyTorch
 (column tiles, running max and sum, per-rank slices of d and dv summed in
 rank order, weights rounded as the kernels round them), which the CPU tests
-hold against the plain versions. On a CUDA tensor the wrappers launch the
-kernels or raise.
+hold against the plain versions and the JAX Pallas forward. On a CUDA
+tensor the wrappers launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from gan_inpainting_torch.ops.dispatch import count_launch, use_kernel
 from gan_inpainting_torch.ops.kernels import build
@@ -104,17 +108,47 @@ def _fits(which: str, dtype: torch.dtype, d: int, dv: int, cl: int) -> bool:
     return smem_bytes(which, dtype, d, dv, cl) <= SMEM_BYTES
 
 
+# csrc/attention_wgmma.cuh: 64-wide units of d and dv per block of a cluster
+WGMMA_UNIT = 64
+WGMMA_MAX_D_UNITS = 4         # the block's resident slice of the Q tile
+WGMMA_MAX_DV_UNITS = 6        # 3 per consumer warpgroup
+
+
+def wgmma_cluster(n1: int, n2: int) -> int | None:
+    """Smallest cluster of the wgmma forward whose blocks each hold at most
+    4 of the n1 d units and 6 of the n2 dv units; None if 8 do not."""
+    for cl in _CLUSTERS:
+        if -(-n1 // cl) <= WGMMA_MAX_D_UNITS and \
+                -(-n2 // cl) <= WGMMA_MAX_DV_UNITS:
+            return cl
+    return None
+
+
 def plan(d: int, dv: int, dtype: torch.dtype,
          which: str = "fwd") -> tuple[str, int]:
-    """(variant, cluster) of the ``"fwd"``, ``"dq"`` or ``"dkv"`` kernel:
-    tensor-core ``mma`` for bf16, ``core`` for float32; the smallest
-    cluster whose per-block slices of d and dv fit the accumulator
-    registers and shared memory. Raises for widths no cluster holds."""
+    """(variant, cluster) of the ``"fwd"``, ``"dq"`` or ``"dkv"`` kernel.
+    The bf16 forward is ``wgmma`` (csrc/attention_wgmma.cuh), with the
+    smallest cluster :func:`wgmma_cluster` allows; otherwise tensor-core
+    ``mma`` for bf16, ``core`` for float32, the smallest cluster whose
+    per-block slices of d and dv fit the accumulator registers and shared
+    memory. Raises for widths no cluster holds."""
     if dtype not in _DTYPES:
         raise TypeError(f"patch attention kernels take {_DTYPES}, got {dtype}")
+    if which == "fwd" and dtype == torch.bfloat16:
+        cl = wgmma_cluster(-(-d // WGMMA_UNIT), -(-dv // WGMMA_UNIT))
+        if cl is not None:
+            return "wgmma", cl
+        raise ValueError(f"patch attention {which}: widths d={d} dv={dv} "
+                         f"({dtype}) exceed what a cluster of 8 blocks holds")
+    return ("mma" if dtype == torch.bfloat16 else "core",
+            _template_cluster(which, d, dv, dtype))
+
+
+def _template_cluster(which: str, d: int, dv: int,
+                      dtype: torch.dtype) -> int:
     for cl in _CLUSTERS:
         if _fits(which, dtype, d, dv, cl):
-            return ("mma" if dtype == torch.bfloat16 else "core"), cl
+            return cl
     raise ValueError(f"patch attention {which}: widths d={d} dv={dv} "
                      f"({dtype}) exceed what a cluster of 8 blocks holds")
 
@@ -168,27 +202,34 @@ def patch_attention_bwd_plain(q, k, key_valid, v, out, lse, g, *,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _slices(n: int, cl: int) -> list[slice]:
-    """The ranks' 16-wide chunks of an n-wide dimension, clamped to n."""
-    nch = -(-n // 16)
-    return [slice(min(r * nch // cl * 16, n), min((r + 1) * nch // cl * 16, n))
-            for r in range(cl)]
+def _slices(n: int, cl: int, unit: int = 16) -> list[slice]:
+    """The ranks' ``unit``-wide chunks of an n-wide dimension, clamped to
+    n: rank r holds chunks [r·n_ch/cl, (r+1)·n_ch/cl)."""
+    nch = -(-n // unit)
+    return [slice(min(r * nch // cl * unit, n),
+                  min((r + 1) * nch // cl * unit, n)) for r in range(cl)]
 
 
 def patch_attention_mirror(q, k, key_valid, v, *, softmax_scale: float,
-                           cluster: int, block_c: int, out=None, lse=None,
-                           g=None):
+                           cluster: int, block_c: int, unit: int = 16,
+                           out=None, lse=None, g=None):
     """The kernels' arithmetic in PyTorch. Forward (``g`` None): loops
-    over key tiles of ``block_c`` with the running max and sum → (out,
-    lse). Backward: the dQ kernel's loop over key tiles and the dK/dV
-    kernel's over query tiles → (dq, dk, dv), float32. Scores (and dp) are
-    the sums, in rank order, of the ``cluster`` ranks' slices of d (dv); p
-    and ds are rounded to the inputs' dtype before their products."""
+    over key steps of ``block_c`` with the running max and sum, p =
+    exp(s − m)·valid rounded to the inputs' dtype for the PV product (the
+    sum takes it unrounded), the accumulator rescaled by exp(m_old − m_new)
+    → (out, lse). The wgmma forward (csrc/attention_wgmma.cuh) is
+    ``unit`` = 64, ``block_c`` = 128 and the cluster of :func:`plan`; the
+    float32 template is ``unit`` 16, ``block_c`` 32. Backward: the dQ
+    kernel's loop over key tiles and the dK/dV kernel's over query tiles →
+    (dq, dk, dv), float32. Scores (and dp) are the sums, in rank order, of
+    the ``cluster`` ranks' ``unit``-wide slices of d (dv); p and ds are
+    rounded to the inputs' dtype before their products."""
     t = v.dtype
     qf, kf, vf = q.float(), k.float(), v.float()
     bsz, lq, _ = q.shape
     lk = k.shape[1]
-    sd, sdv = _slices(q.shape[-1], cluster), _slices(v.shape[-1], cluster)
+    sd = _slices(q.shape[-1], cluster, unit)
+    sdv = _slices(v.shape[-1], cluster, unit)
 
     def ranked(a, b_, slices):
         acc = None
@@ -271,7 +312,7 @@ def _pick(which, d, dv, dtype, variant):
     if variant is not None and variant != chosen:
         if variant != "core":
             raise ValueError(f"the {variant} variant does not take {dtype}")
-        chosen = "core"
+        chosen, cluster = "core", _template_cluster(which, d, dv, dtype)
     return chosen, cluster
 
 
@@ -285,6 +326,13 @@ def _fn(name: str, n_ptr: int):
     return lib, fn
 
 
+def _pad8(t: torch.Tensor) -> torch.Tensor:
+    """t with its last dimension zero-padded to a multiple of 8 (rows of
+    16 bytes, as a TMA tensor map needs)."""
+    n = t.shape[-1]
+    return t if n % 8 == 0 else F.pad(t, (0, -n % 8))
+
+
 def launch_fwd(q, k, key_valid, v, softmax_scale: float, *,
                want_lse: bool = False, variant: str | None = None):
     """The forward kernel → out (B, Lq, dv) in v's dtype, and with
@@ -294,17 +342,33 @@ def launch_fwd(q, k, key_valid, v, softmax_scale: float, *,
     bsz, lq, d = q.shape
     _, lk, dv = v.shape
     variant, cluster = _pick("fwd", d, dv, q.dtype, variant)
-    out = torch.empty((bsz, lq, dv), dtype=v.dtype, device=q.device)
     lse = (torch.empty((bsz, lq), dtype=torch.float32, device=q.device)
            if want_lse else None)
-    lib, fn = _fn("gi_patch_attention_fwd", 6)
+    lse_ptr = lse.data_ptr() if want_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), key_valid.data_ptr(),
-                 v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr() if want_lse else None, bsz, lq, lk, d, dv,
-                 float(softmax_scale), int(q.dtype == torch.bfloat16),
-                 _VARIANTS[variant], cluster, stream)
+    if variant == "wgmma":
+        q, k, v = _pad8(q), _pad8(k), _pad8(v)
+        dp, dvp = q.shape[-1], v.shape[-1]
+        out = torch.empty((bsz, lq, dvp), dtype=v.dtype, device=q.device)
+        lib = build.library("patch_attention")
+        fn = lib.gi_patch_attention_fwd_wgmma
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        with torch.cuda.device(q.device):
+            err = fn(q.data_ptr(), k.data_ptr(), key_valid.data_ptr(),
+                     v.data_ptr(), out.data_ptr(), lse_ptr, bsz, lq, lk, dp,
+                     dvp, float(softmax_scale), cluster, stream)
+        if dvp != dv:
+            out = out[..., :dv].contiguous()
+    else:
+        out = torch.empty((bsz, lq, dv), dtype=v.dtype, device=q.device)
+        lib, fn = _fn("gi_patch_attention_fwd", 6)
+        with torch.cuda.device(q.device):
+            err = fn(q.data_ptr(), k.data_ptr(), key_valid.data_ptr(),
+                     v.data_ptr(), out.data_ptr(), lse_ptr, bsz, lq, lk, d,
+                     dv, float(softmax_scale), int(q.dtype == torch.bfloat16),
+                     _VARIANTS[variant], cluster, stream)
     count_launch(KERNEL_FWD)
     build.check(lib, err, KERNEL_FWD)
     return (out, lse) if want_lse else out

@@ -1,0 +1,127 @@
+"""Time the bf16 attention forwards at the table shapes, on one CUDA card.
+
+    python -m gan_inpainting_torch.tools.bench_attention [--turns 2]
+
+Shapes: the fused forward at the 256² serve map (B 8, 64×64×192) and the
+512² map (B 2, 128×128×192); the patch forward at B 2, L 16 384, d 1728,
+dv 3072 (70 % of keys valid). For each, per turn: ms of the kernel launch
+alone (prepared maps, or materialized Q/K/V with lse), ms of one
+``scaled_dot_product_attention`` call over the same patches (a yardstick,
+never called by the port), and the kernel's largest error against the
+plain version (bf16 inputs, the plain version in float32 on the same
+values; lse absolute). One JSON line per shape, and the card's name and
+power limit.
+
+It uses only entry points that every version of the port has
+(``fused_attention._prepare``/``_launch``, ``patch_attention.launch_fwd``),
+so two versions can be timed in turns on one card: run it once with
+``PYTHONPATH`` at the other checkout.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import torch
+import torch.nn.functional as F
+
+
+def _time_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def fused_case(bsz: int, hw: int, turns: int) -> dict:
+    from gan_inpainting_torch.ops.contextual_attention import (
+        _attention_inputs,
+    )
+    from gan_inpainting_torch.ops.kernels import fused_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(hw)
+    x = torch.relu(torch.randn((bsz, hw, hw, 192), generator=gen,
+                               device="cuda")).to(torch.bfloat16)
+    hole = (torch.rand((bsz, hw, hw, 1), generator=gen, device="cuda")
+            < 0.02).float()
+    hs = hw // 2
+    maps, bias, rnorm, _ = fa._prepare(x, hole, 3, 2)
+    got, lse = fa._launch(maps, bias, rnorm, hs, hs, 2, 10.0, want_lse=True)
+    want, want_lse = fa.fused_attention_taps_plain(x.float(), hole,
+                                                   want_lse=True)
+    q, k, valid, v, _ = _attention_inputs(x, x, hole, 3, 2)
+    mask = valid[:, None, None, :]
+    turns_ms = [(
+        _time_ms(lambda: fa._launch(maps, bias, rnorm, hs, hs, 2, 10.0), 10),
+        _time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, None], k[:, None], v[:, None], attn_mask=mask, scale=10.0),
+            5)) for _ in range(turns)]
+    return dict(shape=f"fused B{bsz} {hw}x{hw}x192", plan=fa.plan(
+        hs, hs, 192, torch.bfloat16), kernel_ms=[t[0] for t in turns_ms],
+        sdpa_ms=[t[1] for t in turns_ms],
+        max_abs_err=(got.float() - want).abs().max().item(),
+        tol=2.0 ** -7 * x.float().abs().max().item(),
+        lse_err=(lse - want_lse).abs().max().item())
+
+
+def patch_case(bsz: int, length: int, turns: int) -> dict:
+    from gan_inpainting_torch.ops.kernels import patch_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(length)
+    d, dv = 1728, 3072
+    q = torch.randn((bsz, length, d), generator=gen, device="cuda")
+    k = F.normalize(torch.randn((bsz, length, d), generator=gen,
+                                device="cuda"), dim=-1)
+    v = torch.randn((bsz, length, dv), generator=gen, device="cuda")
+    q, k, v = (t.to(torch.bfloat16).contiguous() for t in (q, k, v))
+    valid = torch.rand((bsz, length), generator=gen, device="cuda") < 0.7
+    out, lse = pa.launch_fwd(q, k, valid, v, 10.0, want_lse=True)
+    err = lse_err = ref = 0.0
+    for c0 in range(0, length, 4096):
+        o, l_ = pa.patch_attention_plain(q[:, c0:c0 + 4096].float(),
+                                         k.float(), valid, v.float(),
+                                         softmax_scale=10.0, want_lse=True)
+        err = max(err, (out[:, c0:c0 + 4096].float() - o).abs().max().item())
+        lse_err = max(lse_err, (lse[:, c0:c0 + 4096] - l_).abs().max().item())
+        ref = max(ref, o.abs().max().item())
+    mask = torch.where(valid, 0.0, -1e9).to(q.dtype)[:, None, None, :]
+    turns_ms = [(
+        _time_ms(lambda: pa.launch_fwd(q, k, valid, v, 10.0, want_lse=True),
+                 3),
+        _time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, None], k[:, None], v[:, None], attn_mask=mask, scale=10.0),
+            2)) for _ in range(turns)]
+    return dict(shape=f"patch B{bsz} L{length} d{d} dv{dv}",
+                plan=pa.plan(d, dv, torch.bfloat16),
+                kernel_ms=[t[0] for t in turns_ms],
+                sdpa_ms=[t[1] for t in turns_ms], max_abs_err=err,
+                tol=2.0 ** -7 * max(ref, 1.0), lse_err=lse_err)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--turns", type=int, default=2)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_attention needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    for res in (fused_case(8, 64, args.turns), fused_case(2, 128, args.turns),
+                patch_case(2, 16384, args.turns)):
+        print(json.dumps(res, default=str))
+
+
+if __name__ == "__main__":
+    main()

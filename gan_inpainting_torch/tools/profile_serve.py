@@ -173,7 +173,7 @@ def _print_gflop(inp, img, msk, size: int) -> None:
 
 
 def _category(kernel: str) -> str:
-    if "fused_attention" in kernel:
+    if "fused_attention" in kernel or "attention_wgmma" in kernel:
         return "attention"
     if "fold_kernel" in kernel:
         return "fold"

@@ -56,7 +56,7 @@ class SectionTimer:
 def category(kernel: str) -> str:
     if "attention_bwd" in kernel:
         return "attention backward"
-    if "fused_attention" in kernel:
+    if "fused_attention" in kernel or "attention_wgmma" in kernel:
         return "attention forward"
     if "fold_kernel" in kernel:
         return "fold"

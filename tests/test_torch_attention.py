@@ -37,6 +37,7 @@ from gan_inpainting_torch.ops.kernels.fold import (
 )
 from gan_inpainting_torch.ops.kernels.fused_attention import (
     _prepare,
+    fused_attention_mirror,
     fused_attention_taps,
     fused_attention_taps_plain,
     plan,
@@ -136,37 +137,6 @@ def test_prepare_matches_jax_prepare():
 # ---------------------------------------------------------------------------
 
 
-def _mirror_attention_kernel(maps, bias, rnorm, hs, ws, rate, scale,
-                             cluster=1):
-    """csrc/contextual_attention.cu step by step, vectorized over blocks;
-    ``cluster`` blocks each own Lk/cluster keys of a row, and the
-    softmax combines their partial maxima and sums."""
-    bsz, c = maps.shape[0], maps.shape[-1]
-    lk = hs * ws
-    m00 = maps[:, 0, 0]
-    s = torch.zeros(bsz, lk, lk)
-    for t in range(9):
-        dp, dq = divmod(t, 3)
-        tap = m00[:, dp:dp + hs, dq:dq + ws].reshape(bsz, lk, c)
-        s += tap @ tap.transpose(1, 2)
-    s = s * (rnorm * scale)[:, None, :] + bias[:, None, :]
-    m = torch.stack([part.max(-1).values for part in s.chunk(cluster, -1)],
-                    -1).max(-1, keepdim=True).values
-    p = torch.where(bias[:, None, :] >= 0, torch.exp(s - m), 0.0)
-    l = torch.stack([part.sum(-1) for part in p.chunk(cluster, -1)],
-                    -1).sum(-1, keepdim=True)
-    p = p * torch.where(l > 0, 1.0 / torch.clamp(l, min=1e-30), 0.0)
-    half = rate // 2
-    out = []
-    for vp in range(2 * rate):
-        for vq in range(2 * rate):
-            par_p, off_p = (vp - half + rate) % rate, (vp - half + rate) // rate
-            par_q, off_q = (vq - half + rate) % rate, (vq - half + rate) // rate
-            v = maps[:, par_p, par_q, off_p:off_p + hs, off_q:off_q + ws]
-            out.append(p @ v.reshape(bsz, lk, c))
-    return torch.stack(out, 1)
-
-
 def _mirror_fold_kernel(taps, inv, hs, ws, rate):
     """csrc/fold.cu: each output gathers its (p, q, i, j) contributors."""
     bsz, _, _, c = taps.shape
@@ -188,6 +158,11 @@ def _mirror_fold_kernel(taps, inv, hs, ws, rate):
     return out
 
 
+# The wgmma variant's tiling (fused_attention_mirror: d units split over
+# the cluster's ranks and summed in rank order, steps of block_c keys with
+# the flash rescale) in float32 against the plain version, 2e-4: the same
+# sums in another order. cluster 2 with 16-key steps walks several steps
+# and splits the (tap, channel) units unevenly.
 @pytest.mark.parametrize("cluster", [1, 2])
 @pytest.mark.parametrize("b,h,w,c,rate", [
     (3, 16, 16, 8, 2), (1, 12, 20, 4, 2), (1, 16, 16, 4, 4)])
@@ -195,10 +170,14 @@ def test_kernel_index_algebra_matches_plain(b, h, w, c, rate, cluster):
     f, hole = _case(7 + h, b, h, w, c)
     ft, ht = torch.from_numpy(f), torch.from_numpy(hole)
     maps, bias, rnorm, (hs, ws) = _prepare(ft, ht, 3, rate)
-    taps = _mirror_attention_kernel(maps, bias, rnorm, hs, ws, rate, 10.0,
-                                    cluster)
-    want = fused_attention_taps_plain(ft, ht, rate=rate)
+    taps, lse = fused_attention_mirror(
+        maps, bias, rnorm, hs, ws, rate, 10.0, cluster=cluster,
+        block_c=128 if cluster == 1 else 16, unit=64 if cluster == 1 else 2)
+    want, want_lse = fused_attention_taps_plain(ft, ht, rate=rate,
+                                                want_lse=True)
     np.testing.assert_allclose(taps.numpy(), want.numpy(), **TOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=1e-5,
+                               atol=1e-4)
     folded = _mirror_fold_kernel(taps, fold_counts_inv(hs, ws, rate), hs, ws,
                                  rate)
     np.testing.assert_allclose(folded.numpy(),
@@ -223,12 +202,47 @@ def test_plan_group_sizes_and_limit():
     assert plan_group(4096, 192) == 8       # 512² serve map
     with pytest.raises(ValueError, match="flash variant"):
         plan_group(60000, 192)
-    # tensor-core tiles for the bf16 serve shapes, CUDA cores otherwise;
-    # larger maps split their keys over a cluster of blocks
-    assert plan(32, 32, 192, torch.bfloat16) == ("mma", 32, 1)
-    assert plan(64, 64, 192, torch.bfloat16) == ("mma", 32, 4)
-    assert plan(128, 64, 192, torch.bfloat16) == ("mma", 32, 8)
-    assert plan(256, 128, 192, torch.bfloat16) == ("mma", 8, 8)
+    # the wgmma variant for the bf16 maps of the configs (64-query tiles,
+    # d and dv over a cluster: 8 blocks at C 192, 4 at C 64), CUDA cores
+    # otherwise
+    assert plan(32, 32, 192, torch.bfloat16) == ("wgmma", 64, 8)
+    assert plan(64, 64, 192, torch.bfloat16) == ("wgmma", 64, 8)
+    assert plan(128, 64, 192, torch.bfloat16) == ("wgmma", 64, 8)
+    assert plan(256, 128, 192, torch.bfloat16) == ("wgmma", 64, 8)
+    assert plan(32, 32, 64, torch.bfloat16) == ("wgmma", 64, 4)
+    assert plan(32, 96, 192, torch.bfloat16) == ("core", 16, 1)  # 96-cell rows
     assert plan(32, 32, 192, torch.float32) == ("core", 32, 1)
     assert plan(8, 8, 192, torch.bfloat16) == ("core", 32, 1)
     assert plan(64, 48, 192, torch.bfloat16) == ("core", 16, 1)
+
+
+# The wgmma variant's tiling against the JAX fused Pallas kernel in
+# interpret mode, with lse, at the sizes the JAX kernel tests use (a
+# 32² or 64² map at rate 2: L 256 or 1024 cells, C 8, an all-hole
+# sample). float32: 2e-4 (sums in another order); bf16 maps: 2^-7 of the
+# largest input, where the JAX kernel and the mirror both round the
+# unnormalized p to bf16 before the PV products, and lse within 1e-3.
+@pytest.mark.parametrize("dtype,hw,cluster,block_c", [
+    ("float32", 32, 1, 128), ("bfloat16", 32, 2, 64),
+    ("bfloat16", 64, 8, 128)], ids=["f32", "bf16_cl2", "bf16_cl8"])
+def test_wgmma_mirror_matches_jax_fused_kernel(dtype, hw, cluster, block_c):
+    f, hole = _case(11 + hw, 3, hw, hw, 8, hole_frac=0.02)
+    fj = jnp.asarray(f).astype(dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want, want_lse, _ = _raw_fused_taps(fj, jnp.asarray(hole), 3, 2,
+                                            10.0, want_lse=True)
+    ft = torch.from_numpy(f).to(getattr(torch, dtype))
+    maps, bias, rnorm, (hs, ws) = _prepare(ft, torch.from_numpy(hole), 3, 2)
+    taps, lse = fused_attention_mirror(maps, bias, rnorm, hs, ws, 2, 10.0,
+                                       cluster=cluster, block_c=block_c,
+                                       unit=4)
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(taps.numpy(), want, **TOL)
+    else:
+        tol = 2.0 ** -7 * ft.float().abs().max().item()
+        assert np.abs(taps.float().numpy() - want).max() <= tol
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
+                               rtol=0, atol=1e-3)
+    assert taps[1].abs().max().item() == 0.0
+    assert lse[1].abs().max().item() == 0.0

@@ -78,12 +78,12 @@ def test_attention_kernel_matches_plain(cuda, b, h, w, c, rate):
 
 
 @pytest.mark.parametrize("b,h,w,c,group,cluster", [
-    (2, 64, 64, 192, 32, 1),     # 256² serve map
-    (1, 64, 128, 128, 32, 2),    # Lk = 2048, non-square
-    (2, 128, 128, 64, 32, 4),    # Lk = 4096, the 512² regime
-    (1, 128, 256, 64, 32, 8),    # Lk = 8192
+    (2, 64, 64, 192, 64, 8),     # 256² serve map
+    (1, 64, 128, 128, 64, 8),    # Lk = 2048, non-square
+    (2, 128, 128, 64, 64, 4),    # Lk = 4096, the 512² regime
+    (1, 128, 256, 64, 64, 4),    # Lk = 8192, 128-cell rows
 ])
-@pytest.mark.parametrize("variant", ["mma", "core"])
+@pytest.mark.parametrize("variant", ["wgmma", "core"])
 def test_both_variants_match_plain_in_bf16(cuda, b, h, w, c, group, cluster,
                                            variant):
     f, hole = _case(h + w + c, b, h, w, c, cuda)
@@ -91,12 +91,35 @@ def test_both_variants_match_plain_in_bf16(cuda, b, h, w, c, group, cluster,
     if b > 1:
         hole[1] = 1.0                    # and one with no valid key
     fb = f.to(torch.bfloat16)
-    assert plan(h // 2, w // 2, c, torch.bfloat16) == ("mma", group, cluster)
+    assert plan(h // 2, w // 2, c, torch.bfloat16) == ("wgmma", group,
+                                                       cluster)
     maps, bias, rnorm, (hs, ws) = _prepare(fb, hole, 3, 2)
     got = _launch(maps, bias, rnorm, hs, ws, 2, 10.0, variant=variant)
     want = fused_attention_taps_plain(fb.float(), hole)
     tol = 2.0 ** -7 * fb.float().abs().max().item()
     assert (got.float() - want).abs().max().item() <= tol
+
+
+# The wgmma forward at the table widths (C 192, d 1728, dv 3072, a cluster
+# of 8) at B 1, 3 and 8 and rows of 32 and 64 cells: taps within 2^-7 of
+# the largest input, lse within 1e-3, the all-hole sample exactly 0.
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("hw", [64, 128], ids=["ws32", "ws64"])
+def test_wgmma_forward_matches_plain_with_lse(cuda, b, hw):
+    f, hole = _case(b * hw, b, hw, hw, 192, cuda)
+    fb = f.to(torch.bfloat16)
+    assert plan(hw // 2, hw // 2, 192, torch.bfloat16)[0] == "wgmma"
+    dispatch.reset_launches()
+    got, lse = fused_attention_taps(fb, hole, want_lse=True)
+    assert dispatch.launches["contextual_attention_fused"] == 1
+    want, want_lse = fused_attention_taps_plain(fb.float(), hole,
+                                                want_lse=True)
+    tol = 2.0 ** -7 * fb.float().abs().max().item()
+    assert (got.float() - want).abs().max().item() <= tol
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    if b >= 3:
+        assert got[1].abs().max().item() == 0.0
+        assert lse[1].abs().max().item() == 0.0
 
 
 @pytest.mark.parametrize("b,h,w,c,rate", SHAPES)
@@ -639,7 +662,7 @@ def _rel(got, want):
 @pytest.mark.parametrize("b,lq,lk,d,dv", PATCH_SHAPES)
 @pytest.mark.parametrize("dtype,variant", [
     (torch.float32, "core"), (torch.bfloat16, "core"),
-    (torch.bfloat16, "mma")])
+    (torch.bfloat16, None)], ids=["f32-core", "bf16-core", "bf16-planned"])
 def test_patch_attention_kernels_match_plain(cuda, b, lq, lk, d, dv, dtype,
                                              variant):
     from gan_inpainting_torch.ops.kernels.patch_attention import (
@@ -651,6 +674,7 @@ def test_patch_attention_kernels_match_plain(cuda, b, lq, lk, d, dv, dtype,
     )
 
     q, k, valid, v, g = _patch_case(lq + d, b, lq, lk, d, dv, cuda, dtype)
+    # planned: the wgmma forward, the mma backward
     out_k, lse_k = launch_fwd(q, k, valid, v, 10.0, want_lse=True,
                               variant=variant)
     out_p, lse_p = patch_attention_plain(q.float(), k.float(), valid,
@@ -677,6 +701,84 @@ def test_patch_attention_kernels_match_plain(cuda, b, lq, lk, d, dv, dtype,
         assert got.dtype == dtype and torch.isfinite(got.float()).all()
         assert _rel(got, ref) <= b_tol, (name, _rel(got, ref))
         assert got[-1].abs().max().item() == 0.0, name
+
+
+# The wgmma forward where L is not a multiple of its 128-key step nor of
+# its 64-row tile and d, dv are not multiples of 64 (nor dv of 8: the
+# wrapper pads V), at B 1, 3 and 8; then the backward kernels from that
+# forward's own out and lse.
+@pytest.mark.parametrize("b,L", [(1, 1000), (3, 1000), (8, 1000), (1, 4097),
+                                 (3, 4097)])
+def test_wgmma_patch_forward_ragged_and_its_backward(cuda, b, L):
+    from gan_inpainting_torch.ops.kernels.patch_attention import (
+        launch_dkv,
+        launch_dq,
+        launch_fwd,
+        patch_attention_bwd_plain,
+        patch_attention_plain,
+        plan,
+    )
+
+    d, dv = 200, 300
+    assert plan(d, dv, torch.bfloat16)[0] == "wgmma"
+    q, k, valid, v, g = _patch_case(b + L, b, L, L, d, dv, cuda,
+                                    torch.bfloat16)
+    if b == 1:                           # revive the only sample
+        valid[0] = torch.arange(L, device=cuda) % 3 != 0
+    out_k, lse_k = launch_fwd(q, k, valid, v, 10.0, want_lse=True)
+    out_p, lse_p = patch_attention_plain(q.float(), k.float(), valid,
+                                         v.float(), softmax_scale=10.0,
+                                         want_lse=True)
+    torch.cuda.synchronize()
+    assert _rel(out_k, out_p) <= 2.0 ** -7
+    assert (lse_k - lse_p).abs().max().item() <= 1e-3
+    if b > 1:
+        assert out_k[-1].abs().max().item() == 0.0
+        assert lse_k[-1].abs().max().item() == 0.0
+    delta = (g.float() * out_k.float()).sum(-1)
+    dq = launch_dq(q, k, valid, v, g, lse_k, delta, 10.0)
+    dk, dv_ = launch_dkv(q, k, valid, v, g, lse_k, delta, 10.0)
+    want = patch_attention_bwd_plain(q.float(), k.float(), valid, v.float(),
+                                     out_k.float(), lse_k, g.float(),
+                                     softmax_scale=10.0, keep_float=True)
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv_), want):
+        assert _rel(got, ref) <= 2.0 ** -6, (name, _rel(got, ref))
+
+
+def test_fused_backward_from_the_wgmma_forward(cuda):
+    """The fused backward kernels fed by the wgmma forward's taps and lse
+    (the train path), against the mirror on the same residuals."""
+    from gan_inpainting_torch.ops.kernels.fused_attention_bwd import (
+        launch_dkv,
+        launch_dq,
+        prepare_bwd,
+        tap_grads_mirror,
+    )
+
+    b, h, w, c, rate = 3, 64, 64, 64, 2
+    hs, ws = h // rate, w // rate
+    f, hole = _case(5, b, h, w, c, cuda)
+    fb = f.to(torch.bfloat16)
+    g = torch.randn(f.shape, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(5))
+    taps, lse = fused_attention_taps(fb, hole, want_lse=True)
+    maps, gmaps, bias, rnorm, _ = prepare_bwd(fb, hole, g, 3, rate)
+    want = tap_grads_mirror(maps.float(), gmaps.float(), bias, rnorm, lse,
+                            taps.float(), hs, ws, rate, 10.0)
+    want_p = tap_grads_mirror(maps, gmaps, bias, rnorm, lse, taps, hs, ws,
+                              rate, 10.0)
+    want = want[:2] + (want_p[2],) + want[3:]
+    dq, delta = launch_dq(maps, gmaps, bias, rnorm, lse, taps, hs, ws, rate,
+                          10.0)
+    dk, dv, tn = launch_dkv(maps, gmaps, bias, rnorm, lse, delta, hs, ws,
+                            rate, 10.0)
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dq", "dk", "dv", "tnorm", "delta"),
+                              (dq, dk, dv, tn, delta), want):
+        tol = 2.0 ** -6 * max(ref.abs().max().item(), 1.0)
+        assert (got - ref).abs().max().item() <= tol, name
+    assert dq[1].abs().max().item() == 0.0
 
 
 def test_patch_attention_autograd_on_cuda(cuda):

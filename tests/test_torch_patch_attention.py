@@ -295,15 +295,20 @@ def test_fused_patch_attention_is_the_patch_major_output():
 def test_route_predicates_at_the_config_maps(image, fused, bwd, route):
     """The attention branch sees a C = 192 map at a quarter of the image,
     matched at rate 2: 256² → 64² (L 1024) … 2048² → 512² (L 65 536). The
-    fused route is taken up to the measured 4096 cells (the 512² image)."""
+    fused route is taken up to the measured 4096 cells (the 512² image);
+    ``fused``: whether the float32 fused kernel holds the map (the bf16
+    one holds all four)."""
     hw = image // 4
     hs = hw // 2
     for dtype in (torch.bfloat16, torch.float32):
-        assert fa.fused_supported((1, hw, hw, 192), 3, 2, dtype) is fused
+        # the bf16 wgmma variant's flash recurrence takes every config map;
+        # ``fused`` is whether the float32 core variant's score rows fit
+        held = fused or dtype == torch.bfloat16
+        assert fa.fused_supported((1, hw, hw, 192), 3, 2, dtype) is held
         assert fa.fused_route((1, hw, hw, 192), 3, 2, dtype) is route
         assert fab.bwd_supported(hs, hs, 192, dtype) is bwd
         assert not fa.fused_supported((1, hw, hw, 192), 5, 2, dtype)
-        if fused:
+        if held:
             fa.plan(hs, hs, 192, dtype)              # no raise where True
         else:
             with pytest.raises(ValueError, match="patch-attention"):
@@ -320,10 +325,46 @@ def test_route_predicates_at_the_config_maps(image, fused, bwd, route):
     assert not fab.bwd_supported(172, 172, 32, torch.float32)
 
 
+# The wgmma forward's tiling (64-wide units of d over the cluster's ranks,
+# 128-key steps; 32 walks several steps at these sizes) against the plain
+# version and the JAX Pallas _fwd_kernel in interpret mode, float32: 2e-4
+# of the largest entry; on bf16 inputs against the plain version in
+# float32 on the same values: 2^-7 (p rounded to bf16 unnormalized, as the
+# kernel and _fwd_kernel round it); lse within 1e-4 / 1e-3.
+@pytest.mark.parametrize("dtype,cluster,block_c", [
+    (torch.float32, 1, 128), (torch.float32, 2, 32),
+    (torch.bfloat16, 4, 32)], ids=["f32_cl1", "f32_cl2", "bf16_cl4"])
+def test_wgmma_forward_mirror_matches_plain_and_jax(dtype, cluster, block_c):
+    b, lq, lk, d, dv = 2, 130, 70, 136, 200        # ragged in every tile
+    q, k, v, valid = _inputs(7 + cluster, b, lq, lk, d, dv, dead_sample=True)
+    tq, tk, tv, tvalid = _t(q, k, v, valid)
+    tq, tk, tv = (t.to(dtype) for t in (tq, tk, tv))
+    out, lse = patch_attention_mirror(tq, tk, tvalid, tv, softmax_scale=SCALE,
+                                      cluster=cluster, block_c=block_c,
+                                      unit=64)
+    want, want_lse = patch_attention_plain(tq.float(), tk.float(), tvalid,
+                                           tv.float(), softmax_scale=SCALE,
+                                           want_lse=True)
+    frac = 2e-4 if dtype == torch.float32 else 2.0 ** -7
+    assert (out.float() - want).abs().max().item() <= frac * max(
+        want.abs().max().item(), 1.0)
+    assert (lse - want_lse).abs().max().item() <= (
+        1e-4 if dtype == torch.float32 else 1e-3)
+    assert out[-1].abs().max().item() == 0.0
+    assert lse[-1].abs().max().item() == 0.0
+    if dtype == torch.float32:
+        with pltpu.force_tpu_interpret_mode():
+            want_pal = np.asarray(patch_attention_pallas(
+                q, k, valid, v, softmax_scale=SCALE, block_q=64,
+                block_k=64))
+        np.testing.assert_allclose(out.numpy(), want_pal, **FWD)
+
+
 def test_patch_kernel_plans_at_full_width():
     # d = 9C, dv = 16C at C = 192: a cluster of 8 blocks in every kernel
     for which in ("fwd", "dq", "dkv"):
-        assert plan(1728, 3072, torch.bfloat16, which) == ("mma", 8)
+        assert plan(1728, 3072, torch.bfloat16, which) == (
+            "wgmma" if which == "fwd" else "mma", 8)
         assert plan(1728, 3072, torch.float32, which) == ("core", 8)
         assert plan(36, 48, torch.float32, which) == ("core", 1)
     with pytest.raises(ValueError, match="cluster of 8"):
