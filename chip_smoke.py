@@ -7,9 +7,10 @@ Phases (each prints its lines; any failure exits non-zero):
 
 1. device and build: the card's name and power limit, and the build of
    every CUDA kernel from ``gan_inpainting_torch/csrc`` with nvcc; the
-   registers, spills and HGMMA (and, for the attention forwards' wgmma
-   mainloop, UTMALDG) counts of the wgmma kernels, each required > 0 and
-   the attention forwards' spills 0;
+   registers, spills and HGMMA (and, for the attention forwards' and the
+   patch backward's wgmma mainloops, UTMALDG) counts of the wgmma kernels,
+   each required > 0 and the attention kernels' spills 0; the patch
+   backward's clusters of 16 resident on the card;
 2. kernels against their plain PyTorch versions on the card, at the
    256² serve shape (B=8, map 64×64×192) and the 512² shape (B=2, map
    128×128×192), in float32 and bfloat16, with times of the kernel, the
@@ -59,9 +60,9 @@ Phase 2 also holds the three patch-attention kernels (forward, dQ, dK/dV)
 against their plain versions at the full widths (d 1728, dv 3072) at L
 16 384 and, over chunks of query rows, L 65 536, at an odd shape and
 through contextual attention with f ≠ b, in float32 and bfloat16, each
-with a sample that has no valid key; the bf16 forward (and its lse) at
-ragged L 1000 and 4097, d 200, dv 300; and times the fused and the patch
-route where both hold. The fused forward's lse is held against the plain
+with a sample that has no valid key; the bf16 forward (and its lse) and
+the bf16 dQ and dK/dV at ragged L 1000 and 4097, d 200, dv 300; and times
+the fused and the patch route where both hold. The fused forward's lse is held against the plain
 one (1e-3) at the 256² and 512² shapes.
 
 Float32 checks turn TF32 off for cuDNN convs and matmuls. Imports nothing
@@ -107,6 +108,11 @@ BF16_SERVE_LEVELS, BF16_SERVE_FRAC = 2, 0.999
 # convs at stride 1 / stride 2, with the fused decoder (256² buckets) and
 # without it (512²); partial convs per forward of partialconv256
 DIRECT_FUSED, DIRECT_UNFUSED, MATMUL_PER_FWD, PARTIAL_PER_FWD = 29, 33, 6, 16
+# the mma.sync dQ and dK/dV kernels that the wgmma backward replaced, bf16,
+# B2 L16384 / B1 L65536, d1728 dv3072 (gan_inpainting_torch/tools/
+# bench_attention.py at the commit before the replacement, NVIDIA H100 80GB
+# HBM3, 700.00 W), printed beside this run's times
+PATCH_BWD_REPLACED_MS = {"dq": (137.66, 1083.23), "dkv": (183.95, 1454.20)}
 TRAIN_512 = ["data.synthetic_family=textured"]
 TRAIN_256 = ["model.use_attention=true", "data.synthetic_family=textured"]
 
@@ -766,9 +772,18 @@ def train(torch, smi):
     from gan_inpainting_torch.train.state import create_state
     from gan_inpainting_torch.train.step import composite
 
-    names = ("contextual_attention_fused", "fold_taps",
-             "contextual_attention_bwd_dq", "contextual_attention_bwd_dkv")
-    per_step = dict(zip(names, (2, 2, 1, 1)))
+    # per step, two attention forwards (the detached and the differentiated
+    # generator pass) and one backward. The 512² map (4096 cells): the
+    # detached bf16 forward through the fused forward and the fold (at most
+    # FUSED_MAX_CELLS_BF16_FORWARD), the differentiated one (above
+    # FUSED_MAX_CELLS) and its backward through the patch kernels; the 256²
+    # map (1024) through the fused forward, the fold and the fused backward
+    names = ("patch_attention_fwd", "patch_attention_bwd_dq",
+             "patch_attention_bwd_dkv", "contextual_attention_fused",
+             "fold_taps", "contextual_attention_bwd_dq",
+             "contextual_attention_bwd_dkv")
+    per_step = dict(zip(names, (1, 1, 1, 1, 1, 0, 0)))
+    per_step_256 = dict(zip(names, (0, 0, 0, 2, 2, 1, 1)))
 
     def snapshot(state):
         return [t.detach().clone() for t in (
@@ -902,7 +917,7 @@ def train(torch, smi):
     torch.cuda.synchronize()
     launches_256 = dict(dispatch.launches)
     for name in names:
-        _require(launches_256.get(name, 0) == per_step[name] * n_fixed,
+        _require(launches_256.get(name, 0) == per_step_256[name] * n_fixed,
                  f"{name}: {launches_256.get(name, 0)} launches at 256²")
     _require(all(np.isfinite(l1)) and np.mean(l1[-3:]) < 0.9 * l1[0],
              f"g_l1 did not fall on a fixed batch: {l1[0]} -> {l1[-3:]}")
@@ -1004,9 +1019,15 @@ def serve(torch, rng, smi):
           f"{time.perf_counter() - t0:.2f} s (first use; cuDNN plans); "
           f"known pixels bit-exact; launches 256-bucket {at_256}, "
           f"512-bucket {at_512}")
+    # both buckets' maps (1024 and 4096 cells, a bf16 forward alone: at
+    # most FUSED_MAX_CELLS_BF16_FORWARD) take the fused route
     for name in ("contextual_attention_fused", "fold_taps"):
         _require(at_256.get(name, 0) > 0 and at_512.get(name, 0) > 0,
-                 f"serve path did not launch {name}")
+                 f"serve path: {name} launches {at_256.get(name, 0)} at the "
+                 f"256² bucket, {at_512.get(name, 0)} at 512²")
+    _require(at_512.get("patch_attention_fwd", 0) == 0
+             and at_256.get("patch_attention_fwd", 0) == 0,
+             "a serve bucket took the patch route")
 
     # ---- float32 on the card vs the CPU, TF32 off ---------------------
     f32 = SERVE_OVERRIDES + ["model.dtype_policy=f32"]
@@ -1162,6 +1183,8 @@ def serve_kernel_backend(torch, rng, smi, img1, msk1, cpu_f32):
     torch.cuda.synchronize()
     total = dict(dispatch.launches)
     for name, got in per_request.items():
+        # attention: the fused forward and fold on the 256² and the 512²
+        # map (a bf16 forward alone, at most FUSED_MAX_CELLS_BF16_FORWARD)
         want = {"gated_conv_direct": DIRECT_UNFUSED if name == "1x512"
                 else DIRECT_FUSED, "gated_matmul": MATMUL_PER_FWD,
                 "contextual_attention_fused": 1, "fold_taps": 1}
@@ -1558,8 +1581,10 @@ def _sdpa_yardstick(torch, q, k, valid, v, g):
 
 def check_patch_kernels(torch, smi):
     """Phase 2, patch attention: the forward, dQ and dK/dV kernels against
-    their plain versions at the full widths (d 1728, dv 3072) at L 16 384
-    and, over chunks of query rows, L 65 536; an odd shape; an f ≠ b map;
+    their plain versions at the full widths (d 1728, dv 3072) at L 4096 B 8
+    (the 512² train shape), L 16 384 and, over chunks of query rows,
+    L 65 536; the forward at L 4096 B 64 (the 512² serve bucket); the bf16
+    kernels at ragged shapes; an odd shape; an f ≠ b map;
     each with a sample that has no valid key; times at L 16 384 (kernel,
     plain, SDPA) and L 65 536 (kernel) with every sample live, bounds from
     the shapes and the valid keys."""
@@ -1585,10 +1610,11 @@ def check_patch_kernels(torch, smi):
     dispatch.reset_launches()
     res = {}
     t0 = time.perf_counter()
-    # ---- correctness: full widths at L 16 384, L 65 536, odd, f ≠ b -------
+    # ---- correctness: full widths at L 4096 (the 8×512² train step),
+    # L 16 384, L 65 536, odd, f ≠ b ----------------------------------------
     for dtype in (f32, bf16):
-        for name, (b, lq) in (("L16384", (2, 16384)), ("L65536", (2, 65536)),
-                              ("odd", (2, 1000))):
+        for name, (b, lq) in (("L4096", (8, 4096)), ("L16384", (2, 16384)),
+                              ("L65536", (2, 65536)), ("odd", (2, 1000))):
             dd, ddv = (36, 64) if name == "odd" else (d, dv)
             q, k, v, g, valid = _patch_inputs(torch, lq + len(name), b, lq,
                                               lq, dd, ddv, dtype)
@@ -1609,9 +1635,35 @@ def check_patch_kernels(torch, smi):
                   + f" ({plan(dd, ddv, dtype)})")
             del q, k, v, g, valid, got
             torch.cuda.empty_cache()
-    # the bf16 forward where L is ragged against its 64-row tiles and
-    # 128-key steps and d, dv against its 64-wide units (dv 300 is padded
-    # to 304 for the tensor map): out and lse, the dead sample exactly 0
+    # the bf16 forward at the 512² serve bucket's largest batch (B 64,
+    # L 4096, d 1728, dv 3072) as the serve route calls it, without lse;
+    # the plain version over chunks of 16 samples, the dead sample 0
+    q, k, v, _, valid = _patch_inputs(torch, 64, 64, 4096, 4096, d, dv, bf16)
+    o = patch_attention(q, k, valid, v, softmax_scale=10.0)
+    torch.cuda.synchronize()
+    err = ref = 0.0
+    for s0 in range(0, 64, 16):
+        sl = slice(s0, s0 + 16)
+        o_p = patch_attention_plain(q[sl].float(), k[sl].float(), valid[sl],
+                                    v[sl].float(), softmax_scale=10.0)
+        err = max(err, (o[sl].float() - o_p).abs().max().item())
+        ref = max(ref, o_p.abs().max().item())
+        del o_p
+    tol = BF16_TOL_FRAC * max(ref, 1.0)
+    _require(err <= tol and o[-1].abs().max().item() == 0.0
+             and bool(torch.isfinite(o.float()).all()),
+             f"patch forward B=64 L=4096 bf16: err {err:.3e} above {tol:.3e}"
+             " or the sample with no valid key is not 0")
+    res["serve512_B64_L4096_bfloat16"] = {"out": (err, ref)}
+    print(f"[2] patch attention forward B=64 L=4096 d={d} dv={dv} bf16 (the "
+          f"512² serve bucket): max abs err / max|ref| out {err:.3e}/"
+          f"{ref:.3g} ({plan(d, dv, bf16)})")
+    del q, k, v, valid, o
+    torch.cuda.empty_cache()
+    # the bf16 kernels where L is ragged against their 64-row tiles and
+    # 128-column steps and d, dv against their 64-wide units (dv 300 is
+    # padded to 304 for the tensor maps): out, lse and the gradients, the
+    # dead sample exactly 0
     for b, lq in ((3, 1000), (1, 4097)):
         q, k, v, g, valid = _patch_inputs(torch, lq, b, lq, lq, 200, 300,
                                           bf16, dead=b > 1)
@@ -1627,12 +1679,31 @@ def check_patch_kernels(torch, smi):
                                  and lse[-1].abs().max().item() == 0.0)),
                  f"patch forward B={b} L={lq} d=200 dv=300: err {err:.3e}, "
                  f"lse err {err_lse:.3e}")
+        # the wgmma dQ and dK/dV from this forward's out and lse (the
+        # 128-column steps and 64-row tiles ragged on both sides)
+        delta = (g.float() * o.float()).sum(-1)
+        got = (launch_dq(q, k, valid, v, g, lse, delta, 10.0),
+               *launch_dkv(q, k, valid, v, g, lse, delta, 10.0))
+        want = patch_attention_bwd_plain(
+            q.float(), k.float(), valid, v.float(), o.float(), lse,
+            g.float(), softmax_scale=10.0, keep_float=True)
+        grads = {n: ((a.float() - w).abs().max().item(), w.abs().max().item())
+                 for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        _patch_require(grads, False, f"patch backward B={b} L={lq} d=200 "
+                                     "dv=300 bf16")
+        _require(b == 1 or all(t[-1].abs().max().item() == 0.0
+                               for t in got),
+                 f"patch backward B={b} L={lq}: the sample with no valid key "
+                 "has gradients")
         res[f"ragged_B{b}_L{lq}_bfloat16"] = {"out": (err, ref),
-                                              "lse": (err_lse, 0.0)}
-        print(f"[2] patch attention forward B={b} L={lq} d=200 dv=300 "
-              f"bf16: max abs err {err:.3e}/{ref:.3g}, lse {err_lse:.3e} "
-              f"({plan(200, 300, bf16)})")
-        del q, k, v, g, valid, o, lse, o_p, lse_p
+                                              "lse": (err_lse, 0.0), **grads}
+        print(f"[2] patch attention forward and backward B={b} L={lq} "
+              f"d=200 dv=300 bf16: max abs err / max|ref| out {err:.3e}/"
+              f"{ref:.3g}, lse {err_lse:.3e}, " + ", ".join(
+                  f"{n} {e:.3e}/{r:.3g}" for n, (e, r) in grads.items())
+              + f" ({plan(200, 300, bf16)}, dq {plan(200, 300, bf16, 'dq')},"
+              f" dkv {plan(200, 300, bf16, 'dkv')})")
+        del q, k, v, g, valid, o, lse, o_p, lse_p, delta, got, want
     # f ≠ b through the op: a 128² map, rate 2, C 192
     rng = np.random.default_rng(3)
     x = torch.relu(torch.from_numpy(rng.standard_normal(
@@ -1748,15 +1819,22 @@ def check_patch_kernels(torch, smi):
                       f"{out[kk]['at_2048_map']['tflops']:.1f} TFLOP/s)"
                       for kk in ("fwd", "dq", "dkv"))
           + f"; checks took {check_s:.1f} s | {smi}")
+    print("[2] patch backward: the replaced mma.sync kernels took " + ", ".join(
+        f"{kk} {PATCH_BWD_REPLACED_MS[kk][0]:.2f} / "
+        f"{PATCH_BWD_REPLACED_MS[kk][1]:.1f}" for kk in ("dq", "dkv"))
+        + " ms at L16384 B2 / L65536 B1; this run " + ", ".join(
+            f"{kk} {ms[kk]:.2f} / {big[kk]:.1f}" for kk in ("dq", "dkv")))
     print(f"[2] patch kernels: launches in these checks and timings (not "
           f"counted for any path): {dict(dispatch.launches)}")
     return out
 
 
-def compare_routes(torch, smi, maps=((128, 128), (128, 256), (256, 256))):
+def compare_routes(torch, smi, maps=((64, 64), (64, 128), (128, 128),
+                                    (128, 256), (256, 256))):
     """Phase 2: where both the fused and the patch route hold (B 2, C 192
-    maps of L = 4096, 8192 and 16 384 cells at rate 2: the 512² image, a
-    512×1024 one and the 1024² one), time both, forward without gradient
+    maps of L = 1024, 2048, 4096, 8192 and 16 384 cells at rate 2: the 256²
+    image, a 256×512 one, the 512² image, a 512×1024 one and the 1024²
+    one), time both, forward without gradient
     and forward + backward in bf16, the forward in float32, taken in turns
     (fused, patch, patch, fused)."""
     from gan_inpainting_torch.ops import dispatch
@@ -1768,6 +1846,7 @@ def compare_routes(torch, smi, maps=((128, 128), (128, 256), (256, 256))):
     from gan_inpainting_torch.ops.kernels.fold import fold_taps
     from gan_inpainting_torch.ops.kernels.fused_attention import (
         FUSED_MAX_CELLS,
+        FUSED_MAX_CELLS_BF16_FORWARD,
         fused_attention_taps,
         fused_supported,
     )
@@ -1804,14 +1883,16 @@ def compare_routes(torch, smi, maps=((128, 128), (128, 256), (256, 256))):
                 y.backward(g)
                 return leaf.grad
 
-            # the op's own choice follows the measured threshold
+            # the op's own choice follows the measured thresholds (a
+            # forward alone here)
             dispatch.reset_launches()
             with torch.no_grad():
                 contextual_attention(x, x, hole)
             took = ("fused" if dispatch.launches.get(
                 "contextual_attention_fused") else "patch")
-            _require(took == ("fused" if cells <= FUSED_MAX_CELLS
-                              else "patch"),
+            limit = (FUSED_MAX_CELLS_BF16_FORWARD
+                     if dtype == torch.bfloat16 else FUSED_MAX_CELLS)
+            _require(took == ("fused" if cells <= limit else "patch"),
                      f"contextual attention took the {took} route at L "
                      f"{cells}")
             with_bwd = dtype == torch.bfloat16
@@ -2043,6 +2124,30 @@ def main() -> int:
             and " 0 bytes spill stores" in spills
             for fn, _, spills in rows),
             f"the {src} wgmma forward lacks HGMMA or UTMALDG, or spills")
+    # the patch backward's mainloop (csrc/attention_bwd_wgmma.cuh): dQ (0)
+    # and dK/dV (1) at clusters of 1, 2, 4, 8 and 16, and the profiling
+    # instances that count their phases' cycles (true) at 2 and 16
+    from gan_inpainting_torch.ops.kernels.patch_attention import (
+        wgmma_bwd_clusters,
+    )
+
+    hg = build.sass_counts("patch_attention", "HGMMA")
+    tma = build.sass_counts("patch_attention", "UTMALDG")
+    rows = [r for r in build.ptxas_report("patch_attention")
+            if "attention_bwd_kernel" in r[0]]
+    for fn, used, spills in rows:
+        short = fn[fn.find("attention_bwd_kernel"):].split("EEv")[0]
+        print(f"[1] ptxas patch_attention {short}: {used}; {spills}; HGMMA "
+              f"{hg.get(fn, 0)}, UTMALDG {tma.get(fn, 0)} in SASS")
+    _require(len(rows) == 14 and all(
+        hg.get(fn, 0) > 0 and tma.get(fn, 0) > 0
+        and " 0 bytes spill stores" in spills for fn, _, spills in rows),
+        "the patch wgmma backward lacks HGMMA or UTMALDG, or spills")
+    resident = {w: wgmma_bwd_clusters(w, 1728, 3072) for w in ("dq", "dkv")}
+    print(f"[1] patch backward at d1728 dv3072: clusters of 16 resident at "
+          f"once {resident}")
+    _require(all(n > 0 for n in resident.values()),
+             "the patch backward's clusters of 16 do not fit the card")
 
     rng = np.random.default_rng(0)
     res256 = check_kernels(torch, "256² (B=8, 64x64x192)", 8, 64, 192, rng,
@@ -2096,14 +2201,17 @@ def main() -> int:
         row("fold_taps@512", "fold", res512, at_512["fold_taps"], fold_src,
             "gan_inpainting_tpu/ops/pallas/fold.py:32",
             launches_train=l512["fold_taps"]),
+        # the 512² train map is above FUSED_MAX_CELLS: its backward takes
+        # the patch kernels, so the fused backward's 512² times stand
+        # beside the 256² rows with their 512² launches (0)
         row("contextual_attention_bwd_dq@256train", "dq", bwd256,
-            l256["contextual_attention_bwd_dq"], bwd_src, f"{tpu_bwd}:148"),
-        row("contextual_attention_bwd_dq@512train", "dq", bwd512,
-            l512["contextual_attention_bwd_dq"], bwd_src, f"{tpu_bwd}:148"),
+            l256["contextual_attention_bwd_dq"], bwd_src, f"{tpu_bwd}:148",
+            at_512train=dict(bwd512["dq"],
+                             launches=l512["contextual_attention_bwd_dq"])),
         row("contextual_attention_bwd_dkv@256train", "dkv", bwd256,
-            l256["contextual_attention_bwd_dkv"], bwd_src, f"{tpu_bwd}:223"),
-        row("contextual_attention_bwd_dkv@512train", "dkv", bwd512,
-            l512["contextual_attention_bwd_dkv"], bwd_src, f"{tpu_bwd}:223"),
+            l256["contextual_attention_bwd_dkv"], bwd_src, f"{tpu_bwd}:223",
+            at_512train=dict(bwd512["dkv"],
+                             launches=l512["contextual_attention_bwd_dkv"])),
         # launches: path A's three requests (two forwards with the fused
         # decoder, one without) and path B's three
         row("gated_conv_direct@192x2x192_3x3_64x64²", "direct_d1", conv,
@@ -2125,19 +2233,22 @@ def main() -> int:
     ]
     # ms, bound, plain and library at B 2, L 16 384 (the dense plain
     # version fits there); the 2048² map's own shape under "at_2048_map".
-    # launches: path C's one 1×2048² request and its two train steps
+    # launches: the 512² serve bucket and train steps ([3], [4]), path C's
+    # one 1×2048² request and its two train steps ([7])
     tpu_pa = "gan_inpainting_tpu/ops/pallas/patch_attention.py"
-    pa_src = "gan_inpainting_torch/csrc/patch_attention.cu"
+    bwd_wgmma_src = "gan_inpainting_torch/csrc/attention_bwd_wgmma.cuh"
     trained = large["train_launches"]
     for name, kname, line in (("patch_attention_fwd", "fwd", 64),
                               ("patch_attention_bwd_dq", "dq", 156),
                               ("patch_attention_bwd_dkv", "dkv", 186)):
+        by_path = dict(serve_512=at_512.get(name, 0),
+                       train_512=l512.get(name, 0),
+                       serve_2048=large["serve_launches"].get(name, 0),
+                       train_2048=trained.get(name, 0))
         kernels.append(row(
-            f"{name}@B2_L16384", kname, patch,
-            large["serve_launches"].get(name, 0) + trained.get(name, 0),
-            attn_src if kname == "fwd" else pa_src, f"{tpu_pa}:{line}",
-            launches_serve=large["serve_launches"].get(name, 0),
-            launches_train=trained.get(name, 0)))
+            f"{name}@B2_L16384", kname, patch, sum(by_path.values()),
+            attn_src if kname == "fwd" else bwd_wgmma_src, f"{tpu_pa}:{line}",
+            launches_by_path=by_path))
     print(json.dumps({"kernels": kernels, "card": smi, "large_map": {
         **large,
         "routes": routes,

@@ -7,8 +7,10 @@ default is documented beside the original; the measurements quoted there
 were taken on TPUs and are not the port's.
 
 ``MeshConfig`` is a local copy of the dataclass from the JAX package's
-``parallel/mesh.py`` (which imports jax): the port runs on one card and
-ignores it, but embedded configs carry it under ``train.mesh``.
+``parallel/mesh.py`` (which imports jax): embedded configs carry it under
+``train.mesh``, so serving parses any mesh, while the trainer runs on one
+card and raises for a mesh above it (``train/state.py``
+``require_one_device``).
 """
 
 from __future__ import annotations

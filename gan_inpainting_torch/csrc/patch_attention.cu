@@ -1,6 +1,13 @@
 // Patch attention: flash attention over materialized patch Q/K/V, for
 // Hopper (sm_90a) — the forward, the dQ and the dK/dV kernel.
 //
+// The bf16 kernels run the cluster mainloops of attention_wgmma.cuh (the
+// forward, gi_patch_attention_fwd_wgmma) and attention_bwd_wgmma.cuh (dQ
+// and dK/dV, gi_patch_attention_{dq,dkv}_wgmma): wgmma fed by TMA, 64-wide
+// units of d and dv over the cluster's blocks, 128 columns per step. The
+// template below is the CUDA-core version of all three, for float32 (and
+// bf16, which the card's tests compare with).
+//
 // Replaces the Pallas kernels _fwd_kernel, _bwd_dq_kernel and
 // _bwd_dkv_kernel of gan_inpainting_tpu/ops/pallas/patch_attention.py:
 //
@@ -46,23 +53,16 @@
 // in the kernel: out-of-range rows and columns load as zeros, out-of-range
 // keys count as invalid, nothing out of range is stored. Offsets are 64-bit.
 //
-// Two variants of the products in this template, same tiles and fragment
-// layout:
-//   * mma (bf16 dQ and dK/dV): tensor cores through mma.sync m16n8k16,
-//     float32 sums; p (dV) and ds (dQ, dK) rounded to bf16 for the
-//     products;
-//   * core (float32, or bf16 for comparison; all three kernels): the same
-//     16×8 fragments computed with FMAs on the CUDA cores.
-// Operand fragments load with ldmatrix. Tiles are staged from global
-// memory with 16-byte cp.async copies. The bf16 forward is not this
-// template's: gi_patch_attention_fwd_wgmma at the end of this file runs
-// the cluster mainloop of attention_wgmma.cuh (wgmma fed by TMA, 128 keys
-// per step) with its kPatch producer.
+// The template computes 16×8 fragments with FMAs on the CUDA cores, float32
+// sums; in bf16, p (forward, dV) and ds (dQ, dK) are rounded to bf16 for
+// their products. Tiles are staged from global memory with 16-byte
+// cp.async copies.
 #include <cooperative_groups.h>
 #include <math_constants.h>
 
 #include <cstdint>
 
+#include "attention_bwd_wgmma.cuh"
 #include "attention_wgmma.cuh"
 #include "common.cuh"
 
@@ -162,51 +162,6 @@ struct Args {
 // += A (16 rows × 16, row-major, lda) · B (16 × 8): NT reads B[k][n] at
 // Bm[n·ldb + k], NN at Bm[k·ldb + n].
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment by ldmatrix.x4: lanes 0-15 give rows 0-15 at column 0,
-// lanes 16-31 the same rows at column 8 (rows 16-byte aligned)
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* A, int lda,
-                                       int lane) {
-  const bf16* p = A + (lane % 16) * lda + (lane / 16) * 8;
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(smem_addr(p)));
-}
-
-// B fragment by ldmatrix.x2: NT (Bm[n][k], k contiguous) reads rows n at
-// columns k 0 and 8; NN (Bm[k][n], n contiguous) reads rows k 0-15
-// transposed
-template <bool NN>
-__device__ __forceinline__ void mma_b(float c[4], const uint32_t a[4],
-                                      const bf16* Bm, int ldb, int lane) {
-  uint32_t b0, b1;
-  const bf16* p = NN ? Bm + (lane % 16) * ldb
-                     : Bm + (lane % 8) * ldb + ((lane / 8) % 2) * 8;
-  if constexpr (NN) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-        : "=r"(b0), "=r"(b1) : "r"(smem_addr(p)));
-  } else {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-        : "=r"(b0), "=r"(b1) : "r"(smem_addr(p)));
-  }
-  mma16816(c, a, b0, b1);
-}
-
 template <bool NN, typename T>
 __device__ __forceinline__ void fma_tile(float c[4], const T* A, int lda,
                                          const T* Bm, int ldb, int lane) {
@@ -228,33 +183,20 @@ __device__ __forceinline__ void fma_tile(float c[4], const T* A, int lda,
 
 // acc[i] (fragment row tile mt, column tile nt0 + step·i, i < NF, nt < nt_max)
 // += A[mt·16.., 0..kdim) · B[.., nt·8..]; A row-major (lda), B as NN.
-template <typename T, bool kMma, bool NN, int NF>
+template <typename T, bool NN, int NF>
 __device__ __forceinline__ void product(float (&acc)[NF][4], const T* A, int lda,
                                         const T* Bm, int ldb, int kdim,
                                         int mt, int nt0, int step,
                                         int nt_max, int lane) {
   for (int k0 = 0; k0 < kdim; k0 += 16) {
     const T* a_ptr = A + mt * 16 * lda + k0;
-    if constexpr (kMma) {
-      uint32_t a[4];
-      load_a(a, a_ptr, lda, lane);
 #pragma unroll
-      for (int i = 0; i < NF; ++i) {
-        const int nt = nt0 + step * i;
-        if (nt < nt_max)
-          mma_b<NN>(acc[i], a,
-                    NN ? Bm + k0 * ldb + nt * 8 : Bm + nt * 8 * ldb + k0,
-                    ldb, lane);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < NF; ++i) {
-        const int nt = nt0 + step * i;
-        if (nt < nt_max)
-          fma_tile<NN>(acc[i], a_ptr,
-                       lda, NN ? Bm + k0 * ldb + nt * 8
-                               : Bm + nt * 8 * ldb + k0, ldb, lane);
-      }
+    for (int i = 0; i < NF; ++i) {
+      const int nt = nt0 + step * i;
+      if (nt < nt_max)
+        fma_tile<NN>(acc[i], a_ptr,
+                     lda, NN ? Bm + k0 * ldb + nt * 8
+                             : Bm + nt * 8 * ldb + k0, ldb, lane);
     }
   }
 }
@@ -338,7 +280,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[NF][4],
 }
 
 // ---- the kernel -----------------------------------------------------------
-template <typename T, bool kMma, int MODE>
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
 patch_attention_kernel(Args a) {
   using Tl = Tiles<MODE, T>;
@@ -440,7 +382,7 @@ patch_attention_kernel(Args a) {
       float ps[NPF][4];
 #pragma unroll
       for (int i = 0; i < NPF; ++i) ps[i][0] = ps[i][1] = ps[i][2] = ps[i][3] = 0.f;
-      product<T, kMma, false, NPF>(ps, R1, L.ld1, C1, L.ld1, w1, mt, nt0,
+      product<T, false, NPF>(ps, R1, L.ld1, C1, L.ld1, w1, mt, nt0,
                                    WPR, BC / 8, lane);
       float* dst = part + buf * part_buf;
 #pragma unroll
@@ -454,7 +396,7 @@ patch_attention_kernel(Args a) {
       if constexpr (MODE != kFwd) {
 #pragma unroll
         for (int i = 0; i < NPF; ++i) ps[i][0] = ps[i][1] = ps[i][2] = ps[i][3] = 0.f;
-        product<T, kMma, false, NPF>(ps, R2, L.ld2, C2, L.ld2, w2, mt, nt0,
+        product<T, false, NPF>(ps, R2, L.ld2, C2, L.ld2, w2, mt, nt0,
                                      WPR, BC / 8, lane);
         dst += BR * L.ldp;
 #pragma unroll
@@ -590,15 +532,15 @@ patch_attention_kernel(Args a) {
         acc2[i][2] *= a_hi;
         acc2[i][3] *= a_hi;
       }
-      product<T, kMma, true, F2>(acc2, loc, L.ldw, C2, L.ld2, BC, mt, nt0,
+      product<T, true, F2>(acc2, loc, L.ldw, C2, L.ld2, BC, mt, nt0,
                                  WPR, w2 / 8, lane);
     } else if constexpr (MODE == kDq) {
-      product<T, kMma, true, F1>(acc1, loc, L.ldw, C1, L.ld1, BC, mt, nt0,
+      product<T, true, F1>(acc1, loc, L.ldw, C1, L.ld1, BC, mt, nt0,
                                  WPR, w1 / 8, lane);
     } else {
-      product<T, kMma, true, F2>(acc2, loc, L.ldw, C2, L.ld2, BC, mt, nt0,
+      product<T, true, F2>(acc2, loc, L.ldw, C2, L.ld2, BC, mt, nt0,
                                  WPR, w2 / 8, lane);
-      product<T, kMma, true, F1>(acc1, loc + BR * L.ldw, L.ldw, C1, L.ld1,
+      product<T, true, F1>(acc1, loc + BR * L.ldw, L.ldw, C1, L.ld1,
                                  BC, mt, nt0, WPR, w1 / 8, lane);
     }
   }
@@ -647,7 +589,7 @@ patch_attention_kernel(Args a) {
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-template <typename T, bool kMma, int MODE>
+template <typename T, int MODE>
 int launch(const Args& a, int cl, cudaStream_t stream) {
   using Tl = Tiles<MODE, T>;
   constexpr int RT = Tl::BR / 16, WPR = kWarps / RT;
@@ -660,7 +602,7 @@ int launch(const Args& a, int cl, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   const Smem L = smem_layout(MODE, Tl::BR, Tl::BC, sizeof(T), dsl, dvsl, cl);
   if (L.total > static_cast<size_t>(kSmemLimit)) return cudaErrorInvalidValue;
-  auto kernel = patch_attention_kernel<T, kMma, MODE>;
+  auto kernel = patch_attention_kernel<T, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L.total));
@@ -685,33 +627,28 @@ int launch(const Args& a, int cl, cudaStream_t stream) {
 }
 
 template <int MODE>
-int dispatch(const Args& a, int is_bf16, int variant, int cl, void* stream) {
+int dispatch(const Args& a, int is_bf16, int cl, void* stream) {
   if (a.B < 1 || a.Lq < 1 || a.Lk < 1 || a.d < 1 || a.dv < 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == 1) {
-    // the bf16 forward is gi_patch_attention_fwd_wgmma
-    if (!is_bf16 || MODE == kFwd) return cudaErrorInvalidValue;
-    if constexpr (MODE != kFwd) return launch<bf16, true, MODE>(a, cl, s);
-  }
-  if (is_bf16) return launch<bf16, false, MODE>(a, cl, s);
-  return launch<float, false, MODE>(a, cl, s);
+  if (is_bf16) return launch<bf16, MODE>(a, cl, s);
+  return launch<float, MODE>(a, cl, s);
 }
 
 }  // namespace
 
-// Each returns a cudaError_t (0 on success). variant 0 = core, 1 = mma
-// (bf16 dQ and dK/dV only); cluster = blocks per cluster (1, 2, 4 or 8).
-// lse may be null in the forward (no log-sum-exp written).
+// The CUDA-core kernels. Each returns a cudaError_t (0 on success);
+// cluster = blocks per cluster (1, 2, 4 or 8). lse may be null in the
+// forward (no log-sum-exp written).
 extern "C" int gi_patch_attention_fwd(const void* q, const void* k,
                                       const unsigned char* valid,
                                       const void* v, void* out, float* lse,
                                       int B, int Lq, int Lk, int d, int dv,
-                                      float scale, int is_bf16, int variant,
-                                      int cluster, void* stream) {
+                                      float scale, int is_bf16, int cluster,
+                                      void* stream) {
   Args a = {q, k, v, valid, nullptr, nullptr, nullptr, out, nullptr, lse,
             B, Lq, Lk, d, dv, scale};
-  return dispatch<kFwd>(a, is_bf16, variant, cluster, stream);
+  return dispatch<kFwd>(a, is_bf16, cluster, stream);
 }
 
 extern "C" int gi_patch_attention_dq(const void* q, const void* k,
@@ -720,10 +657,10 @@ extern "C" int gi_patch_attention_dq(const void* q, const void* k,
                                      const float* lse, const float* delta,
                                      void* dq, int B, int Lq, int Lk, int d,
                                      int dv, float scale, int is_bf16,
-                                     int variant, int cluster, void* stream) {
+                                     int cluster, void* stream) {
   Args a = {q, k, v, valid, dout, lse, delta, dq, nullptr, nullptr,
             B, Lq, Lk, d, dv, scale};
-  return dispatch<kDq>(a, is_bf16, variant, cluster, stream);
+  return dispatch<kDq>(a, is_bf16, cluster, stream);
 }
 
 extern "C" int gi_patch_attention_dkv(const void* q, const void* k,
@@ -732,11 +669,121 @@ extern "C" int gi_patch_attention_dkv(const void* q, const void* k,
                                       const float* lse, const float* delta,
                                       void* dk, void* dv_out, int B, int Lq,
                                       int Lk, int d, int dv, float scale,
-                                      int is_bf16, int variant, int cluster,
-                                      void* stream) {
+                                      int is_bf16, int cluster, void* stream) {
   Args a = {q, k, v, valid, dout, lse, delta, dk, dv_out, nullptr,
             B, Lq, Lk, d, dv, scale};
-  return dispatch<kDkv>(a, is_bf16, variant, cluster, stream);
+  return dispatch<kDkv>(a, is_bf16, cluster, stream);
+}
+
+namespace {
+
+// A (B, rows, width) bf16 matrix as a 3-D tensor map of boxes 64 wide and
+// box_rows tall, 128-byte swizzled; rows past the end read as zeros.
+int map3(CUtensorMap* tm, const void* ptr, int width, int rows, int batch,
+         int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * 2,
+                                 static_cast<cuuint64_t>(rows) * width * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  return gi::attn::encode_map(tm, ptr, 3, dims, strides, box);
+}
+
+// The dQ (which 0) or dK/dV (which 1) wgmma kernel: maps of the resident
+// rows (boxes of 64) and of the streamed columns (boxes of 128); with
+// max_clusters set, only the card's count of co-resident clusters; with
+// clocks set, the instance that counts its phases' cycles there.
+int bwd_wgmma(int which, const void* q, const void* k,
+              const unsigned char* valid, const void* v, const void* dout,
+              const float* lse, const float* delta, void* out0, void* out1,
+              int B, int Lq, int Lk, int d, int dv, float scale, int cluster,
+              unsigned long long* clocks, void* stream, int* max_clusters) {
+  namespace ab = gi::attn_bwd;
+  if (B < 1 || Lq < 1 || Lk < 1 || d < 8 || dv < 8 || d % 8 != 0 ||
+      dv % 8 != 0)
+    return cudaErrorInvalidValue;
+  const bool dq = which == ab::kDq;
+  const int rows = dq ? Lq : Lk, cols = dq ? Lk : Lq;
+  CUtensorMap r1{}, r2{}, c1{}, c2{};
+  if (max_clusters == nullptr) {      // the occupancy query needs no maps
+    int err = map3(&r1, dq ? q : k, d, rows, B, ab::kBR);
+    if (!err) err = map3(&r2, dq ? dout : v, dv, rows, B, ab::kBR);
+    if (!err) err = map3(&c1, dq ? k : q, d, cols, B, ab::kBC);
+    if (!err) err = map3(&c2, dq ? v : dout, dv, cols, B, ab::kBC);
+    if (err) return err;
+  }
+  ab::Params p{};
+  p.B = B;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.d = d;
+  p.dv = dv;
+  p.n1 = (d + 63) / 64;
+  p.n2 = (dv + 63) / 64;
+  p.scale = scale;
+  p.valid = valid;
+  p.lse = lse;
+  p.delta = delta;
+  p.out0 = static_cast<__nv_bfloat16*>(out0);
+  p.out1 = static_cast<__nv_bfloat16*>(out1);
+  p.clocks = clocks;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (clocks != nullptr)
+    return dq ? ab::launch_clocked<ab::kDq>(r1, r2, c1, c2, p, cluster, s)
+              : ab::launch_clocked<ab::kDkv>(r1, r2, c1, c2, p, cluster, s);
+  return dq ? ab::launch<ab::kDq>(r1, r2, c1, c2, p, cluster, s, max_clusters)
+            : ab::launch<ab::kDkv>(r1, r2, c1, c2, p, cluster, s,
+                                   max_clusters);
+}
+
+}  // namespace
+
+// The bf16 dQ and dK/dV on wgmma fed by TMA (attention_bwd_wgmma.cuh): d
+// and dv multiples of 8; cluster 1, 2, 4, 8 or 16 blocks, enough that each
+// holds ≤ 6 accumulated units and its slices, ring and partials fit shared
+// memory (ops/kernels/patch_attention.py plan). Return a cudaError_t.
+extern "C" int gi_patch_attention_dq_wgmma(
+    const void* q, const void* k, const unsigned char* valid, const void* v,
+    const void* dout, const float* lse, const float* delta, void* dq, int B,
+    int Lq, int Lk, int d, int dv, float scale, int cluster, void* stream) {
+  return bwd_wgmma(gi::attn_bwd::kDq, q, k, valid, v, dout, lse, delta, dq,
+                   nullptr, B, Lq, Lk, d, dv, scale, cluster, nullptr, stream,
+                   nullptr);
+}
+
+extern "C" int gi_patch_attention_dkv_wgmma(
+    const void* q, const void* k, const unsigned char* valid, const void* v,
+    const void* dout, const float* lse, const float* delta, void* dk,
+    void* dv_out, int B, int Lq, int Lk, int d, int dv, float scale,
+    int cluster, void* stream) {
+  return bwd_wgmma(gi::attn_bwd::kDkv, q, k, valid, v, dout, lse, delta, dk,
+                   dv_out, B, Lq, Lk, d, dv, scale, cluster, nullptr, stream,
+                   nullptr);
+}
+
+// For profiling: the dQ (which 0, dv_out null) or dK/dV (which 1) kernel's
+// instance that adds its blocks' cycles per phase and their steps into 8
+// zeroed counters (Params.clocks); cluster 2 or 16. Returns a cudaError_t.
+extern "C" int gi_patch_attention_bwd_wgmma_clocked(
+    int which, const void* q, const void* k, const unsigned char* valid,
+    const void* v, const void* dout, const float* lse, const float* delta,
+    void* out0, void* out1, int B, int Lq, int Lk, int d, int dv,
+    float scale, int cluster, unsigned long long* clocks, void* stream) {
+  if (clocks == nullptr) return cudaErrorInvalidValue;
+  return bwd_wgmma(which, q, k, valid, v, dout, lse, delta, out0, out1, B,
+                   Lq, Lk, d, dv, scale, cluster, clocks, stream, nullptr);
+}
+
+// How many clusters of the dQ (which 0) or dK/dV (which 1) wgmma kernel at
+// widths d, dv the card holds at once (cudaOccupancyMaxActiveClusters),
+// into *out; 0 means the launch cannot run. Returns a cudaError_t.
+extern "C" int gi_patch_attention_bwd_wgmma_clusters(int which, int d, int dv,
+                                                     int cluster, int* out) {
+  *out = 0;
+  return bwd_wgmma(which, nullptr, nullptr, nullptr, nullptr, nullptr,
+                   nullptr, nullptr, nullptr, nullptr, 1, 64, 64, d, dv, 1.f,
+                   cluster, nullptr, nullptr, out);
 }
 
 // The bf16 forward on wgmma fed by TMA (attention_wgmma.cuh, kPatch): d
@@ -752,17 +799,6 @@ extern "C" int gi_patch_attention_fwd_wgmma(const void* q, const void* k,
   if (B < 1 || Lq < 1 || Lk < 1 || d < 8 || dv < 8 || d % 8 != 0 ||
       dv % 8 != 0)
     return cudaErrorInvalidValue;
-  auto map3 = [](CUtensorMap* tm, const void* ptr, int width, int rows,
-                 int batch, int box_rows) {
-    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
-                                static_cast<cuuint64_t>(rows),
-                                static_cast<cuuint64_t>(batch)};
-    const cuuint64_t strides[2] = {
-        static_cast<cuuint64_t>(width) * 2,
-        static_cast<cuuint64_t>(rows) * width * 2};
-    const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
-    return gi::attn::encode_map(tm, ptr, 3, dims, strides, box);
-  };
   CUtensorMap tq{}, tk{}, tv{};
   int err = map3(&tq, q, d, Lq, B, gi::attn::kBR);
   if (err == cudaSuccess) err = map3(&tk, k, d, Lk, B, gi::attn::kBC);

@@ -17,7 +17,8 @@ ops/dispatch.py) on a CUDA tensor the op follows the JAX package's routing
 own limits:
 
 * f is b, the fused kernel holds the map (``fused_supported``) and the
-  map has at most ``FUSED_MAX_CELLS`` cells, above which the patch route
+  map has at most ``FUSED_MAX_CELLS`` cells (``FUSED_MAX_CELLS_BF16_FORWARD``
+  for a bf16 map that no backward follows), above which the patch route
   measured faster (``fused_route``): the fused attention kernel plus the
   fold kernel (ops/kernels/); where a
   gradient is wanted it is :class:`_FusedAttention`, whose backward runs
@@ -207,7 +208,9 @@ def contextual_attention(f, b, hole_mask, *, ksize: int = 3, rate: int = 2,
                                           softmax_scale=softmax_scale)
     from gan_inpainting_torch.ops.kernels.fused_attention import fused_route
 
-    if f is not b or not fused_route(b.shape, ksize, rate, b.dtype):
+    backward = torch.is_grad_enabled() and b.requires_grad
+    if f is not b or not fused_route(b.shape, ksize, rate, b.dtype,
+                                     backward=backward):
         return _patch_route(f, b, hole_mask, ksize, rate,
                             softmax_scale).to(f.dtype)
     from gan_inpainting_torch.ops.kernels.fold import fold_taps
@@ -215,7 +218,7 @@ def contextual_attention(f, b, hole_mask, *, ksize: int = 3, rate: int = 2,
         fused_attention_taps,
     )
 
-    if torch.is_grad_enabled() and b.requires_grad:
+    if backward:
         return _FusedAttention.apply(b.contiguous(), hole_mask, ksize, rate,
                                      softmax_scale).to(f.dtype)
     # serving: nothing is saved and no log-sum-exp is written

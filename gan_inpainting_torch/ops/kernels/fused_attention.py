@@ -119,27 +119,48 @@ def fused_supported(shape, ksize: int, rate: int,
     return _plan(h // rate, w // rate, c, dtype, rate) is not None
 
 
-# Largest map, in query cells (hs·ws), on which contextual attention takes
-# the fused route; on a larger one the patch route is as fast or faster
-# wherever both hold. Measured on one NVIDIA H100 80GB HBM3, 700.00 W
-# (chip_smoke.py phase [2], B 2, C 192, bf16, both forwards on wgmma, the
-# routes in turns, two runs; fused first): at 4096 cells forward 3.46 /
-# 3.51 vs 3.48 / 3.87 ms, forward + backward 25.69 / 25.74 vs 29.97 /
-# 31.14; at 8192 cells forward 11.96 / 11.82 vs 11.71 / 12.15 (a tie),
-# forward + backward 124.63 / 123.81 vs 103.39 / 103.60; at 16 384 cells
-# 42.65 / 42.73 vs 42.13 / 42.27 and 548.53 / 548.58 vs 381.25 / 381.11.
-# The fused backward kernels decide it. float32: the patch route is
-# faster at every size, from 4096 cells up (52.2 vs 31.8 ms there).
-FUSED_MAX_CELLS = 4096
+# Largest map, in query cells (hs·ws), on which contextual attention that
+# a backward follows takes the fused route; on a larger one the patch
+# route is as fast or faster wherever both hold. Measured on one NVIDIA
+# H100 80GB HBM3, 700.00 W
+# (chip_smoke.py phase [2], B 2, C 192, bf16, the forwards and the patch
+# backward on wgmma, the routes in turns; two runs, fused first): at 1024
+# cells forward 0.94 / 0.79 vs 2.26 / 2.39 ms, forward + backward 6.78 /
+# 6.40 vs 12.00 / 12.52; at 2048 cells 1.72 / 1.53 vs 2.92 / 2.32 and
+# 12.15 / 8.42 vs 16.61 / 14.51; at 4096 cells 3.55 / 3.56 vs 4.01 / 3.69
+# and 25.73 / 26.05 vs 26.06 / 21.97 (two earlier runs of the same code:
+# forward 3.95 / 3.64 vs 3.88 / 3.74, forward + backward 25.79 / 25.58 vs
+# 22.29 / 21.44); at 8192 cells 11.79 / 11.78 vs 12.14 / 12.18 and 123.74
+# / 123.97 vs 68.70 / 68.45; at 16 384 cells 42.42 / 42.88 vs 42.12 /
+# 42.25 and 548.13 / 546.73 vs 248.89 / 248.43. The backward decides it,
+# as it decides the 8×512² train step (279.5 / 278.5 ms on the fused
+# route, 261.8 / 261.7 on the patch route). float32 forward: a tie at
+# 1024 cells, the fused route faster at 2048 (8.53 / 9.38 vs 9.50 /
+# 10.24), the patch route from 4096 up (52.46 / 51.99 vs 32.10 / 31.45).
+FUSED_MAX_CELLS = 2048
+# The same for a bf16 forward that no backward follows (serving, the
+# train step's forward without gradient): at 4096 cells the fused route's
+# forward is the faster one. The 512² serve bucket's device forward
+# (tools/bench_serve.py, the same card, both limits in turns a b b a):
+# B 64 419.68 / 418.91 ms with the fused route vs 428.07 / 427.86 with
+# the patch route, B 8 54.14 / 54.13 vs 55.35 / 55.32, B 1 8.14 / 8.12 vs
+# 10.78 / 8.39. Above 4096 cells the routes' forwards tie (8192) or the
+# patch route wins (16 384; float32 from 4096 up).
+FUSED_MAX_CELLS_BF16_FORWARD = 4096
 
 
-def fused_route(shape, ksize: int, rate: int, dtype: torch.dtype) -> bool:
+def fused_route(shape, ksize: int, rate: int, dtype: torch.dtype,
+                backward: bool = True) -> bool:
     """Whether contextual attention with queries = keys takes the fused
     route: :func:`fused_supported` and at most :data:`FUSED_MAX_CELLS`
-    cells."""
+    cells, or :data:`FUSED_MAX_CELLS_BF16_FORWARD` for a bf16 map that no
+    backward follows (``backward`` False)."""
     _, h, w, _ = shape
+    limit = (FUSED_MAX_CELLS_BF16_FORWARD
+             if not backward and dtype == torch.bfloat16
+             else FUSED_MAX_CELLS)
     return (fused_supported(shape, ksize, rate, dtype)
-            and (h // rate) * (w // rate) <= FUSED_MAX_CELLS)
+            and (h // rate) * (w // rate) <= limit)
 
 
 def _prepare(b_feat: torch.Tensor, hole_mask: torch.Tensor, ksize: int,

@@ -3,9 +3,10 @@
 ``patch_attention`` and ``patch_attention_bwd`` replace the Pallas kernels
 ``_fwd_kernel`` (gan_inpainting_tpu/ops/pallas/patch_attention.py:64),
 ``_bwd_dq_kernel`` (:156) and ``_bwd_dkv_kernel`` (:186) with CUDA kernels
-in ``csrc/patch_attention.cu`` (the bf16 forward: the cluster mainloop of
-``csrc/attention_wgmma.cuh``, wgmma fed by TMA, 128 keys per step; the
-rest: a cluster template on mma.sync or CUDA-core FMAs):
+in ``csrc/patch_attention.cu``: in bf16 the cluster mainloops of
+``csrc/attention_wgmma.cuh`` (forward) and ``csrc/attention_bwd_wgmma.cuh``
+(dQ, dK/dV), wgmma fed by TMA, 128 columns per step; in float32 a cluster
+template on CUDA-core FMAs:
 
     s = scale·q·k + bias, bias −1e9 on an invalid key
     out[q] = Σ_k softmax_k(s)·valid_k·v[k]       0 where no key is valid
@@ -21,9 +22,9 @@ This is the route of contextual attention wherever the fused kernels
 and maps whose score rows do not fit shared memory (the 2048² image), and
 the gradient where the fused backward's plan does not fit. The patch
 widths are large there (d = 9C = 1728, dv = 4r²C = 3072 at C = 192, rate
-2), so one row tile is shared by a cluster of up to 8 blocks, each holding
-a slice of d and of dv (:func:`plan`; the designs are in the CUDA
-sources).
+2), so one row tile is shared by a cluster of up to 8 blocks (16 in the
+bf16 backward), each holding a slice of d and of dv (:func:`plan`; the
+designs are in the CUDA sources).
 Bound on an H100: 2·Lq·Lk·(d + dv) operations (forward), 2·Lq·Lk·(2d + dv)
 (dQ), 2·Lq·Lk·(2d + 2dv) (dK/dV) against (Lq + Lk)·(d + dv) input
 elements — bounded by operations.
@@ -54,11 +55,11 @@ KERNEL_DKV = "patch_attention_bwd_dkv"
 NEG_INF = -1e9
 SMEM_BYTES = 232448
 _CLUSTERS = (1, 2, 4, 8)
-_VARIANTS = {"core": 0, "mma": 1}
 _DTYPES = (torch.float32, torch.bfloat16)
 _WARPS = 8
 # (rows per cluster, columns per step, accumulator fragments per warp of
-# the d slice, of the dv slice) — csrc/patch_attention.cu ``Tiles``
+# the d slice, of the dv slice) — csrc/patch_attention.cu ``Tiles`` of the
+# CUDA-core template
 _TILES = {
     ("fwd", torch.bfloat16): (64, 64, 0, 24),
     ("fwd", torch.float32): (64, 32, 0, 24),
@@ -124,24 +125,85 @@ def wgmma_cluster(n1: int, n2: int) -> int | None:
     return None
 
 
+# csrc/attention_bwd_wgmma.cuh: the backward's clusters (16 is a
+# non-portable size), accumulated units per block (3 per consumer
+# warpgroup), ring depth, and shared-memory layout (``layout``)
+WGMMA_BWD_CLUSTERS = (1, 2, 4, 8, 16)
+WGMMA_BWD_MAX_ACC = 6
+WGMMA_BWD_MAX_RING = 8
+WGMMA_BWD_FLOAT_REGS = 3 * 32 + 64          # accumulators, S or dP
+# the phases whose cycles the wgmma backward counts (``_launch_bwd``'s
+# ``clocks``)
+BWD_PHASES = ("s_dp_products", "partial_write", "exchange_1", "owned_rows",
+              "exchange_2", "weight_copy", "grad_products")
+_STAGE_BYTES = 128 * WGMMA_UNIT * 2          # 128 columns × one unit
+_RES_BYTES = 64 * WGMMA_UNIT * 2             # 64 rows × one unit
+_PARTIAL_BYTES = 64 * (128 + 8) * 4          # one float32 partial tile
+
+
+def wgmma_bwd_smem(which: str, ring: int, du: int, dvu: int,
+                   cl: int) -> int:
+    """Shared memory of one block of the bf16 dQ / dK/dV kernel
+    (``layout``): the ring, the du + dvu resident units, the S and dP
+    partials, the published weight rows (ds; and p for dK/dV), the
+    barriers and 1024 bytes of alignment slack."""
+    n_pub = 1 if which == "dq" else 2
+    return (ring * _STAGE_BYTES + (du + dvu) * _RES_BYTES
+            + 2 * _PARTIAL_BYTES + n_pub * (64 // cl) * 128 * 2
+            + 8 * (2 * ring + 3) + 1024)
+
+
+def wgmma_bwd_fit(which: str, d: int, dv: int, cl: int) -> dict | None:
+    """The bf16 dQ / dK/dV kernel's plan at cluster ``cl`` (``configure``
+    in csrc/attention_bwd_wgmma.cuh), or None where it does not fit: per
+    block ⌈n1/cl⌉ d and ⌈n2/cl⌉ dv units; the accumulated units (dQ: the d
+    units; dK/dV: both) at most 6, 3 per consumer warpgroup, 96 float32
+    registers beside 64 of S or dP; a ring of at least a whole step's
+    stages (some feed the step's products, so they stay until its end)
+    plus one, as deep as shared memory allows up to 8. Each consumer
+    thread holds ``WGMMA_BWD_FLOAT_REGS`` float32 registers of tiles,
+    whatever n_acc."""
+    n1, n2 = -(-d // WGMMA_UNIT), -(-dv // WGMMA_UNIT)
+    du, dvu = -(-n1 // cl), -(-n2 // cl)
+    n_acc = du if which == "dq" else du + dvu
+    min_ring = du + dvu + 1
+    if n_acc > WGMMA_BWD_MAX_ACC:
+        return None
+    ring = WGMMA_BWD_MAX_RING
+    while ring > min_ring and \
+            wgmma_bwd_smem(which, ring, du, dvu, cl) > SMEM_BYTES:
+        ring -= 1
+    smem = wgmma_bwd_smem(which, ring, du, dvu, cl)
+    if ring < min_ring or smem > SMEM_BYTES:
+        return None
+    return dict(cluster=cl, ring=ring, smem=smem, d_units=du, dv_units=dvu,
+                acc_units_per_warpgroup=-(-n_acc // 2))
+
+
 def plan(d: int, dv: int, dtype: torch.dtype,
          which: str = "fwd") -> tuple[str, int]:
     """(variant, cluster) of the ``"fwd"``, ``"dq"`` or ``"dkv"`` kernel.
-    The bf16 forward is ``wgmma`` (csrc/attention_wgmma.cuh), with the
-    smallest cluster :func:`wgmma_cluster` allows; otherwise tensor-core
-    ``mma`` for bf16, ``core`` for float32, the smallest cluster whose
-    per-block slices of d and dv fit the accumulator registers and shared
-    memory. Raises for widths no cluster holds."""
+    In bf16 each is ``wgmma``: the forward (csrc/attention_wgmma.cuh) with
+    the smallest cluster :func:`wgmma_cluster` allows, dQ and dK/dV
+    (csrc/attention_bwd_wgmma.cuh) with the smallest that
+    :func:`wgmma_bwd_fit` admits. In float32 ``core``, the smallest
+    cluster whose per-block slices of d and dv fit the accumulator
+    registers and shared memory. Raises for widths no cluster holds; never
+    falls back to another variant."""
     if dtype not in _DTYPES:
         raise TypeError(f"patch attention kernels take {_DTYPES}, got {dtype}")
-    if which == "fwd" and dtype == torch.bfloat16:
+    if dtype == torch.float32:
+        return "core", _template_cluster(which, d, dv, dtype)
+    if which == "fwd":
         cl = wgmma_cluster(-(-d // WGMMA_UNIT), -(-dv // WGMMA_UNIT))
-        if cl is not None:
-            return "wgmma", cl
+    else:
+        cl = next((c for c in WGMMA_BWD_CLUSTERS
+                   if wgmma_bwd_fit(which, d, dv, c)), None)
+    if cl is None:
         raise ValueError(f"patch attention {which}: widths d={d} dv={dv} "
-                         f"({dtype}) exceed what a cluster of 8 blocks holds")
-    return ("mma" if dtype == torch.bfloat16 else "core",
-            _template_cluster(which, d, dv, dtype))
+                         f"({dtype}) exceed what a cluster of "
+                         f"{8 if which == 'fwd' else 16} blocks holds")
+    return "wgmma", cl
 
 
 def _template_cluster(which: str, d: int, dv: int,
@@ -221,7 +283,8 @@ def patch_attention_mirror(q, k, key_valid, v, *, softmax_scale: float,
     ``unit`` = 64, ``block_c`` = 128 and the cluster of :func:`plan`; the
     float32 template is ``unit`` 16, ``block_c`` 32. Backward: the dQ
     kernel's loop over key tiles and the dK/dV kernel's over query tiles →
-    (dq, dk, dv), float32. Scores (and dp) are the sums, in rank order, of
+    (dq, dk, dv), float32; the wgmma backward (csrc/attention_bwd_wgmma.cuh)
+    is ``unit`` 64, ``block_c`` 128 and the cluster of :func:`plan`. Scores (and dp) are the sums, in rank order, of
     the ``cluster`` ranks' ``unit``-wide slices of d (dv); p and ds are
     rounded to the inputs' dtype before their products."""
     t = v.dtype
@@ -316,14 +379,36 @@ def _pick(which, d, dv, dtype, variant):
     return chosen, cluster
 
 
-def _fn(name: str, n_ptr: int):
+def _fn(name: str, n_ptr: int, tail: int = 2, head: int = 0):
+    """The C entry ``name``: ``head`` ints, n_ptr pointers, B, Lq, Lk, d,
+    dv, scale, then ``tail`` ints (is_bf16 and cluster: the CUDA-core
+    template; cluster: the wgmma backward) and the stream — or, with
+    ``tail`` 0, cluster and the phase clocks pointer (the clocked wgmma
+    backward)."""
     lib = build.library("patch_attention")
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_int] * head + [ctypes.c_void_p] * n_ptr
+                   + [ctypes.c_int] * 5 + [ctypes.c_float]
+                   + ([ctypes.c_int] * tail if tail
+                      else [ctypes.c_int, ctypes.c_void_p])
                    + [ctypes.c_void_p])
     return lib, fn
+
+
+def wgmma_bwd_clusters(which: str, d: int, dv: int) -> int:
+    """How many clusters of the planned bf16 dQ / dK/dV kernel the card
+    holds at once (cudaOccupancyMaxActiveClusters); 0 = cannot launch."""
+    _, cl = plan(d, dv, torch.bfloat16, which)
+    lib = build.library("patch_attention")
+    fn = lib.gi_patch_attention_bwd_wgmma_clusters
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    out = ctypes.c_int(0)
+    err = fn(int(which == "dkv"), -(-d // 8) * 8, -(-dv // 8) * 8, cl,
+             ctypes.byref(out))
+    build.check(lib, err, f"patch attention {which} occupancy")
+    return out.value
 
 
 def _pad8(t: torch.Tensor) -> torch.Tensor:
@@ -368,7 +453,7 @@ def launch_fwd(q, k, key_valid, v, softmax_scale: float, *,
             err = fn(q.data_ptr(), k.data_ptr(), key_valid.data_ptr(),
                      v.data_ptr(), out.data_ptr(), lse_ptr, bsz, lq, lk, d,
                      dv, float(softmax_scale), int(q.dtype == torch.bfloat16),
-                     _VARIANTS[variant], cluster, stream)
+                     cluster, stream)
     count_launch(KERNEL_FWD)
     build.check(lib, err, KERNEL_FWD)
     return (out, lse) if want_lse else out
@@ -382,50 +467,69 @@ def _bwd_inputs(g, lse, delta, bsz, lq, dv, dtype):
             raise ValueError(f"{name} must be float32 (B, Lq)")
 
 
-def launch_dq(q, k, key_valid, v, g, lse, delta, softmax_scale: float, *,
-              variant: str | None = None):
-    """The dQ kernel → dq (B, Lq, d) in q's dtype. ``delta`` = rowsum(g∘out)
-    (B, Lq) float32."""
+def _launch_bwd(which, q, k, key_valid, v, g, lse, delta, softmax_scale,
+                variant, clocks=None):
+    """The dQ (``which`` "dq") or dK/dV ("dkv") kernel → its gradients in
+    the inputs' dtype. The wgmma kernels take rows of 16 bytes: d and dv
+    are zero-padded to multiples of 8 and the gradients sliced back.
+    ``clocks`` (profiling only: tools/bench_attention.py, the card
+    tests): None, or a zeroed (8,) int64 CUDA tensor into which the wgmma
+    kernel's clocked instance (cluster 2 or 16) adds its blocks' cycles per
+    phase (see :data:`BWD_PHASES`) and their step count."""
     _check(q, k, key_valid, v, g, lse, delta)
     bsz, lq, d = q.shape
     _, lk, dv = v.shape
     _bwd_inputs(g, lse, delta, bsz, lq, dv, q.dtype)
-    variant, cluster = _pick("dq", d, dv, q.dtype, variant)
-    dq = torch.empty_like(q)
-    lib, fn = _fn("gi_patch_attention_dq", 8)
+    variant, cluster = _pick(which, d, dv, q.dtype, variant)
+    wgmma = variant == "wgmma"
+    if wgmma:
+        q, k, v, g = _pad8(q), _pad8(k), _pad8(v), _pad8(g)
+    outs = ([torch.empty_like(q)] if which == "dq"
+            else [torch.empty_like(k), torch.empty_like(v)])
+    if clocks is not None and (not wgmma or cluster not in (2, 16)):
+        raise ValueError("phase clocks come from the wgmma kernels at "
+                         "clusters of 2 and 16 only")
+    ptrs = [q.data_ptr(), k.data_ptr(), key_valid.data_ptr(), v.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in outs)]
+    if clocks is not None:
+        head, ptrs = [int(which == "dkv")], ptrs + [None] * (2 - len(outs))
+        lib, fn = _fn("gi_patch_attention_bwd_wgmma_clocked", 9, 0, 1)
+        tail = [cluster, clocks.data_ptr()]
+    elif wgmma:
+        head, tail = [], [cluster]
+        lib, fn = _fn(f"gi_patch_attention_{which}_wgmma", len(ptrs), 1)
+    else:
+        head, tail = [], [int(q.dtype == torch.bfloat16), cluster]
+        lib, fn = _fn(f"gi_patch_attention_{which}", len(ptrs))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), key_valid.data_ptr(),
-                 v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 dq.data_ptr(), bsz, lq, lk, d, dv, float(softmax_scale),
-                 int(q.dtype == torch.bfloat16), _VARIANTS[variant], cluster,
-                 stream)
-    count_launch(KERNEL_DQ)
-    build.check(lib, err, KERNEL_DQ)
-    return dq
+        err = fn(*head, *ptrs, bsz, lq, lk, q.shape[-1], v.shape[-1],
+                 float(softmax_scale), *tail, stream)
+    kernel = KERNEL_DQ if which == "dq" else KERNEL_DKV
+    count_launch(kernel)
+    build.check(lib, err, kernel)
+    widths = (d,) if which == "dq" else (d, dv)
+    return [t if t.shape[-1] == w else t[..., :w].contiguous()
+            for t, w in zip(outs, widths)]
+
+
+def launch_dq(q, k, key_valid, v, g, lse, delta, softmax_scale: float, *,
+              variant: str | None = None):
+    """The dQ kernel → dq (B, Lq, d) in q's dtype. ``delta`` = rowsum(g∘out)
+    (B, Lq) float32. ``variant`` ``core`` overrides :func:`plan` on bf16
+    (for the card's comparisons)."""
+    return _launch_bwd("dq", q, k, key_valid, v, g, lse, delta,
+                       softmax_scale, variant)[0]
 
 
 def launch_dkv(q, k, key_valid, v, g, lse, delta, softmax_scale: float, *,
                variant: str | None = None):
     """The dK/dV kernel → (dk (B, Lk, d), dv (B, Lk, dv)) in the inputs'
     dtype."""
-    _check(q, k, key_valid, v, g, lse, delta)
-    bsz, lq, d = q.shape
-    _, lk, dv = v.shape
-    _bwd_inputs(g, lse, delta, bsz, lq, dv, q.dtype)
-    variant, cluster = _pick("dkv", d, dv, q.dtype, variant)
-    dk, dv_out = torch.empty_like(k), torch.empty_like(v)
-    lib, fn = _fn("gi_patch_attention_dkv", 9)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), key_valid.data_ptr(),
-                 v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 dk.data_ptr(), dv_out.data_ptr(), bsz, lq, lk, d, dv,
-                 float(softmax_scale), int(q.dtype == torch.bfloat16),
-                 _VARIANTS[variant], cluster, stream)
-    count_launch(KERNEL_DKV)
-    build.check(lib, err, KERNEL_DKV)
-    return dk, dv_out
+    dk, dv = _launch_bwd("dkv", q, k, key_valid, v, g, lse, delta,
+                         softmax_scale, variant)
+    return dk, dv
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Time the bf16 attention forwards at the table shapes, on one CUDA card.
+"""Time the bf16 attention kernels at the table shapes, on one CUDA card.
 
     python -m gan_inpainting_torch.tools.bench_attention [--turns 2]
+        [--cases fused,patch,patch_bwd]
 
 Shapes: the fused forward at the 256² serve map (B 8, 64×64×192) and the
 512² map (B 2, 128×128×192); the patch forward at B 2, L 16 384, d 1728,
@@ -9,13 +10,21 @@ alone (prepared maps, or materialized Q/K/V with lse), ms of one
 ``scaled_dot_product_attention`` call over the same patches (a yardstick,
 never called by the port), and the kernel's largest error against the
 plain version (bf16 inputs, the plain version in float32 on the same
-values; lse absolute). One JSON line per shape, and the card's name and
-power limit.
+values; lse absolute). ``patch_bwd``: the patch dQ and dK/dV kernels at
+B 2, L 16 384 (with their largest errors against the plain formulas as a
+fraction of the largest reference entry, and the autograd backward of the
+same SDPA call, dq, dk and dv in one) and at B 1, L 65 536 (the 2048²
+map; times only), with TFLOP/s over the (query, valid key) pairs; with
+``--phases``, also the wgmma kernels' cycles per step in each phase of
+their mainloop (``patch_attention.BWD_PHASES``, averaged over blocks). One
+JSON line per shape, and the card's name and power limit.
 
 It uses only entry points that every version of the port has
-(``fused_attention._prepare``/``_launch``, ``patch_attention.launch_fwd``),
-so two versions can be timed in turns on one card: run it once with
-``PYTHONPATH`` at the other checkout.
+(``fused_attention._prepare``/``_launch``, ``patch_attention.launch_fwd``,
+``launch_dq``, ``launch_dkv``, ``plan``), so two versions can be timed in
+turns on one card: run this file as a script with ``PYTHONPATH`` at the
+other checkout, e.g. ``PYTHONPATH=../parent python
+gan_inpainting_torch/tools/bench_attention.py --cases patch_bwd``.
 """
 
 from __future__ import annotations
@@ -106,10 +115,86 @@ def patch_case(bsz: int, length: int, turns: int) -> dict:
                 tol=2.0 ** -7 * max(ref, 1.0), lse_err=lse_err)
 
 
+def _patch_inputs(bsz: int, length: int, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, dv = 1728, 3072
+    q = torch.randn((bsz, length, d), generator=gen, device="cuda")
+    k = F.normalize(torch.randn((bsz, length, d), generator=gen,
+                                device="cuda"), dim=-1)
+    v = torch.randn((bsz, length, dv), generator=gen, device="cuda")
+    g = torch.randn((bsz, length, dv), generator=gen, device="cuda")
+    valid = torch.rand((bsz, length), generator=gen, device="cuda") < 0.7
+    return (*(t.to(torch.bfloat16).contiguous() for t in (q, k, v, g)),
+            valid)
+
+
+def patch_bwd_case(bsz: int, length: int, turns: int,
+                   phases: bool = False) -> dict:
+    """dQ and dK/dV from the kernel forward's own out and lse; errors and
+    the SDPA yardstick where the dense plain version fits (L ≤ 16 384)."""
+    from gan_inpainting_torch.ops.kernels import patch_attention as pa
+
+    q, k, v, g, valid = _patch_inputs(bsz, length, length + 1)
+    d, dv = q.shape[-1], v.shape[-1]
+    out, lse = pa.launch_fwd(q, k, valid, v, 10.0, want_lse=True)
+    delta = (g.float() * out.float()).sum(-1)
+    pairs = 2.0 * length * int(valid.sum().item())
+    flops = {"dq": pairs * (2 * d + dv), "dkv": pairs * (2 * d + 2 * dv)}
+    res = dict(shape=f"patch bwd B{bsz} L{length} d{d} dv{dv}",
+               plan={w: pa.plan(d, dv, torch.bfloat16, w)
+                     for w in ("dq", "dkv")})
+    small = length <= 16384
+    if small:
+        dq = pa.launch_dq(q, k, valid, v, g, lse, delta, 10.0)
+        dk, dv_ = pa.launch_dkv(q, k, valid, v, g, lse, delta, 10.0)
+        want = pa.patch_attention_bwd_plain(
+            q.float(), k.float(), valid, v.float(), out.float(), lse,
+            g.float(), softmax_scale=10.0, keep_float=True)
+        res["rel_err"] = {
+            n: (a.float() - w).abs().max().item() / max(
+                w.abs().max().item(), 1.0)
+            for n, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv_), want)}
+        del dq, dk, dv_, want
+        mask = torch.where(valid, 0.0, -1e9).to(q.dtype)[:, None, None, :]
+        leaves = [t[:, None].detach().requires_grad_(True) for t in (q, k, v)]
+        y = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                           scale=10.0)
+        gy = g[:, None]
+    reps = 3 if small else 1
+    turns_ms = []
+    for _ in range(turns):
+        t = {"dq": _time_ms(lambda: pa.launch_dq(
+                q, k, valid, v, g, lse, delta, 10.0), reps),
+             "dkv": _time_ms(lambda: pa.launch_dkv(
+                 q, k, valid, v, g, lse, delta, 10.0), reps)}
+        if small:
+            t["sdpa_bwd"] = _time_ms(lambda: torch.autograd.grad(
+                y, leaves, gy, retain_graph=True), 2)
+        turns_ms.append(t)
+    res.update({f"{n}_ms": [t[n] for t in turns_ms] for n in turns_ms[0]})
+    if phases:
+        res["phase_cycles_per_step"] = {}
+        for name in ("dq", "dkv"):
+            clocks = torch.zeros(8, dtype=torch.int64, device="cuda")
+            pa._launch_bwd(name, q, k, valid, v, g, lse, delta, 10.0, None,
+                           clocks=clocks)
+            c = clocks.tolist()
+            res["phase_cycles_per_step"][name] = {
+                ph: c[i] / c[7] for i, ph in enumerate(pa.BWD_PHASES)}
+    res["tflops"] = {n: [flops[n] / t[n] / 1e9 for t in turns_ms]
+                     for n in ("dq", "dkv")}
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--turns", type=int, default=2)
+    ap.add_argument("--cases", default="fused,patch,patch_bwd",
+                    help="comma-separated subset of fused, patch, patch_bwd")
+    ap.add_argument("--phases", action="store_true",
+                    help="patch_bwd: cycles per step in each mainloop phase")
     args = ap.parse_args()
+    cases = args.cases.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("bench_attention needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -118,9 +203,18 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi)
-    for res in (fused_case(8, 64, args.turns), fused_case(2, 128, args.turns),
-                patch_case(2, 16384, args.turns)):
-        print(json.dumps(res, default=str))
+    runs = []
+    if "fused" in cases:
+        runs += [lambda: fused_case(8, 64, args.turns),
+                 lambda: fused_case(2, 128, args.turns)]
+    if "patch" in cases:
+        runs.append(lambda: patch_case(2, 16384, args.turns))
+    if "patch_bwd" in cases:
+        runs += [lambda: patch_bwd_case(2, 16384, args.turns, args.phases),
+                 lambda: patch_bwd_case(1, 65536, args.turns, args.phases)]
+    for run in runs:
+        print(json.dumps(run(), default=str), flush=True)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -33,7 +33,8 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
           device: str | torch.device | None = None):
     """Run ``cfg.train.steps`` of GAN training on ``device`` (CUDA unless
     the caller asks for another); returns (state, last metrics as floats).
-    Scalars stream to ``<workdir>/metrics.jsonl``."""
+    Scalars stream to ``<workdir>/metrics.jsonl``. Raises for a
+    ``train.mesh`` above one device (``create_state``)."""
     device = resolve_device(device)
     state = create_state(cfg, device=device)
     ckpt = CheckpointManager(cfg.train.workdir, cfg.train.max_checkpoints)

@@ -114,10 +114,26 @@ def make_optimizers(cfg: Config, generator: nn.Module,
             adam(discriminator, cfg.train.d_lr))
 
 
+def require_one_device(cfg: Config) -> None:
+    """Raise for a ``train.mesh`` the port cannot run: it trains on one
+    device, so ``model``, ``spatial`` or ``data`` above 1 would otherwise
+    be ignored without a word (``data = -1``, all devices, is the one
+    card). Meshes come with ROADMAP Queue 1 item 7 (``parallel/``)."""
+    mesh = cfg.train.mesh
+    for axis in ("model", "spatial", "data"):
+        n = getattr(mesh, axis)
+        if n > 1:
+            raise NotImplementedError(
+                f"train.mesh.{axis}={n}: the PyTorch port trains on one "
+                "device; meshes await ROADMAP Queue 1 item 7 (parallel/)")
+
+
 def create_state(cfg: Config, seed: int | None = None,
                  device: str | torch.device | None = None) -> GANTrainState:
     """Initialize G, D (seeded), the optimizers and the EMA for a config, on
-    ``device`` (CUDA unless the caller asks for another)."""
+    ``device`` (CUDA unless the caller asks for another). Raises for a
+    mesh above one device (:func:`require_one_device`)."""
+    require_one_device(cfg)
     device = resolve_device(device)
     if device.type == "cuda":
         # a run repeats a few fixed shapes: let cuDNN search once per shape

@@ -674,7 +674,7 @@ def test_patch_attention_kernels_match_plain(cuda, b, lq, lk, d, dv, dtype,
     )
 
     q, k, valid, v, g = _patch_case(lq + d, b, lq, lk, d, dv, cuda, dtype)
-    # planned: the wgmma forward, the mma backward
+    # planned: the wgmma forward and backward
     out_k, lse_k = launch_fwd(q, k, valid, v, 10.0, want_lse=True,
                               variant=variant)
     out_p, lse_p = patch_attention_plain(q.float(), k.float(), valid,
@@ -744,6 +744,58 @@ def test_wgmma_patch_forward_ragged_and_its_backward(cuda, b, L):
     torch.cuda.synchronize()
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv_), want):
         assert _rel(got, ref) <= 2.0 ** -6, (name, _rel(got, ref))
+
+
+# The wgmma dQ and dK/dV (clusters of 2 at d 200 / dv 300, dv padded to
+# 304 for the tensor maps) where L is ragged against the 64-row tiles and
+# the 128-column steps, from the plain forward's residuals; with B > 1 the
+# last sample has no valid key and its gradients are exactly 0.
+@pytest.mark.parametrize("b,L", [(3, 1000), (1, 4097), (2, 4097)])
+def test_wgmma_patch_backward_ragged_with_a_dead_sample(cuda, b, L):
+    from gan_inpainting_torch.ops.kernels.patch_attention import (
+        _launch_bwd,
+        launch_dkv,
+        launch_dq,
+        patch_attention_bwd_plain,
+        patch_attention_plain,
+        plan,
+    )
+
+    d, dv = 200, 300
+    assert plan(d, dv, torch.bfloat16, "dq") == ("wgmma", 2)
+    assert plan(d, dv, torch.bfloat16, "dkv") == ("wgmma", 2)
+    q, k, valid, v, g = _patch_case(2 * L + b, b, L, L, d, dv, cuda,
+                                    torch.bfloat16)
+    if b == 1:                           # revive the only sample
+        valid[0] = torch.arange(L, device=cuda) % 5 != 0
+    out, lse = patch_attention_plain(q.float(), k.float(), valid, v.float(),
+                                     softmax_scale=10.0, want_lse=True)
+    out = out.to(torch.bfloat16)
+    delta = (g.float() * out.float()).sum(-1)
+    dispatch.reset_launches()
+    dq = launch_dq(q, k, valid, v, g, lse, delta, 10.0)
+    dk, dv_ = launch_dkv(q, k, valid, v, g, lse, delta, 10.0)
+    assert dispatch.launches["patch_attention_bwd_dq"] == 1
+    assert dispatch.launches["patch_attention_bwd_dkv"] == 1
+    # the profiling instance: the same dq, and every block of every cluster
+    # walks ⌈L / 128⌉ steps through its phase clocks
+    clocks = torch.zeros(8, dtype=torch.int64, device=cuda)
+    dq_clocked = _launch_bwd("dq", q, k, valid, v, g, lse, delta, 10.0, None,
+                             clocks=clocks)[0]
+    blocks = -(-L // 64) * 2 * b
+    assert clocks[7].item() == blocks * -(-L // 128)
+    assert (clocks[:7] > 0).all()
+    assert torch.equal(dq_clocked, dq)
+    want = patch_attention_bwd_plain(q.float(), k.float(), valid, v.float(),
+                                     out.float(), lse, g.float(),
+                                     softmax_scale=10.0, keep_float=True)
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv_), want):
+        assert got.shape == ref.shape and got.dtype == torch.bfloat16
+        assert torch.isfinite(got.float()).all(), name
+        assert _rel(got, ref) <= 2.0 ** -6, (name, _rel(got, ref))
+        if b > 1:
+            assert got[-1].abs().max().item() == 0.0, name
 
 
 def test_fused_backward_from_the_wgmma_forward(cuda):

@@ -49,6 +49,7 @@ from gan_inpainting_torch.io.convert import (
 from gan_inpainting_torch.ops.dispatch import launches
 from gan_inpainting_torch.ops.kernels import fused_attention as fa
 from gan_inpainting_torch.ops.kernels import fused_attention_bwd as fab
+from gan_inpainting_torch.ops.kernels import patch_attention as pa
 from gan_inpainting_torch.ops.kernels.patch_attention import (
     PatchAttention,
     attend,
@@ -289,15 +290,18 @@ def test_fused_patch_attention_is_the_patch_major_output():
     assert dx[-1].abs().max().item() == 0.0
 
 
-@pytest.mark.parametrize("image,fused,bwd,route", [
-    (256, True, True, True), (512, True, True, True),
-    (1024, True, True, False), (2048, False, False, False)])
-def test_route_predicates_at_the_config_maps(image, fused, bwd, route):
+@pytest.mark.parametrize("image,fused,bwd,route,bf16_serve_route", [
+    (256, True, True, True, True), (512, True, True, False, True),
+    (1024, True, True, False, False), (2048, False, False, False, False)])
+def test_route_predicates_at_the_config_maps(image, fused, bwd, route,
+                                             bf16_serve_route):
     """The attention branch sees a C = 192 map at a quarter of the image,
     matched at rate 2: 256² → 64² (L 1024) … 2048² → 512² (L 65 536). The
-    fused route is taken up to the measured 4096 cells (the 512² image);
-    ``fused``: whether the float32 fused kernel holds the map (the bf16
-    one holds all four)."""
+    fused route is taken up to the measured 2048 cells where a backward
+    follows (the 256² image; the 512² image's 4096 cells take the patch
+    route), and up to 4096 for a bf16 forward alone (serving the 512²
+    image); ``fused``: whether the float32 fused kernel holds the map (the
+    bf16 one holds all four)."""
     hw = image // 4
     hs = hw // 2
     for dtype in (torch.bfloat16, torch.float32):
@@ -306,6 +310,9 @@ def test_route_predicates_at_the_config_maps(image, fused, bwd, route):
         held = fused or dtype == torch.bfloat16
         assert fa.fused_supported((1, hw, hw, 192), 3, 2, dtype) is held
         assert fa.fused_route((1, hw, hw, 192), 3, 2, dtype) is route
+        assert fa.fused_route((1, hw, hw, 192), 3, 2, dtype,
+                              backward=False) is (
+            bf16_serve_route if dtype == torch.bfloat16 else route)
         assert fab.bwd_supported(hs, hs, 192, dtype) is bwd
         assert not fa.fused_supported((1, hw, hw, 192), 5, 2, dtype)
         if held:
@@ -361,16 +368,104 @@ def test_wgmma_forward_mirror_matches_plain_and_jax(dtype, cluster, block_c):
 
 
 def test_patch_kernel_plans_at_full_width():
-    # d = 9C, dv = 16C at C = 192: a cluster of 8 blocks in every kernel
+    # d = 9C, dv = 16C at C = 192: a cluster of 8 blocks in the bf16
+    # forward and the float32 kernels, of 16 in the bf16 backward
     for which in ("fwd", "dq", "dkv"):
         assert plan(1728, 3072, torch.bfloat16, which) == (
-            "wgmma" if which == "fwd" else "mma", 8)
+            "wgmma", 8 if which == "fwd" else 16)
         assert plan(1728, 3072, torch.float32, which) == ("core", 8)
         assert plan(36, 48, torch.float32, which) == ("core", 1)
     with pytest.raises(ValueError, match="cluster of 8"):
         plan(4800, 3072, torch.bfloat16, "fwd")      # ksize 5 at C = 192
     with pytest.raises(TypeError):
         plan(36, 48, torch.float16)
+
+
+# The wgmma backward's arithmetic (csrc/attention_bwd_wgmma.cuh): S and dP
+# as float32 sums of the cluster's 64-wide slices in rank order, 128
+# columns per step, p and ds rounded to the inputs' dtype before their
+# products. Against the plain formulas on the same values and, in float32,
+# jax.vjp through the JAX Pallas backward kernels in interpret mode: 2e-4
+# of the largest entry in float32 (sums in another order), 2^-6 on bf16
+# inputs (p and ds rounded to bf16, which the formulas do not). Shapes
+# ragged in every tile (L against 64 rows and 128 columns, d and dv
+# against 64-wide units), the last sample with no valid key.
+@pytest.mark.parametrize("dtype,cluster", [
+    (torch.float32, 1), (torch.float32, 2), (torch.bfloat16, 4)],
+    ids=["f32_cl1", "f32_cl2", "bf16_cl4"])
+def test_wgmma_backward_mirror_matches_plain_and_jax(dtype, cluster):
+    b, lq, lk, d, dv = 2, 130, 70, 136, 200
+    q, k, v, valid = _inputs(11 + cluster, b, lq, lk, d, dv,
+                             dead_sample=True)
+    g = np.random.default_rng(12).standard_normal((b, lq, dv)).astype(
+        np.float32)
+    tq, tk, tv, tvalid, tg = _t(q, k, v, valid, g)
+    tq, tk, tv, tg = (t.to(dtype) for t in (tq, tk, tv, tg))
+    out, lse = patch_attention_plain(tq.float(), tk.float(), tvalid,
+                                     tv.float(), softmax_scale=SCALE,
+                                     want_lse=True)
+    got = patch_attention_mirror(tq, tk, tvalid, tv, softmax_scale=SCALE,
+                                 cluster=cluster, block_c=128, unit=64,
+                                 out=out.to(dtype), lse=lse, g=tg)
+    want = patch_attention_bwd_plain(tq.float(), tk.float(), tvalid,
+                                     tv.float(), out.to(dtype).float(), lse,
+                                     tg.float(), softmax_scale=SCALE,
+                                     keep_float=True)
+    frac = 2e-4 if dtype == torch.float32 else 2.0 ** -6
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert w.abs().max().item() > 0.1, name
+        assert (a - w).abs().max().item() <= frac * max(
+            w.abs().max().item(), 1.0), name
+        assert a[-1].abs().max().item() == 0.0, name
+    if dtype == torch.float32:
+        with pltpu.force_tpu_interpret_mode():
+            _, vjp = jax.vjp(lambda q_, k_, v_: patch_attention_pallas(
+                q_, k_, valid, v_, softmax_scale=SCALE, block_q=64,
+                block_k=64), q, k, v)
+            want_pal = vjp(g)
+        for name, a, w in zip(("dq", "dk", "dv"), got, want_pal):
+            w = np.asarray(w)
+            assert np.abs(a.numpy() - w).max() <= 2e-4 * max(
+                np.abs(w).max(), 1.0), name
+
+
+# The bf16 backward's plan (csrc/attention_bwd_wgmma.cuh ``configure``,
+# mirrored by ``wgmma_bwd_fit``): per block of 232 448 bytes, a ring of
+# 16 KB stages, 8 KB resident units, two float32 partial tiles of 64 × 136,
+# the published rows, 8 bytes per barrier and 1 KB of slack. At d 1728 /
+# dv 3072 (27 and 48 units) a cluster of 8 cannot hold dQ's 10 resident
+# units, 68 KB of partials and 5 stages, nor dK/dV's 10 accumulated units;
+# 16 blocks hold 2 + 3 units with a ring of 7.
+@pytest.mark.parametrize("which,d,dv,cluster,ring,smem", [
+    ("dq", 1728, 3072, 16, 7, 7 * 16384 + 5 * 8192 + 69632 + 1024 + 136
+     + 1024),
+    ("dkv", 1728, 3072, 16, 7, 7 * 16384 + 5 * 8192 + 69632 + 2048 + 136
+     + 1024),
+    ("dq", 200, 300, 2, 6, 6 * 16384 + 5 * 8192 + 69632 + 8192 + 120
+     + 1024),
+    ("dkv", 200, 300, 2, 6, 6 * 16384 + 5 * 8192 + 69632 + 16384 + 120
+     + 1024)], ids=["dq_full", "dkv_full", "dq_ragged", "dkv_ragged"])
+def test_wgmma_backward_layout_and_plan(which, d, dv, cluster, ring, smem):
+    assert plan(d, dv, torch.bfloat16, which) == ("wgmma", cluster)
+    fit = pa.wgmma_bwd_fit(which, d, dv, cluster)
+    assert (fit["ring"], fit["smem"]) == (ring, smem)
+    assert smem <= 232448
+    # ≤ 3 accumulated units per consumer warpgroup; the tiles' registers
+    # leave room under setmaxnreg 232
+    assert fit["acc_units_per_warpgroup"] <= 3
+    assert pa.WGMMA_BWD_FLOAT_REGS == 160
+    # every smaller cluster fails, and one stage more would not fit
+    for smaller in (c for c in (1, 2, 4, 8) if c < cluster):
+        assert pa.wgmma_bwd_fit(which, d, dv, smaller) is None
+    assert pa.wgmma_bwd_smem(which, ring + 1, fit["d_units"],
+                             fit["dv_units"], cluster) > 232448
+    # wider than a cluster of 16 holds: ksize 5 at C 192 (d 4800), and for
+    # dK/dV dv 4800 (more than 6 accumulated units per block)
+    with pytest.raises(ValueError, match="cluster of 16"):
+        plan(4800, 3072, torch.bfloat16, which)
+    if which == "dkv":
+        with pytest.raises(ValueError, match="cluster of 16"):
+            plan(1728, 4800, torch.bfloat16, which)
 
 
 def test_cpu_backward_wrapper_takes_the_formulas():

@@ -365,3 +365,25 @@ def test_warm_start_grafts_parameters(tiny_config, tmp_path):
         cfg.model, base_features=16))
     with pytest.raises(ValueError, match="architecture"):
         warm_start(create_state(wide, device="cpu"), wide)
+
+
+@pytest.mark.parametrize("mesh", ["model=2", "spatial=4", "data=2",
+                                  "data=-1"])
+def test_mesh_above_one_device_raises(tiny_config, tmp_path, mesh):
+    """The trainer runs on one device: a ``train.mesh`` that asks for more
+    raises in ``create_state`` and ``train`` instead of training on one
+    card without a word; ``data = -1`` (all devices) is the one card.
+    Serving an npz whose config carries a mesh is not affected."""
+    from gan_inpainting_torch.train.loop import train
+
+    cfg = _port_cfg(j_overrides(tiny_config, [f"train.mesh.{mesh}",
+                                              f"train.workdir={tmp_path}",
+                                              "train.steps=0"]))
+    if mesh == "data=-1":
+        assert create_state(cfg, device="cpu").step == 0
+        return
+    for fn in (lambda: create_state(cfg, device="cpu"),
+               lambda: train(cfg, device="cpu", verbose=False)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+            fn()
+    assert not any(tmp_path.iterdir())       # nothing was written
