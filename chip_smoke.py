@@ -7,17 +7,22 @@ Phases (each prints its lines; any failure exits non-zero):
 
 1. device and build: the card's name and power limit, and the build of
    every CUDA kernel from ``gan_inpainting_torch/csrc`` with nvcc; the
-   registers, spills and HGMMA (and, for the attention forwards' and the
-   patch backward's wgmma mainloops, UTMALDG) counts of the wgmma kernels,
+   registers, spills and HGMMA (and, for the attention forwards', the
+   patch backward's and the fused backward's wgmma kernels, UTMALDG)
+   counts of the wgmma kernels,
    each required > 0 and the attention kernels' spills 0; the patch
    backward's clusters of 16 resident on the card;
 2. kernels against their plain PyTorch versions on the card, at the
    256² serve shape (B=8, map 64×64×192) and the 512² shape (B=2, map
    128×128×192), in float32 and bfloat16, with times of the kernel, the
    plain version and one library call computing the same function; and
-   the two attention backward kernels and the forward's log-sum-exp at
-   the train shapes (256²: B=16, map 64×64×192; 512²: B=8, map
-   128×128×192), with an all-hole sample; and the two gated-conv kernels
+   the fused attention backward's kernels (bf16: δ, score tiles, dQ and
+   dK/dV tap products on wgmma; float32: the core kernels) and the
+   forward's log-sum-exp at the train shapes (256²: B=16, map 64×64×192;
+   512²: B=8, map 128×128×192), with an all-hole sample, two runs and a
+   chunked run bit-identical, each launch's time beside its bound, its
+   plain version, SDPA's backward and the five products as torch.matmul;
+   and the two gated-conv kernels
    and the partial-conv epilogue kernel at full-width shapes of their
    paths, in float32 and bfloat16;
 3. the serve path: the pinned ``tex256_attn`` generator under the
@@ -340,8 +345,10 @@ def check_kernels(torch, shape_name, bsz, hw, c, rng, smi):
 
 
 def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
-    """Phase 2, backward: the dQ and dK/dV kernels and the forward's lse
-    against their plain versions at one train shape."""
+    """Phase 2, backward: the fused backward's kernels (bf16: δ, score
+    tiles, dQ and dK/dV tap products on wgmma; float32: the core kernels)
+    and the forward's lse against their plain versions at one train
+    shape, with an all-hole sample, repeat runs and chunked runs."""
     import torch.nn.functional as F
 
     from gan_inpainting_torch.ops.contextual_attention import (
@@ -353,13 +360,20 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
         fused_attention_taps_plain,
     )
     from gan_inpainting_torch.ops.kernels.fused_attention_bwd import (
+        TILE,
+        _tap,
         contextual_attention_bwd,
         contextual_attention_bwd_plain,
+        launch_delta,
         launch_dkv,
         launch_dq,
+        launch_scores,
         plan_bwd,
         prepare_bwd,
+        scratch_bytes_per_sample,
+        tap_grads,
         tap_grads_mirror,
+        v_tap_geometry,
     )
 
     dev = torch.device("cuda")
@@ -376,31 +390,22 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
     hole = downscale_mask_max(
         torch.from_numpy(masks[..., None]).to(dev), 4)
 
-    def kernels(x, g, taps, lse):
-        maps, gmaps, bias, rnorm, _ = prepare_bwd(x, hole[:x.shape[0]], g, 3,
-                                                  rate)
-        prep = (maps, gmaps, bias, rnorm, lse)
-        dq, delta = launch_dq(*prep, taps, hs, ws, rate, scale)
-        dk, dv, tn = launch_dkv(*prep, delta, hs, ws, rate, scale)
-        return prep, (dq, delta), (dk, dv, tn)
-
     def worst(got, want):
         """max abs error and its tolerance base over a kernel's outputs"""
         return max(((a - b).abs().max().item()
                     / max(b.abs().max().item(), 1.0)) for a, b in zip(got,
                                                                       want))
 
-    # ---- float32 (CUDA-core variant), three samples: no hole, all hole,
+    # ---- float32 (core kernels), three samples: no hole, all hole,
     # strokes; TF32 off --------------------------------------------------
     n32 = 3
     xs, gs, hl = x32[:n32], g32[:n32], hole[:n32]
     taps_k, lse_k = fused_attention_taps(xs, hl, want_lse=True)
     taps_p, lse_p = fused_attention_taps_plain(xs, hl, want_lse=True)
     lse_err32 = (lse_k - lse_p).abs().max().item()
-    prep, dq_k, dkv_k = kernels(xs, gs, taps_p, lse_p)
-    dq_m = tap_grads_mirror(*prep, taps_p, hs, ws, rate, scale, which="dq")
-    dkv_m = tap_grads_mirror(*prep, taps_p, hs, ws, rate, scale, which="dkv")
-    dq_err32, dkv_err32 = worst(dq_k, dq_m), worst(dkv_k, dkv_m)
+    args32 = (*prepare_bwd(xs, hl, gs, 3, rate)[:4], lse_p, taps_p, hs, ws,
+              rate, scale)
+    err32 = worst(tap_grads(*args32), tap_grads_mirror(*args32))
     full_k = contextual_attention_bwd(xs, hl, taps_k, lse_k, gs)
     full_p = contextual_attention_bwd_plain(xs, hl, gs)
     full_err32 = ((full_k - full_p).abs().max().item()
@@ -408,63 +413,123 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
     _require(full_k[1].abs().max().item() == 0.0
              and bool(torch.isfinite(full_k).all()),
              f"all-hole gradient not exactly 0 at {shape_name}")
-    del prep, dq_k, dkv_k, dq_m, dkv_m, taps_k, taps_p
+    del args32, taps_k, taps_p, full_k, full_p
 
-    # ---- bfloat16 (tensor-core variant), the whole batch, against the
-    # mirror in float32 on the same bf16 values -------------------------
+    # ---- bfloat16 (wgmma kernels), the whole batch, against the mirror
+    # in float32 on the same bf16 values; repeat and chunked runs --------
     xb, gb = x32.to(torch.bfloat16), g32
     taps_b, lse_b = fused_attention_taps(xb, hole, want_lse=True)
     _, lse_bp = fused_attention_taps_plain(xb.float(), hole, want_lse=True)
     lse_errb = (lse_b - lse_bp).abs().max().item()
-    prep, dq_k, dkv_k = kernels(xb, gb, taps_b, lse_b)
-    maps, gmaps, bias, rnorm, _ = prep
-    dq_m = tap_grads_mirror(maps.float(), gmaps.float(), bias, rnorm, lse_b,
-                            taps_b.float(), hs, ws, rate, scale, which="dq")
-    dq_errb = worst(dq_k, dq_m)
-    del dq_m
-    dkv_m = tap_grads_mirror(maps, gmaps, bias, rnorm, lse_b, taps_b, hs, ws,
-                             rate, scale, which="dkv")
-    dkv_errb = worst(dkv_k, dkv_m)
-    del dkv_m
-    _require(all(t[1].abs().max().item() == 0.0
-                 for t in (dq_k[0], dkv_k[0], dkv_k[1])),
+    maps, gmaps, bias, rnorm, _ = prepare_bwd(xb, hole, gb, 3, rate)
+    args = (maps, gmaps, bias, rnorm, lse_b, taps_b, hs, ws, rate, scale)
+    chosen = plan_bwd(hs, ws, c, torch.bfloat16)
+    _require(chosen.variant == "wgmma" and chosen.chunk >= bsz,
+             f"the bf16 backward plan at {shape_name}: {chosen}")
+    got = tap_grads(*args)
+    again = tap_grads(*args)
+    n_chunk = max(1, bsz // 3)
+    chunked = tap_grads(*args, budget=n_chunk
+                        * scratch_bytes_per_sample(lk))
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    same_chunked = all(torch.equal(a, b) for a, b in zip(got, chunked))
+    del again, chunked
+    dq_errb = worst((got[0], got[4]), tap_grads_mirror(*args, which="dq"))
+    dkv_errb = worst(got[1:4], tap_grads_mirror(*args, which="dkv"))
+    _require(all(t[1].abs().max().item() == 0.0 for t in got[:4])
+             and all(bool(torch.isfinite(t).all()) for t in got),
              f"all-hole tap gradients not exactly 0 at {shape_name}")
     torch.cuda.synchronize()
-    print(f"[2] {shape_name} backward, error / max|reference|: f32 dq "
-          f"{dq_err32:.3e} dkv {dkv_err32:.3e} whole {full_err32:.3e} (tol "
-          f"{BWD_F32_TOL_FRAC:g}); bf16 dq {dq_errb:.3e} dkv {dkv_errb:.3e} "
-          f"(tol {BWD_BF16_TOL_FRAC:.3e}); lse max abs err f32 "
-          f"{lse_err32:.3e} bf16 {lse_errb:.3e} (tol 1e-3 / 2e-2); all-hole "
-          f"sample exactly 0")
-    _require(max(dq_err32, dkv_err32, full_err32) <= BWD_F32_TOL_FRAC
+    print(f"[2] {shape_name} backward, error / max|reference|: f32 core "
+          f"kernels {err32:.3e} whole {full_err32:.3e} (tol "
+          f"{BWD_F32_TOL_FRAC:g}); bf16 wgmma dq+δ {dq_errb:.3e} dk/dv/t "
+          f"{dkv_errb:.3e} (tol {BWD_BF16_TOL_FRAC:.3e}); lse max abs err "
+          f"f32 {lse_err32:.3e} bf16 {lse_errb:.3e} (tol 1e-3 / 2e-2); "
+          f"all-hole sample exactly 0; two runs bit-identical {repeat}; "
+          f"chunks of {n_chunk} samples bit-identical to one chunk "
+          f"{same_chunked}; plan {chosen._asdict()}")
+    _require(max(err32, full_err32) <= BWD_F32_TOL_FRAC
              and max(dq_errb, dkv_errb) <= BWD_BF16_TOL_FRAC
              and lse_err32 <= 1e-3 and lse_errb <= 2e-2,
              f"a backward kernel or lse disagrees at {shape_name}")
+    _require(repeat and same_chunked,
+             f"the bf16 backward is not repeatable at {shape_name}")
+    del got
 
-    # ---- times, bf16, the train batch -----------------------------------
+    # ---- times, bf16, the train batch: each launch --------------------
     reps = 5 if lk <= 1024 else 2
-    delta = dq_k[1]
-    dq_ms = _time_ms(torch, lambda: launch_dq(
-        maps, gmaps, bias, rnorm, lse_b, taps_b, hs, ws, rate, scale), reps)
-    dkv_ms = _time_ms(torch, lambda: launch_dkv(
-        maps, gmaps, bias, rnorm, lse_b, delta, hs, ws, rate, scale), reps)
+    delta = launch_delta(gmaps, taps_b, hs, ws, rate)
+    scratch, tpart = launch_scores(maps, gmaps, bias, rnorm, lse_b, delta,
+                                   hs, ws, rate, scale)
+    ms = {"delta": _time_ms(torch, lambda: launch_delta(
+              gmaps, taps_b, hs, ws, rate), reps),
+          "scores": _time_ms(torch, lambda: launch_scores(
+              maps, gmaps, bias, rnorm, lse_b, delta, hs, ws, rate, scale,
+              scratch, tpart), reps),
+          "dq": _time_ms(torch, lambda: launch_dq(
+              maps, gmaps, scratch, tpart, hs, ws, rate), reps),
+          "dkv": _time_ms(torch, lambda: launch_dkv(
+              maps, gmaps, scratch, tpart, hs, ws, rate), reps)}
+    kernels_ms = _time_ms(torch, lambda: tap_grads(*args), reps)
     whole_ms = _time_ms(torch, lambda: contextual_attention_bwd(
         xb, hole, taps_b, lse_b, gb), reps)
     fwd_lse_ms = _time_ms(torch, lambda: fused_attention_taps(
         xb, hole, want_lse=True), reps)
     fwd_ms = _time_ms(torch, lambda: fused_attention_taps(xb, hole), reps)
-    dq_plain_ms = _time_ms(torch, lambda: tap_grads_mirror(
-        maps, gmaps, bias, rnorm, lse_b, taps_b, hs, ws, rate, scale,
-        which="dq"), 2)
-    dkv_plain_ms = _time_ms(torch, lambda: tap_grads_mirror(
-        maps, gmaps, bias, rnorm, lse_b, taps_b, hs, ws, rate, scale,
-        which="dkv"), 2)
+
+    # the plain version of each launch: the mirror's steps in PyTorch on
+    # the card (float32 sums over the same bf16 values)
+    geo = v_tap_geometry(rate)
+    qk = [_tap(maps, 0, 0, i // 3, i % 3, hs, ws).float() for i in range(9)]
+    do = [_tap(gmaps, *g_, hs, ws).float() for g_ in geo]
+    vv = [_tap(maps, *g_, hs, ws).float() for g_ in geo]
+    rs = (rnorm * scale)[:, None, :]
+
+    def plain_delta():
+        return sum((d * taps_b[:, i].float()).sum(-1)
+                   for i, d in enumerate(do))
+
+    def plain_scores():
+        u = sum(torch.bmm(t, t.transpose(1, 2)) for t in qk)
+        p = torch.where(bias[:, None, :] >= 0.0, torch.exp(
+            u * rs + bias[:, None, :] - lse_b[:, :, None]), 0.0)
+        dp = sum(torch.bmm(d, t.transpose(1, 2)) for d, t in zip(do, vv))
+        ds = p * (dp - delta[:, :, None])
+        part = (ds * u).reshape(bsz, lk // TILE, TILE, lk).sum(2)
+        return (ds * rs).to(torch.bfloat16), p.to(torch.bfloat16), part
+
+    dsr_b, p_b, _ = plain_scores()
+    dsr_f, p_f = dsr_b.float(), p_b.float()
+    plain_ms = {
+        "delta": _time_ms(torch, plain_delta, 2),
+        "scores": _time_ms(torch, plain_scores, 2),
+        "dq": _time_ms(torch, lambda: torch.stack(
+            [torch.bmm(dsr_f, t) for t in qk], 1), 2),
+        "dkv": _time_ms(torch, lambda: (
+            torch.stack([torch.bmm(dsr_f.transpose(1, 2), t) for t in qk], 1),
+            torch.stack([torch.bmm(p_f.transpose(1, 2), d) for d in do], 1)),
+            2)}
+    del qk, vv, dsr_f, p_f
     whole_plain_ms = _time_ms(torch, lambda: contextual_attention_bwd_plain(
         xb, hole, gb), 2)
-    # library yardstick (never called by the port): autograd through SDPA
-    # over materialized patch Q/K/V; it yields dQ, dK and dV in one call,
-    # so both kernels are held against the same time
+    # library yardsticks (never called by the port): (1) autograd through
+    # SDPA over materialized patch Q/K/V, dQ, dK and dV in one call, held
+    # against the dQ and dK/dV rows; (2) the five products as torch.matmul
+    # in bf16 over the materialized patch tensors and this run's p and dsr:
+    # S = Q·Kᵀ and dP = dO·Vᵀ (the score tiles' products), dQ = dS·K,
+    # dK = dSᵀ·Q and dV = Pᵀ·dO
     q, k, valid, v, _ = _attention_inputs(xb, xb, hole, 3, rate)
+    dop = torch.cat([_tap(gmaps, *g_, hs, ws) for g_ in geo], -1)
+    del do
+    matmul_ms = {
+        "scores": _time_ms(torch, lambda: (
+            torch.matmul(q, k.transpose(1, 2)),
+            torch.matmul(dop, v.transpose(1, 2))), reps),
+        "dq": _time_ms(torch, lambda: torch.matmul(dsr_b, k), reps),
+        "dkv": _time_ms(torch, lambda: (
+            torch.matmul(dsr_b.transpose(1, 2), q),
+            torch.matmul(p_b.transpose(1, 2), dop)), reps)}
+    del dop, dsr_b, p_b
     q, k, v = (t.detach()[:, None].requires_grad_(True) for t in (q, k, v))
     sdpa_mask = valid[:, None, None, :].clone()
     sdpa_mask[1] = True       # no all-masked rows: SDPA gives NaN there
@@ -473,41 +538,92 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
     go = torch.randn_like(out)
     lib_ms = _time_ms(torch, lambda: torch.autograd.grad(
         out, (q, k, v), go, retain_graph=True), 2)
-    del out, q, k, v, go
+    del out, q, k, v, go, scratch, tpart
 
+    # bounds: (query, valid key) pairs, 2 operations each per channel of a
+    # product; bytes: each input read once, each output written once
     taps = 4 * rate * rate
-    map_bytes = 2 * maps.numel() * 2 + 3 * bsz * lk * 4
-    pairs = 2.0 * lk * int(valid.sum().item())    # (query, valid key) pairs
-    dq_bound, dq_by = _bound_ms(
-        map_bytes + taps_b.numel() * 2 + bsz * 9 * lk * c * 4,
-        pairs * c * (9 + taps + 9), H100_BF16_FLOPS)
-    dkv_bound, dkv_by = _bound_ms(
-        map_bytes + bsz * (9 + taps) * lk * c * 4,
-        pairs * c * (9 + 2 * taps + 9), H100_BF16_FLOPS)
-    vq, gq, cq = plan_bwd(hs, ws, c, torch.bfloat16, "dq")
-    vk, gk, ck = plan_bwd(hs, ws, c, torch.bfloat16, "dkv")
-    print(f"[2] {shape_name} backward bf16 ms: dq {dq_ms:.3f} ({vq} G={gq} "
-          f"cluster={cq}, mirror {dq_plain_ms:.3f}, bound {dq_bound:.4f} by "
-          f"{dq_by}); dkv {dkv_ms:.3f} ({vk} G={gk} cluster={ck}, mirror "
-          f"{dkv_plain_ms:.3f}, bound "
-          f"{dkv_bound:.4f} by {dkv_by}); whole backward with prep and "
-          f"epilogue {whole_ms:.3f} (plain autograd {whole_plain_ms:.3f}, "
-          f"SDPA backward over patches {lib_ms:.3f}); forward with lse "
-          f"{fwd_lse_ms:.3f} vs without {fwd_ms:.3f} | {smi}")
-    return {
-        "dq": dict(ms=dq_ms, variant=vq, group=gq, cluster=cq,
-                   plain_ms=dq_plain_ms,
-                   library_ms=lib_ms, bound_ms=dq_bound, bound_by=dq_by,
-                   max_abs_err=dq_errb, max_abs_err_f32=dq_err32,
-                   err_is="fraction of max|reference|"),
-        "dkv": dict(ms=dkv_ms, variant=vk, group=gk, cluster=ck,
-                    plain_ms=dkv_plain_ms,
-                    library_ms=lib_ms, bound_ms=dkv_bound, bound_by=dkv_by,
-                    max_abs_err=dkv_errb, max_abs_err_f32=dkv_err32,
-                    err_is="fraction of max|reference|"),
-        "whole_backward_ms": whole_ms, "whole_plain_ms": whole_plain_ms,
-        "forward_with_lse_ms": fwd_lse_ms, "forward_ms": fwd_ms,
-    }
+    pairs = 2.0 * lk * int(valid.sum().item())
+    pairs_all = 2.0 * bsz * lk * lk
+    maps_b, gmaps_b = maps.numel() * 2, gmaps.numel() * 2
+    vec = bsz * lk * 4
+    scr = 2 * bsz * lk * lk * 2                  # p and dsr, bf16
+    tp = bsz * (lk // TILE) * lk * 4
+    qk_out, v_out = bsz * 9 * lk * c * 4, bsz * taps * lk * c * 4
+    o_in = taps_b.numel() * 2
+    bounds = {
+        "delta": _bound_ms(gmaps_b + o_in + vec, 2.0 * bsz * lk * taps * c,
+                           H100_F32_FLOPS),
+        "scores": _bound_ms(maps_b + gmaps_b + 4 * vec + scr + tp,
+                            pairs * c * (9 + taps), H100_BF16_FLOPS),
+        "dq": _bound_ms(scr // 2 + maps_b + qk_out, pairs * c * 9,
+                        H100_BF16_FLOPS),
+        "dkv": _bound_ms(scr + maps_b + gmaps_b + tp + qk_out + v_out + vec,
+                         pairs * c * (9 + taps), H100_BF16_FLOPS)}
+    # the old kernels' rows (the flash count, scores recomputed in each:
+    # dQ 9 + 4r² + 9, dK/dV 9 + 2·4r² + 9 units) beside the materialized
+    # count (4r² + 9 + … once: 9 + 4r² for the scores, 9 for dQ, 9 + 4r²
+    # for dK/dV, with the p/dsr round trip's bytes); a row's bound is the
+    # least of the two
+    io = maps_b + gmaps_b + 3 * vec + o_in
+    flash = {"dq": _bound_ms(io + qk_out + vec, pairs * c * (9 + taps + 9),
+                             H100_BF16_FLOPS),
+             "dkv": _bound_ms(io + qk_out + v_out + vec,
+                              pairs * c * (9 + 2 * taps + 9),
+                              H100_BF16_FLOPS)}
+    mat = {"dq": _bound_ms(io + qk_out + vec + scr, pairs * c
+                           * (9 + taps + 9), H100_BF16_FLOPS),
+           "dkv": _bound_ms(scr + maps_b + gmaps_b + tp + qk_out + v_out
+                            + vec, pairs * c * (9 + taps), H100_BF16_FLOPS)}
+    whole_flash = _bound_ms(io + 2 * qk_out + v_out + 2 * vec,
+                            pairs * c * (2 * 9 + 3 * taps + 2 * 9),
+                            H100_BF16_FLOPS)
+    whole_mat = _bound_ms(io + 2 * qk_out + v_out + 2 * vec + 2 * scr,
+                          pairs * c * (3 * 9 + 2 * taps), H100_BF16_FLOPS)
+    row_ms = {"dq": ms["delta"] + ms["scores"] + ms["dq"], "dkv": ms["dkv"]}
+    tflops = {k: ops / 1e9 / ms[k] for k, ops in (
+        ("scores", pairs_all * c * (9 + taps)), ("dq", pairs_all * c * 9),
+        ("dkv", pairs_all * c * (9 + taps)))}
+    print(f"[2] {shape_name} backward bf16 ms: δ {ms['delta']:.3f}, scores "
+          f"{ms['scores']:.3f}, dQ products {ms['dq']:.3f}, dK/dV products "
+          f"{ms['dkv']:.3f}; TFLOP/s of all pairs "
+          f"{ {k: round(v, 1) for k, v in tflops.items()} }; the kernels "
+          f"with their chunking {kernels_ms:.3f}, whole backward with prep "
+          f"and epilogue {whole_ms:.3f} (plain autograd "
+          f"{whole_plain_ms:.3f}); bounds by launch "
+          f"{ {k: (round(b[0], 4), b[1]) for k, b in bounds.items()} }; "
+          f"whole backward bound: flash count {whole_flash[0]:.4f} by "
+          f"{whole_flash[1]}, materialized count {whole_mat[0]:.4f} by "
+          f"{whole_mat[1]}; plain per launch "
+          f"{ {k: round(v, 3) for k, v in plain_ms.items()} }; yardsticks: "
+          f"SDPA backward over patches {lib_ms:.3f}, the five products as "
+          f"torch.matmul {sum(matmul_ms.values()):.3f} "
+          f"{ {k: round(v, 3) for k, v in matmul_ms.items()} }; forward "
+          f"with lse {fwd_lse_ms:.3f} vs without {fwd_ms:.3f} | {smi}")
+    res = {}
+    for k in ("delta", "scores", "dq", "dkv"):
+        res[k] = dict(ms=ms[k], plain_ms=plain_ms[k],
+                      library_ms=lib_ms if k in ("dq", "dkv") else None,
+                      matmul_ms=matmul_ms.get(k), bound_ms=bounds[k][0],
+                      bound_by=bounds[k][1])
+    for k in ("dq", "dkv"):
+        least = min(flash[k], mat[k])
+        res[k].update(row_ms=row_ms[k], row_bound_ms=least[0],
+                      row_bound_by=least[1], flash_bound_ms=flash[k][0],
+                      materialized_bound_ms=mat[k][0],
+                      max_abs_err=dq_errb if k == "dq" else dkv_errb,
+                      max_abs_err_f32=err32,
+                      err_is="fraction of max|reference|")
+    for k in ("delta", "scores"):
+        res[k].update(max_abs_err=dq_errb if k == "delta" else max(
+            dq_errb, dkv_errb), err_is="fraction of max|reference| of the "
+            "gradients downstream")
+    res.update(whole_backward_ms=whole_ms, kernels_ms=kernels_ms,
+               whole_plain_ms=whole_plain_ms,
+               whole_flash_bound_ms=whole_flash[0],
+               whole_materialized_bound_ms=whole_mat[0],
+               forward_with_lse_ms=fwd_lse_ms, forward_ms=fwd_ms)
+    return res
 
 
 def check_conv_kernels(torch, rng, smi):
@@ -773,17 +889,31 @@ def train(torch, smi):
     from gan_inpainting_torch.train.step import composite
 
     # per step, two attention forwards (the detached and the differentiated
-    # generator pass) and one backward. The 512² map (4096 cells): the
-    # detached bf16 forward through the fused forward and the fold (at most
-    # FUSED_MAX_CELLS_BF16_FORWARD), the differentiated one (above
-    # FUSED_MAX_CELLS) and its backward through the patch kernels; the 256²
-    # map (1024) through the fused forward, the fold and the fused backward
+    # generator pass) and one backward. A bf16 map takes the fused route up
+    # to FUSED_MAX_CELLS_BF16_FORWARD cells for the detached forward and up
+    # to FUSED_MAX_CELLS for the differentiated one, whose backward then
+    # runs the fused backward's four launches (δ, scores, dQ and dK/dV
+    # products); above a limit a forward (and the backward) take the patch
+    # kernels. The 512² map has 4096 cells, the 256² map 1024.
+    from gan_inpainting_torch.ops.kernels.fused_attention import (
+        FUSED_MAX_CELLS,
+        FUSED_MAX_CELLS_BF16_FORWARD,
+    )
+
     names = ("patch_attention_fwd", "patch_attention_bwd_dq",
              "patch_attention_bwd_dkv", "contextual_attention_fused",
-             "fold_taps", "contextual_attention_bwd_dq",
+             "fold_taps", "contextual_attention_bwd_delta",
+             "contextual_attention_bwd_scores", "contextual_attention_bwd_dq",
              "contextual_attention_bwd_dkv")
-    per_step = dict(zip(names, (1, 1, 1, 1, 1, 0, 0)))
-    per_step_256 = dict(zip(names, (0, 0, 0, 2, 2, 1, 1)))
+
+    def expected(cells):
+        detached = int(cells <= FUSED_MAX_CELLS_BF16_FORWARD)
+        trained = int(cells <= FUSED_MAX_CELLS)
+        fused = detached + trained
+        return dict(zip(names, (2 - fused, 1 - trained, 1 - trained, fused,
+                                fused, trained, trained, trained, trained)))
+
+    per_step, per_step_256 = expected(64 * 64), expected(32 * 32)
 
     def snapshot(state):
         return [t.detach().clone() for t in (
@@ -1845,8 +1975,8 @@ def compare_routes(torch, smi, maps=((64, 64), (64, 128), (128, 128),
     )
     from gan_inpainting_torch.ops.kernels.fold import fold_taps
     from gan_inpainting_torch.ops.kernels.fused_attention import (
-        FUSED_MAX_CELLS,
         FUSED_MAX_CELLS_BF16_FORWARD,
+        FUSED_MAX_CELLS_F32,
         fused_attention_taps,
         fused_supported,
     )
@@ -1891,7 +2021,7 @@ def compare_routes(torch, smi, maps=((64, 64), (64, 128), (128, 128),
             took = ("fused" if dispatch.launches.get(
                 "contextual_attention_fused") else "patch")
             limit = (FUSED_MAX_CELLS_BF16_FORWARD
-                     if dtype == torch.bfloat16 else FUSED_MAX_CELLS)
+                     if dtype == torch.bfloat16 else FUSED_MAX_CELLS_F32)
             _require(took == ("fused" if cells <= limit else "patch"),
                      f"contextual attention took the {took} route at L "
                      f"{cells}")
@@ -1976,8 +2106,9 @@ def path_c(torch, rng, smi):
     # ---- (c) fused forward, backward through the patch kernels ---------
     # a float32 344² map at C 32 (hs = ws = 172): the fused forward's core
     # group holds its 29 584 score columns, neither backward kernel's rows.
-    # The op itself routes a map this large to the patch route (above
-    # FUSED_MAX_CELLS), so the fused route's Function is driven directly.
+    # The op itself routes a float32 map this large to the patch route
+    # (above FUSED_MAX_CELLS_F32), so the fused route's Function is driven
+    # directly.
     x = torch.relu(torch.from_numpy(rng.standard_normal(
         (1, 344, 344, 32)).astype(np.float32))).cuda()
     hole = torch.from_numpy(_stroke_masks(rng, 1, 344, 344)[..., None]).cuda()
@@ -2143,6 +2274,21 @@ def main() -> int:
         hg.get(fn, 0) > 0 and tma.get(fn, 0) > 0
         and " 0 bytes spill stores" in spills for fn, _, spills in rows),
         "the patch wgmma backward lacks HGMMA or UTMALDG, or spills")
+    # the fused backward's wgmma kernels (csrc/contextual_attention_bwd.cu):
+    # the score tiles, the tap products at 64 and 192 channels × dQ / dK/dV
+    hg = build.sass_counts("contextual_attention_bwd", "HGMMA")
+    tma = build.sass_counts("contextual_attention_bwd", "UTMALDG")
+    rows = [r for r in build.ptxas_report("contextual_attention_bwd")
+            if "scores_kernel" in r[0] or "products_kernel" in r[0]]
+    for fn, used, spills in rows:
+        short = fn[fn.find("mat") + 4:].split("EE")[0]
+        print(f"[1] ptxas contextual_attention_bwd {short}: {used}; "
+              f"{spills}; HGMMA {hg.get(fn, 0)}, UTMALDG {tma.get(fn, 0)} "
+              "in SASS")
+    _require(len(rows) == 5 and all(
+        hg.get(fn, 0) > 0 and tma.get(fn, 0) > 0
+        and " 0 bytes spill stores" in spills for fn, _, spills in rows),
+        "the fused wgmma backward lacks HGMMA or UTMALDG, or spills")
     resident = {w: wgmma_bwd_clusters(w, 1728, 3072) for w in ("dq", "dkv")}
     print(f"[1] patch backward at d1728 dv3072: clusters of 16 resident at "
           f"once {resident}")
@@ -2201,17 +2347,18 @@ def main() -> int:
         row("fold_taps@512", "fold", res512, at_512["fold_taps"], fold_src,
             "gan_inpainting_tpu/ops/pallas/fold.py:32",
             launches_train=l512["fold_taps"]),
-        # the 512² train map is above FUSED_MAX_CELLS: its backward takes
-        # the patch kernels, so the fused backward's 512² times stand
-        # beside the 256² rows with their 512² launches (0)
-        row("contextual_attention_bwd_dq@256train", "dq", bwd256,
-            l256["contextual_attention_bwd_dq"], bwd_src, f"{tpu_bwd}:148",
-            at_512train=dict(bwd512["dq"],
-                             launches=l512["contextual_attention_bwd_dq"])),
-        row("contextual_attention_bwd_dkv@256train", "dkv", bwd256,
-            l256["contextual_attention_bwd_dkv"], bwd_src, f"{tpu_bwd}:223",
-            at_512train=dict(bwd512["dkv"],
-                             launches=l512["contextual_attention_bwd_dkv"])),
+        # the fused backward: rows 4 (δ, the score tiles and the dQ
+        # products; "replaces" _bwd_dq_kernel) and 5 (the dK/dV products),
+        # at the 256² train shape with the 512² one under "at_512train";
+        # launches from phase [4]'s 256² and 512² steps
+    ]
+    for kname in ("delta", "scores", "dq", "dkv"):
+        name = f"contextual_attention_bwd_{kname}"
+        kernels.append(row(
+            f"{name}@256train", kname, bwd256, l256.get(name, 0), bwd_src,
+            f"{tpu_bwd}:{223 if kname == 'dkv' else 148}",
+            at_512train=dict(bwd512[kname], launches=l512.get(name, 0))))
+    kernels += [
         # launches: path A's three requests (two forwards with the fused
         # decoder, one without) and path B's three
         row("gated_conv_direct@192x2x192_3x3_64x64²", "direct_d1", conv,

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the port's sm_90a kernels
-// (gated_conv.cu and the attention forwards in attention_wgmma.cuh):
+// (gated_conv.cu, the attention forwards in attention_wgmma.cuh and the
+// fused backward in contextual_attention_bwd.cu):
 // mbarriers, cluster barriers and ranks, TMA tensor loads (plain and
 // multicast), the wgmma fences, shared-memory matrix descriptors, and the
 // tensor-map encoder cuTensorMapEncodeTiled, reached through the runtime

@@ -17,14 +17,15 @@ ops/dispatch.py) on a CUDA tensor the op follows the JAX package's routing
 own limits:
 
 * f is b, the fused kernel holds the map (``fused_supported``) and the
-  map has at most ``FUSED_MAX_CELLS`` cells (``FUSED_MAX_CELLS_BF16_FORWARD``
-  for a bf16 map that no backward follows), above which the patch route
-  measured faster (``fused_route``): the fused attention kernel plus the
-  fold kernel (ops/kernels/); where a
+  map has at most ``FUSED_MAX_CELLS`` cells for a bf16 map that a
+  backward follows (``FUSED_MAX_CELLS_BF16_FORWARD`` for one that no
+  backward follows, ``FUSED_MAX_CELLS_F32`` for float32), the largest
+  measured sizes at which the fused route was the faster (``fused_route``):
+  the fused attention kernel plus the fold kernel (ops/kernels/); where a
   gradient is wanted it is :class:`_FusedAttention`, whose backward runs
-  the two fused backward kernels where their plan holds
-  (``bwd_supported``) and otherwise differentiates the patch composition
-  through the patch-attention kernels;
+  the fused backward kernels where their plan holds (``bwd_supported``)
+  and otherwise differentiates the patch composition through the
+  patch-attention kernels;
 * anything else (f ≠ b, ksize ≠ 3, larger maps, maps beyond the fused
   kernel's shared memory): the plain front end builds Q, K, V, the patch-attention kernels
   (ops/kernels/patch_attention.py) attend, the plain fold ÷ counts folds,

@@ -119,33 +119,38 @@ def fused_supported(shape, ksize: int, rate: int,
     return _plan(h // rate, w // rate, c, dtype, rate) is not None
 
 
-# Largest map, in query cells (hs·ws), on which contextual attention that
-# a backward follows takes the fused route; on a larger one the patch
-# route is as fast or faster wherever both hold. Measured on one NVIDIA
-# H100 80GB HBM3, 700.00 W
-# (chip_smoke.py phase [2], B 2, C 192, bf16, the forwards and the patch
-# backward on wgmma, the routes in turns; two runs, fused first): at 1024
-# cells forward 0.94 / 0.79 vs 2.26 / 2.39 ms, forward + backward 6.78 /
-# 6.40 vs 12.00 / 12.52; at 2048 cells 1.72 / 1.53 vs 2.92 / 2.32 and
-# 12.15 / 8.42 vs 16.61 / 14.51; at 4096 cells 3.55 / 3.56 vs 4.01 / 3.69
-# and 25.73 / 26.05 vs 26.06 / 21.97 (two earlier runs of the same code:
-# forward 3.95 / 3.64 vs 3.88 / 3.74, forward + backward 25.79 / 25.58 vs
-# 22.29 / 21.44); at 8192 cells 11.79 / 11.78 vs 12.14 / 12.18 and 123.74
-# / 123.97 vs 68.70 / 68.45; at 16 384 cells 42.42 / 42.88 vs 42.12 /
-# 42.25 and 548.13 / 546.73 vs 248.89 / 248.43. The backward decides it,
-# as it decides the 8×512² train step (279.5 / 278.5 ms on the fused
-# route, 261.8 / 261.7 on the patch route). float32 forward: a tie at
-# 1024 cells, the fused route faster at 2048 (8.53 / 9.38 vs 9.50 /
-# 10.24), the patch route from 4096 up (52.46 / 51.99 vs 32.10 / 31.45).
-FUSED_MAX_CELLS = 2048
+# Largest bf16 map, in query cells (hs·ws), on which contextual attention
+# that a backward follows takes the fused route: the fused route is the
+# faster one at every size measured, up to 16 384 cells (the 1024² image),
+# since its backward runs on materialized score tiles (wgmma + TMA,
+# csrc/contextual_attention_bwd.cu). Measured on one NVIDIA H100 80GB
+# HBM3, 700.00 W (tools/bench_attention.py --cases fused_bwd, B 2, C 192,
+# bf16, forward + backward, the routes in turns fused, patch, patch,
+# fused; two runs, the second of the kernels as they stand): at 1024
+# cells 5.20 / 2.85 and 2.67 / 3.24 ms vs 7.54 / 9.75 and 5.75 / 7.11; at
+# 2048 cells 4.00 / 4.03 and 2.21 / 2.07 vs 9.76 / 9.39 and 7.81 / 7.53;
+# at 4096 cells 6.04 / 5.62 and 5.64 / 5.33 vs 21.31 / 21.03 and 20.91 /
+# 20.62; at 8192 cells 18.67 / 18.19 and 18.76 / 17.97 vs 67.11 / 67.87
+# and 67.77 / 67.61; at 16 384 cells 68.63 / 68.23 and 67.31 / 67.10 vs
+# 244.58 / 244.60 and 246.17 / 244.88. Larger maps (the 2048² image's
+# 65 536 cells) were not measured; there one sample's scores exceed the
+# backward's scratch budget, so they stay on the patch route.
+FUSED_MAX_CELLS = 16384
+# The same for a float32 map: the fused forward's CUDA-core variant ties
+# the patch route at 1024 cells, is faster at 2048 (8.53 / 9.38 vs 9.50 /
+# 10.24 ms) and slower from 4096 up (52.46 / 51.99 vs 32.10 / 31.45),
+# chip_smoke.py phase [2] on the same card; its backward is the core
+# kernels'.
+FUSED_MAX_CELLS_F32 = 2048
 # The same for a bf16 forward that no backward follows (serving, the
 # train step's forward without gradient): at 4096 cells the fused route's
 # forward is the faster one. The 512² serve bucket's device forward
 # (tools/bench_serve.py, the same card, both limits in turns a b b a):
 # B 64 419.68 / 418.91 ms with the fused route vs 428.07 / 427.86 with
 # the patch route, B 8 54.14 / 54.13 vs 55.35 / 55.32, B 1 8.14 / 8.12 vs
-# 10.78 / 8.39. Above 4096 cells the routes' forwards tie (8192) or the
-# patch route wins (16 384; float32 from 4096 up).
+# 10.78 / 8.39. Above 4096 cells the routes' forwards tie (8192: 11.79 /
+# 11.78 vs 12.14 / 12.18 ms; 16 384: 42.42 / 42.88 vs 42.12 / 42.25,
+# chip_smoke.py phase [2]).
 FUSED_MAX_CELLS_BF16_FORWARD = 4096
 
 
@@ -153,12 +158,14 @@ def fused_route(shape, ksize: int, rate: int, dtype: torch.dtype,
                 backward: bool = True) -> bool:
     """Whether contextual attention with queries = keys takes the fused
     route: :func:`fused_supported` and at most :data:`FUSED_MAX_CELLS`
-    cells, or :data:`FUSED_MAX_CELLS_BF16_FORWARD` for a bf16 map that no
-    backward follows (``backward`` False)."""
+    cells for a bf16 map that a backward follows,
+    :data:`FUSED_MAX_CELLS_BF16_FORWARD` for one that no backward follows
+    (``backward`` False), :data:`FUSED_MAX_CELLS_F32` for float32."""
     _, h, w, _ = shape
-    limit = (FUSED_MAX_CELLS_BF16_FORWARD
-             if not backward and dtype == torch.bfloat16
-             else FUSED_MAX_CELLS)
+    if dtype != torch.bfloat16:
+        limit = FUSED_MAX_CELLS_F32
+    else:
+        limit = FUSED_MAX_CELLS if backward else FUSED_MAX_CELLS_BF16_FORWARD
     return (fused_supported(shape, ksize, rate, dtype)
             and (h // rate) * (w // rate) <= limit)
 

@@ -2,7 +2,7 @@
 
 ``contextual_attention_bwd`` replaces the Pallas kernels ``_bwd_dq_kernel``
 (gan_inpainting_tpu/ops/pallas/fused_attention_bwd.py:148) and
-``_bwd_dkv_kernel`` (:223) with two CUDA kernels in
+``_bwd_dkv_kernel`` (:223) with the CUDA kernels of
 ``csrc/contextual_attention_bwd.cu``. Given the forward's residuals — the
 feature map, the hole mask, the tap-major output ``o_taps`` and the
 per-query log-sum-exp ``lse`` — and the gradient ``g`` of the folded
@@ -12,30 +12,45 @@ output, it returns the gradient of the feature map:
    reciprocal key norms, and ``g / overlap counts`` rounded to the feature
    dtype and laid out as the same halo-padded parity maps (the adjoint of
    the fold), so a query's ``do`` tap is read like a key's V tap;
-2. the dQ kernel: δ and the 9 query-tap gradients; the dK/dV kernel: the 9
-   key-tap gradients, the 4r² value-tap gradients and the per-key scalar of
-   the key-norm correction — all as float32 per-tap buffers;
+2. the kernels (:func:`tap_grads`): δ, the 9 query-tap and 9 key-tap
+   gradients, the 4r² value-tap gradients and the per-key scalar of the
+   key-norm correction, all as float32 per-tap buffers;
 3. epilogue (:func:`fold_tap_grads`): the taps added onto the padded maps
    in a fixed order (query/key tap (dp, dq) of cell (i, j) lands on padded
    cell (i+dp, j+dq); value tap per its parity and offset), the norm
    correction, the halo crop and the inverse parity transpose.
 
+Step 2 has two variants (:func:`plan_bwd`). ``wgmma`` (bf16 maps that the
+TMA boxes take, see :func:`wgmma_bwd_takes`) materializes the scores: per
+sample the L × L matrices are small beside the rows of taps (P and dS in
+bf16: 4 MB at L 1024), so one launch forms p and dsr of every (128 query,
+128 key) tile on the tensor cores and writes them as bf16 to a scratch,
+and the gradients are dense tap products from it (dq = dsr·K, dk = dsrᵀ·Q,
+dv = pᵀ·dO), one launch for dQ and one for dK/dV, after a small launch for
+δ. The batch goes through in chunks of samples whose scratch stays under
+:data:`SCRATCH_BUDGET_BYTES`; the samples are independent, so chunking is
+exact. ``core`` (float32, and other shapes) is the CUDA-core pair of
+kernels that keep G rows of L scores in shared memory.
+
 No atomics touch device memory and the epilogue adds in a fixed order, so
 the same inputs give the same bits on every run.
 
-:func:`tap_grads_mirror` is the kernels' arithmetic written in PyTorch from
-the same maps (the index algebra line by line); the CPU tests hold it
-against :func:`contextual_attention_bwd_plain`, autograd through the
-materialized patch formulation, which is the independent derivation and
-what a CPU tensor takes. On a CUDA tensor the kernels launch or the call
-raises. Bound on an H100: 2·L²·C·34 (dQ) and 2·L²·C·50 (dK/dV) operations
-per image at rate 2 against tens of MB of maps and tap buffers — bounded by
-operations.
+:func:`tap_grads_mirror` is the wgmma kernels' arithmetic written in
+PyTorch from the same maps (float32 sums, p and dsr rounded to the map
+dtype once before the products, t summed over 128-row tiles in order); the
+CPU tests hold it against :func:`contextual_attention_bwd_plain`, autograd
+through the materialized patch formulation, which is the independent
+derivation and what a CPU tensor takes. :func:`tap_box` mirrors the
+producers' TMA box arithmetic. On a CUDA tensor the kernels launch or the
+call raises. Bound on an H100: 2·L²·C·(9 + 4r²) operations per image for
+the scores and 2·L²·C·(9 + 9 + 4r²) for the products, against tens of MB
+of maps, tap buffers and the scratch — bounded by operations.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -44,18 +59,35 @@ from gan_inpainting_torch.ops.dispatch import count_launch, use_kernel
 from gan_inpainting_torch.ops.kernels import build
 from gan_inpainting_torch.ops.kernels.fold import fold_counts_inv
 from gan_inpainting_torch.ops.kernels.fused_attention import (
-    _CLUSTERS,
     _DTYPES,
     SMEM_BYTES,
     _prepare,
 )
 
+KERNEL_DELTA = "contextual_attention_bwd_delta"
+KERNEL_SCORES = "contextual_attention_bwd_scores"
 KERNEL_DQ = "contextual_attention_bwd_dq"
 KERNEL_DKV = "contextual_attention_bwd_dkv"
-_MMA_STAGE_BYTES = 8 * 2 * 8 * 32 * 4     # per-warp u and dp staging tiles
-_MMA_GROUPS = (32, 16, 8)
+TILE = 128              # score tile rows and columns; product tile rows
+UNIT = 64               # channels per TMA box
+# The p + dsr scratch of one backward (and the t partials), in bytes. One
+# chunk holds the 8×512² train step's 8 samples (0.5 GiB at L 4096) and a
+# 16 384-cell map's one sample (1 GiB); about 2 % of the card's 80 GB, so
+# the 8×512² step (peak 22.9 GiB) keeps its headroom. A map whose one
+# sample does not fit takes the core kernels or the patch route.
+SCRATCH_BUDGET_BYTES = 3 << 29
 _CORE_GROUPS = (8, 4, 2, 1)
-_VARIANTS = {"core": 0, "mma": 1}
+
+
+class BwdPlan(NamedTuple):
+    """``variant`` "wgmma" or "core"; ``rows`` per block (core: query or
+    key cells; wgmma: the 128-row tile); ``chunk``: wgmma samples per
+    scratch chunk (0 for core); ``units``: wgmma channel boxes per product
+    block (3 where C % 192 == 0, else 1)."""
+    variant: str
+    rows: int
+    chunk: int
+    units: int
 
 
 def v_tap_geometry(rate: int) -> list[tuple[int, int, int, int]]:
@@ -68,6 +100,24 @@ def v_tap_geometry(rate: int) -> list[tuple[int, int, int, int]]:
             for vp in range(2 * rate) for vq in range(2 * rate)]
 
 
+def scratch_bytes_per_sample(lk: int) -> int:
+    """p and dsr (bf16, L × L each) and t's partials (float32, L/128 × L)
+    of one sample."""
+    return 2 * lk * lk * 2 + -(-lk // TILE) * lk * 4
+
+
+def wgmma_bwd_takes(hs: int, ws: int, c: int, dtype: torch.dtype,
+                    budget: int = SCRATCH_BUDGET_BYTES) -> bool:
+    """Whether the wgmma kernels take the map: bf16, C % 64 == 0, 128-cell
+    tiles and 64-cell stages that are TMA boxes of whole map rows or parts
+    of one (ws 32, 64 or a multiple of 128, L % 128 == 0), and one sample's
+    scratch within ``budget``. Independent of the batch size."""
+    lk = hs * ws
+    return (dtype == torch.bfloat16 and c % UNIT == 0 and c > 0
+            and lk % TILE == 0 and (ws in (32, 64) or ws % 128 == 0)
+            and scratch_bytes_per_sample(lk) <= budget)
+
+
 def _core_group(lk: int, c: int) -> int | None:
     lpad = -(-lk // 4) * 4
     for g in _CORE_GROUPS:
@@ -77,44 +127,65 @@ def _core_group(lk: int, c: int) -> int | None:
 
 
 def _plan_bwd(hs: int, ws: int, c: int, dtype: torch.dtype,
-              which: str) -> tuple[str, int, int] | None:
+              budget: int) -> BwdPlan | None:
     lk = hs * ws
-    n_rows = 1 if which == "dq" else 2
-    if dtype == torch.bfloat16 and c % 64 == 0 and ws % 32 == 0:
-        for g in _MMA_GROUPS:
-            for cl in _CLUSTERS:
-                if (lk % (128 * cl) == 0
-                        and n_rows * g * (lk // cl) * 2 + _MMA_STAGE_BYTES
-                        + 12 * g <= SMEM_BYTES):
-                    return "mma", g, cl
+    if wgmma_bwd_takes(hs, ws, c, dtype, budget):
+        units = 3 if c % (3 * UNIT) == 0 else 1
+        return BwdPlan("wgmma", TILE,
+                       budget // scratch_bytes_per_sample(lk), units)
     g = _core_group(lk, c)
-    return None if g is None else ("core", g, 1)
+    return None if g is None else BwdPlan("core", g, 0, 0)
 
 
 def plan_bwd(hs: int, ws: int, c: int, dtype: torch.dtype,
-             which: str) -> tuple[str, int, int]:
-    """(variant, G, cluster) for the ``"dq"`` or ``"dkv"`` kernel: G rows
-    whose shared-memory rows of L columns fit (dQ keeps dsr; dK/dV keeps
-    dsr and p) — for the ``mma`` variant the largest G, then the smallest
-    cluster of blocks that split the columns; ``core`` has no cluster.
-    Raises for a map no block can hold."""
-    chosen = _plan_bwd(hs, ws, c, dtype, which)
+             budget: int = SCRATCH_BUDGET_BYTES) -> BwdPlan:
+    """The backward's plan for an (hs, ws, C) map; the same for every
+    batch size (a batch goes through in chunks of ``chunk`` samples).
+    ``wgmma`` where :func:`wgmma_bwd_takes`, else ``core`` with the largest
+    G whose float32 rows of L fit in shared memory. Raises for a map
+    neither takes."""
+    chosen = _plan_bwd(hs, ws, c, dtype, budget)
     if chosen is not None:
         return chosen
     raise ValueError(
-        f"fused attention backward: rows of L={hs * ws} cells (C={c}) do "
-        f"not fit in {SMEM_BYTES} bytes of shared memory; such maps take "
-        "the patch-attention kernels (ROADMAP Queue 2 item 5)")
+        f"fused attention backward: an L={hs * ws} map (C={c}, {dtype}) "
+        f"is taken neither by the wgmma kernels (scratch of "
+        f"{scratch_bytes_per_sample(hs * ws)} bytes per sample against "
+        f"{budget}) nor by the core kernels' shared memory; such maps take "
+        "the patch-attention kernels (ROADMAP Queue 2 item 3)")
 
 
 def bwd_supported(hs: int, ws: int, c: int, dtype: torch.dtype) -> bool:
-    """Whether both backward kernels take the (hs, ws, C) map: C % 4 == 0,
-    a dtype they take, and rows that :func:`plan_bwd` can hold for dQ and
-    for dK/dV. Elsewhere the gradient goes through the patch-attention
-    kernels (ops/contextual_attention.py ``_FusedAttention``)."""
+    """Whether the backward kernels take the (hs, ws, C) map: C % 4 == 0,
+    a dtype they take, and a :func:`plan_bwd`. Independent of the batch
+    size. Elsewhere the gradient goes through the patch-attention kernels
+    (ops/contextual_attention.py ``_FusedAttention``)."""
     return (c % 4 == 0 and dtype in _DTYPES
-            and _plan_bwd(hs, ws, c, dtype, "dq") is not None
-            and _plan_bwd(hs, ws, c, dtype, "dkv") is not None)
+            and _plan_bwd(hs, ws, c, dtype, SCRATCH_BUDGET_BYTES) is not None)
+
+
+def chunks(bsz: int, chunk: int) -> list[tuple[int, int]]:
+    """[s0, s1) sample ranges of at most ``chunk`` samples covering B."""
+    return [(s, min(s + chunk, bsz)) for s in range(0, bsz, chunk)]
+
+
+def tap_box(kind: str, tap: int, cell0: int, cells: int, ws: int,
+            rate: int, sample: int, unit: int):
+    """The TMA box the producers request for ``cells`` cells from cell
+    ``cell0`` of a tap, written as the CUDA producers compute it: the
+    4-D map is (C, ws + 2, hs + 2, B·r²), so → ((channel, x, y, plane),
+    (64, box width, box rows, 1)). ``kind`` "qk": Q/K tap ``tap`` of map
+    (0, 0) at shift (tap // 3, tap % 3); "v": V / ``do`` tap ``tap`` of the
+    2r × 2r window per :func:`v_tap_geometry`."""
+    if kind == "qk":
+        oy, ox, par = tap // 3, tap % 3, 0
+    else:
+        pp, pq, oy, ox = v_tap_geometry(rate)[tap]
+        par = pp * rate + pq
+    y, x = cell0 // ws, cell0 % ws
+    bw = min(ws, cells)
+    return ((unit * UNIT, x + ox, y + oy, sample * rate * rate + par),
+            (UNIT, bw, cells // bw, 1))
 
 
 def prepare_bwd(b_feat: torch.Tensor, hole_mask: torch.Tensor,
@@ -140,12 +211,13 @@ def _tap(m: torch.Tensor, pp: int, pq: int, op: int, oq: int, hs: int,
 
 def tap_grads_mirror(maps, gmaps, bias, rnorm, lse, o_taps, hs: int, ws: int,
                      rate: int, scale: float, which: str = "both"):
-    """What the two kernels compute, in PyTorch from the same maps →
-    (dq_taps, dk_taps, dv_taps, tnorm, delta). Scores, p, dp, ds and every
-    sum in float32; p is rounded to the map dtype for the dV product.
-    ``which`` = "dq" returns (dq_taps, delta) only, "dkv" (dk_taps,
-    dv_taps, tnorm) only: one kernel's share, scores recomputed as the
-    kernel recomputes them."""
+    """What the wgmma kernels compute, in PyTorch from the same maps →
+    (dq_taps, dk_taps, dv_taps, tnorm, delta): u, dp, p, ds and δ as float32
+    sums over the whole of d and dv; p and dsr rounded to the map dtype
+    once, before every product (a no-op for float32); t = Σ_i ds·u as
+    float32 column sums of 128-row tiles, added tile after tile. ``which``
+    = "dq" returns (dq_taps, delta) only, "dkv" (dk_taps, dv_taps, tnorm)
+    only."""
     geo = v_tap_geometry(rate)
     qk = [_tap(maps, 0, 0, dp, dq, hs, ws).float()
           for dp in range(3) for dq in range(3)]
@@ -158,13 +230,19 @@ def tap_grads_mirror(maps, gmaps, bias, rnorm, lse, o_taps, hs: int, ws: int,
     v = [_tap(maps, *g_, hs, ws).float() for g_ in geo]
     delta = sum((d * o_taps[:, i].float()).sum(-1) for i, d in enumerate(do))
     dp_ = sum(torch.bmm(d, vt.transpose(1, 2)) for d, vt in zip(do, v))
+    del v
     ds = p * (dp_ - delta[:, :, None])
-    dsr = ds * rs
+    del dp_
+    dsr = (ds * rs).to(maps.dtype).float()
     if which != "dkv":
         dq_taps = torch.stack([torch.bmm(dsr, t) for t in qk], 1)
         if which == "dq":
             return dq_taps, delta
-    tnorm = (ds * u).sum(1)
+    bsz, lk = ds.shape[0], ds.shape[1]
+    tnorm = torch.zeros((bsz, lk), dtype=torch.float32, device=ds.device)
+    for r0 in range(0, lk, TILE):
+        tnorm += (ds[:, r0:r0 + TILE] * u[:, r0:r0 + TILE]).sum(1)
+    del ds, u
     dk_taps = torch.stack([torch.bmm(dsr.transpose(1, 2), t) for t in qk], 1)
     p_t = p.to(maps.dtype).float().transpose(1, 2)
     dv_taps = torch.stack([torch.bmm(p_t, d) for d in do], 1)
@@ -217,9 +295,11 @@ def contextual_attention_bwd_plain(b_feat: torch.Tensor,
     return dx
 
 
-def _check(maps, gmaps, bias, rnorm, lse, hs, ws, rate):
+def _check_maps(maps, gmaps, hs, ws, rate):
+    if maps.device.type != "cuda":
+        raise ValueError("the backward kernels take CUDA tensors (on the "
+                         "CPU, tap_grads takes tap_grads_mirror)")
     bsz, c = maps.shape[0], maps.shape[-1]
-    lk = hs * ws
     want = (bsz, rate, rate, hs + 2, ws + 2, c)
     for name, t in (("maps", maps), ("gmaps", gmaps)):
         if (tuple(t.shape) != want or t.dtype != maps.dtype
@@ -229,6 +309,12 @@ def _check(maps, gmaps, bias, rnorm, lse, hs, ws, rate):
     if maps.dtype not in _DTYPES:
         raise TypeError(f"attention backward kernels take {_DTYPES}, got "
                         f"{maps.dtype}")
+
+
+def _check(maps, gmaps, bias, rnorm, lse, hs, ws, rate):
+    _check_maps(maps, gmaps, hs, ws, rate)
+    bsz, c = maps.shape[0], maps.shape[-1]
+    lk = hs * ws
     for name, t in (("bias", bias), ("rnorm", rnorm), ("lse", lse)):
         if (t.dtype != torch.float32 or tuple(t.shape) != (bsz, lk)
                 or t.device != maps.device or not t.is_contiguous()):
@@ -239,83 +325,250 @@ def _check(maps, gmaps, bias, rnorm, lse, hs, ws, rate):
                          f"got {c}")
 
 
-def _pick(hs, ws, c, dtype, which, variant):
-    chosen, group, cluster = plan_bwd(hs, ws, c, dtype, which)
-    if variant is not None and variant != chosen:
-        group = _core_group(hs * ws, c)
-        if variant != "core" or group is None:
-            raise ValueError(f"the {variant} variant does not take hs={hs} "
-                             f"ws={ws} C={c} {dtype}")
-        chosen, cluster = "core", 1
-    return chosen, group, cluster
+def _check_float(name, t, shape, device):
+    if (t.dtype != torch.float32 or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous() or t.device != device):
+        raise ValueError(f"{name} must be contiguous float32 {tuple(shape)} "
+                         f"on {device}")
 
 
-def launch_dq(maps, gmaps, bias, rnorm, lse, o_taps, hs: int, ws: int,
-              rate: int, scale: float, variant: str | None = None):
-    """The dQ kernel on prepared inputs → (dq_taps (B, 9, L, C) float32,
-    delta (B, L) float32)."""
-    _check(maps, gmaps, bias, rnorm, lse, hs, ws, rate)
-    bsz, c = maps.shape[0], maps.shape[-1]
+def _fn(name: str, n_ptr: int, n_int: int, n_float: int, n_int2: int):
+    lib = build.library("contextual_attention_bwd")
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_float] * n_float + [ctypes.c_int] * n_int2
+                   + [ctypes.c_void_p])
+    return lib, fn
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _wgmma_plan(maps, hs, ws) -> BwdPlan:
+    chosen = plan_bwd(hs, ws, maps.shape[-1], maps.dtype)
+    if chosen.variant != "wgmma":
+        raise ValueError(f"the wgmma backward does not take hs={hs} ws={ws} "
+                         f"C={maps.shape[-1]} {maps.dtype}")
+    return chosen
+
+
+def _check_scratch(scratch, tpart, bsz, lk, device):
+    """The scores' outputs for a chunk of ``bsz`` samples: at least that
+    much contiguous bf16 scratch and float32 partials on ``device``."""
+    if (scratch.dtype != torch.bfloat16 or tpart.dtype != torch.float32
+            or not scratch.is_contiguous() or not tpart.is_contiguous()
+            or scratch.device != device or tpart.device != device
+            or scratch.numel() < 2 * bsz * lk * lk
+            or tpart.numel() < bsz * (lk // TILE) * lk):
+        raise ValueError(f"scratch must be contiguous bf16 of at least "
+                         f"(2B, L, L) and tpart float32 of (B, L/128, L), "
+                         f"B={bsz}, L={lk}, on {device}")
+
+
+def launch_delta(gmaps, o_taps, hs: int, ws: int, rate: int):
+    """δ (B, L) float32 = Σ over the 4r² taps of do·o, one warp per query
+    row (bf16 inputs, C % 8 == 0)."""
+    bsz, c = gmaps.shape[0], gmaps.shape[-1]
     lk = hs * ws
+    if (gmaps.device.type != "cuda" or gmaps.dtype != torch.bfloat16
+            or not gmaps.is_contiguous()
+            or tuple(gmaps.shape) != (bsz, rate, rate, hs + 2, ws + 2, c)
+            or c % 8):
+        raise ValueError("gmaps must be contiguous bf16 (B, r, r, hs+2, "
+                         "ws+2, C) on a CUDA device, with C % 8 == 0")
     if (tuple(o_taps.shape) != (bsz, 4 * rate * rate, lk, c)
-            or o_taps.dtype != maps.dtype or not o_taps.is_contiguous()):
+            or o_taps.dtype != gmaps.dtype or not o_taps.is_contiguous()
+            or o_taps.device != gmaps.device):
         raise ValueError("o_taps must be the forward's contiguous "
-                         f"(B, 4r², L, C) {maps.dtype} output")
-    variant, group, cluster = _pick(hs, ws, c, maps.dtype, "dq", variant)
-    dq_taps = torch.empty((bsz, 9, lk, c), dtype=torch.float32,
-                          device=maps.device)
-    delta = torch.empty((bsz, lk), dtype=torch.float32, device=maps.device)
-    lib = build.library("contextual_attention_bwd")
-    fn = lib.gi_attention_bwd_dq
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    stream = torch.cuda.current_stream(maps.device).cuda_stream
-    with torch.cuda.device(maps.device):
-        err = fn(maps.data_ptr(), gmaps.data_ptr(), bias.data_ptr(),
-                 rnorm.data_ptr(), lse.data_ptr(), o_taps.data_ptr(),
-                 delta.data_ptr(), dq_taps.data_ptr(), bsz, hs, ws, c, rate,
-                 float(scale), int(maps.dtype == torch.bfloat16),
-                 _VARIANTS[variant], group, cluster, stream)
-    count_launch(KERNEL_DQ)
-    build.check(lib, err, KERNEL_DQ)
-    return dq_taps, delta
+                         f"(B, 4r², L, C) {gmaps.dtype} output")
+    delta = torch.empty((bsz, lk), dtype=torch.float32, device=gmaps.device)
+    lib, fn = _fn("gi_attention_bwd_delta", 3, 5, 0, 0)
+    with torch.cuda.device(gmaps.device):
+        err = fn(gmaps.data_ptr(), o_taps.data_ptr(), delta.data_ptr(), bsz,
+                 hs, ws, c, rate, _stream(gmaps))
+    count_launch(KERNEL_DELTA)
+    build.check(lib, err, KERNEL_DELTA)
+    return delta
 
 
-def launch_dkv(maps, gmaps, bias, rnorm, lse, delta, hs: int, ws: int,
-               rate: int, scale: float, variant: str | None = None):
-    """The dK/dV kernel on prepared inputs and the dQ kernel's δ →
-    (dk_taps (B, 9, L, C), dv_taps (B, 4r², L, C), tnorm (B, L)), float32."""
+def launch_scores(maps, gmaps, bias, rnorm, lse, delta, hs: int, ws: int,
+                  rate: int, scale: float, scratch=None, tpart=None):
+    """Score tiles of the B samples given (one chunk) → (scratch (2B, L, L)
+    bf16: dsr of sample b at b, p at B + b; tpart (B, L/128, L) float32:
+    the column sums of ds·u of each 128-row tile). ``scratch`` and
+    ``tpart`` may be passed to reuse buffers of at least those sizes."""
     _check(maps, gmaps, bias, rnorm, lse, hs, ws, rate)
+    _wgmma_plan(maps, hs, ws)
     bsz, c = maps.shape[0], maps.shape[-1]
     lk = hs * ws
-    if (delta.dtype != torch.float32 or tuple(delta.shape) != (bsz, lk)
-            or not delta.is_contiguous() or delta.device != maps.device):
-        raise ValueError("delta must be contiguous float32 (B, L)")
-    variant, group, cluster = _pick(hs, ws, c, maps.dtype, "dkv", variant)
-    dk_taps = torch.empty((bsz, 9, lk, c), dtype=torch.float32,
-                          device=maps.device)
-    dv_taps = torch.empty((bsz, 4 * rate * rate, lk, c), dtype=torch.float32,
-                          device=maps.device)
-    tnorm = torch.empty((bsz, lk), dtype=torch.float32, device=maps.device)
-    lib = build.library("contextual_attention_bwd")
-    fn = lib.gi_attention_bwd_dkv
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    stream = torch.cuda.current_stream(maps.device).cuda_stream
+    _check_float("delta", delta, (bsz, lk), maps.device)
+    if scratch is None:
+        scratch = torch.empty((2 * bsz, lk, lk), dtype=torch.bfloat16,
+                              device=maps.device)
+    if tpart is None:
+        tpart = torch.empty((bsz, lk // TILE, lk), dtype=torch.float32,
+                            device=maps.device)
+    _check_scratch(scratch, tpart, bsz, lk, maps.device)
+    lib, fn = _fn("gi_attention_bwd_scores", 8, 5, 1, 0)
     with torch.cuda.device(maps.device):
         err = fn(maps.data_ptr(), gmaps.data_ptr(), bias.data_ptr(),
                  rnorm.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 scratch.data_ptr(), tpart.data_ptr(), bsz, hs, ws, c, rate,
+                 float(scale), _stream(maps))
+    count_launch(KERNEL_SCORES)
+    build.check(lib, err, KERNEL_SCORES)
+    return scratch, tpart
+
+
+def _launch_products(which: int, name: str, maps, gmaps, scratch, tpart,
+                     hs, ws, rate, outs):
+    _check_maps(maps, gmaps, hs, ws, rate)
+    chosen = _wgmma_plan(maps, hs, ws)
+    bsz, c = maps.shape[0], maps.shape[-1]
+    lk = hs * ws
+    _check_scratch(scratch, tpart, bsz, lk, maps.device)
+    qk, dv, tnorm = outs
+    lib, fn = _fn("gi_attention_bwd_products", 7, 5, 0, 2)
+    with torch.cuda.device(maps.device):
+        err = fn(maps.data_ptr(), gmaps.data_ptr(), scratch.data_ptr(),
+                 tpart.data_ptr(), qk.data_ptr(),
+                 0 if dv is None else dv.data_ptr(),
+                 0 if tnorm is None else tnorm.data_ptr(), bsz, hs, ws, c,
+                 rate, which, chosen.units, _stream(maps))
+    count_launch(name)
+    build.check(lib, err, name)
+
+
+def launch_dq(maps, gmaps, scratch, tpart, hs: int, ws: int, rate: int,
+              out=None):
+    """dq taps (B, 9, L, C) float32 = dsr·K_t from the scores' scratch."""
+    bsz, c = maps.shape[0], maps.shape[-1]
+    lk = hs * ws
+    if out is None:
+        out = torch.empty((bsz, 9, lk, c), dtype=torch.float32,
+                          device=maps.device)
+    _check_float("dq_taps", out, (bsz, 9, lk, c), maps.device)
+    _launch_products(0, KERNEL_DQ, maps, gmaps, scratch, tpart, hs, ws, rate,
+                     (out, None, None))
+    return out
+
+
+def launch_dkv(maps, gmaps, scratch, tpart, hs: int, ws: int, rate: int,
+               out=None):
+    """(dk taps (B, 9, L, C) = dsrᵀ·Q_t, dv taps (B, 4r², L, C) = pᵀ·dO_t,
+    tnorm (B, L) = the row tiles' partial sums in order), float32, from the
+    scores' scratch."""
+    bsz, c = maps.shape[0], maps.shape[-1]
+    lk = hs * ws
+    if out is None:
+        dev = maps.device
+        out = (torch.empty((bsz, 9, lk, c), dtype=torch.float32, device=dev),
+               torch.empty((bsz, 4 * rate * rate, lk, c), dtype=torch.float32,
+                           device=dev),
+               torch.empty((bsz, lk), dtype=torch.float32, device=dev))
+    for name, t, shape in zip(("dk_taps", "dv_taps", "tnorm"), out, (
+            (bsz, 9, lk, c), (bsz, 4 * rate * rate, lk, c), (bsz, lk))):
+        _check_float(name, t, shape, maps.device)
+    _launch_products(1, KERNEL_DKV, maps, gmaps, scratch, tpart, hs, ws, rate,
+                     out)
+    return out
+
+
+def _launch_core(which: str, maps, gmaps, bias, rnorm, lse, extra, hs, ws,
+                 rate, scale):
+    """The core kernels: ``which`` "dq" (extra = o_taps) → (dq_taps,
+    delta); "dkv" (extra = delta) → (dk_taps, dv_taps, tnorm)."""
+    bsz, c = maps.shape[0], maps.shape[-1]
+    lk = hs * ws
+    group = _core_group(lk, c)
+    if group is None:
+        raise ValueError(f"the core backward does not take L={lk} C={c}")
+    dev = maps.device
+    is_bf16 = int(maps.dtype == torch.bfloat16)
+    if which == "dq":
+        o_taps = extra
+        if (tuple(o_taps.shape) != (bsz, 4 * rate * rate, lk, c)
+                or o_taps.dtype != maps.dtype or not o_taps.is_contiguous()):
+            raise ValueError("o_taps must be the forward's contiguous "
+                             f"(B, 4r², L, C) {maps.dtype} output")
+        dq_taps = torch.empty((bsz, 9, lk, c), dtype=torch.float32,
+                              device=dev)
+        delta = torch.empty((bsz, lk), dtype=torch.float32, device=dev)
+        lib, fn = _fn("gi_attention_bwd_dq", 8, 5, 1, 2)
+        with torch.cuda.device(dev):
+            err = fn(maps.data_ptr(), gmaps.data_ptr(), bias.data_ptr(),
+                     rnorm.data_ptr(), lse.data_ptr(), o_taps.data_ptr(),
+                     delta.data_ptr(), dq_taps.data_ptr(), bsz, hs, ws, c,
+                     rate, float(scale), is_bf16, group, _stream(maps))
+        count_launch(KERNEL_DQ)
+        build.check(lib, err, KERNEL_DQ)
+        return dq_taps, delta
+    delta = extra
+    _check_float("delta", delta, (bsz, lk), dev)
+    dk_taps = torch.empty((bsz, 9, lk, c), dtype=torch.float32, device=dev)
+    dv_taps = torch.empty((bsz, 4 * rate * rate, lk, c), dtype=torch.float32,
+                          device=dev)
+    tnorm = torch.empty((bsz, lk), dtype=torch.float32, device=dev)
+    lib, fn = _fn("gi_attention_bwd_dkv", 9, 5, 1, 2)
+    with torch.cuda.device(dev):
+        err = fn(maps.data_ptr(), gmaps.data_ptr(), bias.data_ptr(),
+                 rnorm.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dk_taps.data_ptr(), dv_taps.data_ptr(), tnorm.data_ptr(),
-                 bsz, hs, ws, c, rate, float(scale),
-                 int(maps.dtype == torch.bfloat16), _VARIANTS[variant],
-                 group, cluster, stream)
+                 bsz, hs, ws, c, rate, float(scale), is_bf16, group,
+                 _stream(maps))
     count_launch(KERNEL_DKV)
     build.check(lib, err, KERNEL_DKV)
     return dk_taps, dv_taps, tnorm
+
+
+def tap_grads(maps, gmaps, bias, rnorm, lse, o_taps, hs: int, ws: int,
+              rate: int, scale: float, variant: str | None = None,
+              budget: int = SCRATCH_BUDGET_BYTES):
+    """The kernels on prepared inputs → (dq_taps, dk_taps, dv_taps, tnorm,
+    delta), float32, as :func:`tap_grads_mirror`, which a CPU tensor takes.
+    ``variant`` None takes :func:`plan_bwd`'s; "core" forces the core
+    kernels (also on bf16). The wgmma variant runs δ once, then per chunk
+    of samples (at most ``budget`` bytes of scratch) the scores, dQ and
+    dK/dV launches."""
+    if not use_kernel(maps):
+        return tap_grads_mirror(maps, gmaps, bias, rnorm, lse, o_taps, hs,
+                                ws, rate, scale)
+    _check(maps, gmaps, bias, rnorm, lse, hs, ws, rate)
+    bsz, c = maps.shape[0], maps.shape[-1]
+    chosen = plan_bwd(hs, ws, c, maps.dtype, budget)
+    if variant is not None and variant != chosen.variant:
+        if variant != "core":
+            raise ValueError(f"the {variant} variant does not take hs={hs} "
+                             f"ws={ws} C={c} {maps.dtype}")
+        chosen = chosen._replace(variant="core")
+    if chosen.variant == "core":
+        dq_taps, delta = _launch_core("dq", maps, gmaps, bias, rnorm, lse,
+                                      o_taps, hs, ws, rate, scale)
+        dk_taps, dv_taps, tnorm = _launch_core(
+            "dkv", maps, gmaps, bias, rnorm, lse, delta, hs, ws, rate, scale)
+        return dq_taps, dk_taps, dv_taps, tnorm, delta
+    lk = hs * ws
+    dev = maps.device
+    delta = launch_delta(gmaps, o_taps, hs, ws, rate)
+    dq_taps = torch.empty((bsz, 9, lk, c), dtype=torch.float32, device=dev)
+    dk_taps = torch.empty_like(dq_taps)
+    dv_taps = torch.empty((bsz, 4 * rate * rate, lk, c), dtype=torch.float32,
+                          device=dev)
+    tnorm = torch.empty((bsz, lk), dtype=torch.float32, device=dev)
+    n = min(bsz, chosen.chunk)
+    scratch = torch.empty((2 * n, lk, lk), dtype=torch.bfloat16, device=dev)
+    tpart = torch.empty((n, lk // TILE, lk), dtype=torch.float32, device=dev)
+    for s0, s1 in chunks(bsz, chosen.chunk):
+        part = slice(s0, s1)
+        sub = (maps[part], gmaps[part])
+        launch_scores(*sub, bias[part], rnorm[part], lse[part], delta[part],
+                      hs, ws, rate, scale, scratch, tpart)
+        launch_dq(*sub, scratch, tpart, hs, ws, rate, dq_taps[part])
+        launch_dkv(*sub, scratch, tpart, hs, ws, rate,
+                   (dk_taps[part], dv_taps[part], tnorm[part]))
+    return dq_taps, dk_taps, dv_taps, tnorm, delta
 
 
 def contextual_attention_bwd(b_feat: torch.Tensor, hole_mask: torch.Tensor,
@@ -337,9 +590,7 @@ def contextual_attention_bwd(b_feat: torch.Tensor, hole_mask: torch.Tensor,
                          f"b_feat {tuple(b_feat.shape)} on {b_feat.device}")
     maps, gmaps, bias, rnorm, (hs, ws) = prepare_bwd(b_feat, hole_mask, g,
                                                      ksize, rate)
-    dq_taps, delta = launch_dq(maps, gmaps, bias, rnorm, lse, o_taps, hs, ws,
-                               rate, softmax_scale)
-    dk_taps, dv_taps, tnorm = launch_dkv(maps, gmaps, bias, rnorm, lse, delta,
-                                         hs, ws, rate, softmax_scale)
+    dq_taps, dk_taps, dv_taps, tnorm, _ = tap_grads(
+        maps, gmaps, bias, rnorm, lse, o_taps, hs, ws, rate, softmax_scale)
     return fold_tap_grads(maps, dq_taps, dk_taps, dv_taps, tnorm, rnorm, hs,
                           ws, rate, softmax_scale).to(b_feat.dtype)

@@ -1,7 +1,7 @@
 """Time the bf16 attention kernels at the table shapes, on one CUDA card.
 
     python -m gan_inpainting_torch.tools.bench_attention [--turns 2]
-        [--cases fused,patch,patch_bwd]
+        [--cases fused,patch,patch_bwd,fused_bwd]
 
 Shapes: the fused forward at the 256² serve map (B 8, 64×64×192) and the
 512² map (B 2, 128×128×192); the patch forward at B 2, L 16 384, d 1728,
@@ -16,8 +16,14 @@ fraction of the largest reference entry, and the autograd backward of the
 same SDPA call, dq, dk and dv in one) and at B 1, L 65 536 (the 2048²
 map; times only), with TFLOP/s over the (query, valid key) pairs; with
 ``--phases``, also the wgmma kernels' cycles per step in each phase of
-their mainloop (``patch_attention.BWD_PHASES``, averaged over blocks). One
-JSON line per shape, and the card's name and power limit.
+their mainloop (``patch_attention.BWD_PHASES``, averaged over blocks).
+``fused_bwd``: the rule of ``FUSED_MAX_CELLS`` — at B 2, C 192, bf16,
+maps of 1024, 2048, 4096, 8192 and 16 384 cells, contextual attention's
+forward + backward through the fused route and through the patch route in
+turns (fused, patch, patch, fused per turn), then the fused backward's
+kernels alone (``fused_attention_bwd.tap_grads``, all chunks) with
+TFLOP/s over all (query, key) pairs. One JSON line per shape, and the
+card's name and power limit.
 
 It uses only entry points that every version of the port has
 (``fused_attention._prepare``/``_launch``, ``patch_attention.launch_fwd``,
@@ -186,11 +192,60 @@ def patch_bwd_case(bsz: int, length: int, turns: int,
     return res
 
 
+def fused_bwd_case(h: int, w: int, turns: int) -> dict:
+    """Forward + backward of contextual attention on a B 2, h × w × 192
+    bf16 feature map (rate 2: (h/2)·(w/2) cells) through each route, in
+    turns; a block of the map is hole."""
+    from gan_inpainting_torch.ops.contextual_attention import (
+        _FusedAttention,
+        _patch_route,
+    )
+    from gan_inpainting_torch.ops.kernels import fused_attention_bwd as fab
+    from gan_inpainting_torch.ops.kernels.fused_attention import (
+        fused_attention_taps,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(h * w)
+    x = torch.relu(torch.randn((2, h, w, 192), generator=gen,
+                               device="cuda")).to(torch.bfloat16)
+    hole = torch.zeros((2, h, w, 1), device="cuda")
+    hole[:, h // 4:h // 2, w // 4:w // 2] = 1.0
+    g = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    hs, ws = h // 2, w // 2
+
+    def train(route):
+        leaf = x.detach().requires_grad_(True)
+        y = (_FusedAttention.apply(leaf, hole, 3, 2, 10.0)
+             if route == "fused"
+             else _patch_route(leaf, leaf, hole, 3, 2, 10.0))
+        y.backward(g)
+        return leaf.grad
+
+    diff = (train("fused").float() - train("patch").float()).abs().max()
+    times = {"fused": [], "patch": []}
+    for _ in range(turns):
+        for route in ("fused", "patch", "patch", "fused"):
+            times[route].append(_time_ms(lambda: train(route), 1))
+    taps, lse = fused_attention_taps(x, hole, want_lse=True)
+    maps, gmaps, bias, rnorm, _ = fab.prepare_bwd(x, hole, g, 3, 2)
+    kernels_ms = _time_ms(lambda: fab.tap_grads(
+        maps, gmaps, bias, rnorm, lse, taps, hs, ws, 2, 10.0), 2)
+    lk = hs * ws
+    flops = 2.0 * 2 * lk * lk * 192 * 59
+    return dict(shape=f"routes B2 {h}x{w}x192 (L {lk}) bf16",
+                plan=fab.plan_bwd(hs, ws, 192, torch.bfloat16)._asdict(),
+                fused_train_ms=times["fused"], patch_train_ms=times["patch"],
+                grad_max_abs_diff=diff.item(),
+                fused_bwd_kernels_ms=kernels_ms,
+                fused_bwd_tflops_all_pairs=flops / kernels_ms / 1e9)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--cases", default="fused,patch,patch_bwd",
-                    help="comma-separated subset of fused, patch, patch_bwd")
+                    help="comma-separated subset of fused, patch, "
+                    "patch_bwd, fused_bwd")
     ap.add_argument("--phases", action="store_true",
                     help="patch_bwd: cycles per step in each mainloop phase")
     args = ap.parse_args()
@@ -212,6 +267,10 @@ def main() -> None:
     if "patch_bwd" in cases:
         runs += [lambda: patch_bwd_case(2, 16384, args.turns, args.phases),
                  lambda: patch_bwd_case(1, 65536, args.turns, args.phases)]
+    if "fused_bwd" in cases:
+        runs += [lambda h=h, w=w: fused_bwd_case(h, w, args.turns)
+                 for h, w in ((64, 64), (64, 128), (128, 128), (128, 256),
+                              (256, 256))]
     for run in runs:
         print(json.dumps(run(), default=str), flush=True)
         torch.cuda.empty_cache()

@@ -54,7 +54,9 @@ class SectionTimer:
 
 
 def category(kernel: str) -> str:
-    if "attention_bwd" in kernel:
+    if "attention_bwd" in kernel or any(
+            f"mat::{k}_kernel" in kernel for k in ("delta", "scores",
+                                                   "products")):
         return "attention backward"
     if "fused_attention" in kernel or "attention_wgmma" in kernel:
         return "attention forward"

@@ -22,11 +22,17 @@ from gan_inpainting_torch.ops.kernels.fused_attention import (
     fused_attention_taps_plain,
 )
 from gan_inpainting_torch.ops.kernels.fused_attention_bwd import (
+    SCRATCH_BUDGET_BYTES,
+    BwdPlan,
+    bwd_supported,
+    chunks,
     contextual_attention_bwd,
     contextual_attention_bwd_plain,
     fold_tap_grads,
     plan_bwd,
     prepare_bwd,
+    scratch_bytes_per_sample,
+    tap_grads,
     tap_grads_mirror,
     v_tap_geometry,
 )
@@ -118,9 +124,14 @@ def test_backward_mirror_matches_plain(b, h, w, c, rate):
     if b >= 3:
         assert got[1].abs().max().item() == 0.0
         assert torch.isfinite(got).all()
-    # on a CPU tensor the op's backward is the plain version
+    # on a CPU tensor the op's backward is the plain version, and the
+    # kernels' wrapper is the mirror
     again = contextual_attention_bwd(f, hole, taps, lse, g, rate=rate)
     assert torch.equal(again, want)
+    mirrored = tap_grads(maps, gmaps, bias, rnorm, lse, taps, hs, ws, rate,
+                         10.0)
+    assert all(torch.equal(a, b) for a, b in zip(
+        mirrored, (dq, dk, dv, tnorm, delta)))
 
 
 def test_gradient_maps_are_the_fold_adjoint():
@@ -164,13 +175,30 @@ def test_plain_lse_is_the_logsumexp_of_the_jax_scores():
 
 
 def test_backward_plan_fits_the_train_shapes():
-    # (variant, rows, blocks per cluster) at the 256² and 512² train maps
-    assert plan_bwd(32, 32, 192, torch.bfloat16, "dq") == ("mma", 32, 1)
-    assert plan_bwd(32, 32, 192, torch.bfloat16, "dkv") == ("mma", 32, 1)
-    assert plan_bwd(64, 64, 192, torch.bfloat16, "dq") == ("mma", 32, 2)
-    assert plan_bwd(64, 64, 192, torch.bfloat16, "dkv") == ("mma", 32, 4)
-    assert plan_bwd(64, 64, 192, torch.float32, "dq") == ("core", 4, 1)
-    assert plan_bwd(7, 7, 4, torch.bfloat16, "dkv")[0] == "core"
-    assert plan_bwd(128, 128, 64, torch.bfloat16, "dkv") == ("mma", 16, 8)
+    # the wgmma plan at the 256² and 512² train maps (B 16 and 8): one
+    # chunk of samples holds the whole batch under the scratch budget
+    for hs, bsz in ((32, 16), (64, 8)):
+        chosen = plan_bwd(hs, hs, 192, torch.bfloat16)
+        assert chosen == BwdPlan("wgmma", 128, chosen.chunk, 3)
+        per_sample = scratch_bytes_per_sample(hs * hs)
+        assert per_sample == 4 * hs ** 4 + hs * hs // 128 * hs * hs * 4
+        assert bsz <= chosen.chunk
+        assert chosen.chunk * per_sample <= SCRATCH_BUDGET_BYTES
+        assert chunks(bsz, chosen.chunk) == [(0, bsz)]
+        # a smaller budget gives exact chunks covering the batch
+        small = plan_bwd(hs, hs, 192, torch.bfloat16, budget=3 * per_sample)
+        assert small.chunk == 3
+        got = chunks(bsz, small.chunk)
+        assert got[0] == (0, 3) and got[-1][1] == bsz
+        assert all(b == a2 for (_, b), (a2, _) in zip(got, got[1:]))
+        # nothing in the plan depends on the batch size
+        assert bwd_supported(hs, hs, 192, torch.bfloat16)
+    assert plan_bwd(128, 128, 192, torch.bfloat16).chunk == 1
+    assert plan_bwd(16, 32, 64, torch.bfloat16).units == 1
+    assert plan_bwd(64, 64, 192, torch.float32) == BwdPlan("core", 4, 0, 0)
+    assert plan_bwd(7, 7, 4, torch.bfloat16).variant == "core"
+    assert plan_bwd(64, 48, 192, torch.bfloat16).variant == "core"
     with pytest.raises(ValueError, match="ROADMAP"):
-        plan_bwd(256, 256, 192, torch.float32, "dq")
+        plan_bwd(256, 256, 192, torch.float32)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        plan_bwd(256, 256, 192, torch.bfloat16)

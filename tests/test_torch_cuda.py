@@ -171,11 +171,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 # ---------------------------------------------------------------------------
 # backward kernels
 # ---------------------------------------------------------------------------
-# Float32: both kernels (core variant) against their PyTorch mirror on the
-# same maps, 2e-4 relative to the largest tap gradient (sums of up to
-# L·C products in another order). bfloat16: kernels on bf16 maps against
-# the mirror in float32 on the same bf16 values; 2^-6 of the largest tap
-# gradient (p, and in the mma variant dsr, are rounded to bf16).
+# Float32: the core kernels against their PyTorch mirror on the same maps,
+# 2e-4 relative to the largest tap gradient (sums of up to L·C products in
+# another order). bfloat16: the kernels on bf16 maps against the mirror in
+# float32 on the same bf16 values (p and dsr rounded to bf16 once, as the
+# wgmma kernels round them); 2^-6 of the largest tap gradient.
 
 BWD_SHAPES = [
     (3, 16, 16, 8, 2),
@@ -183,9 +183,9 @@ BWD_SHAPES = [
     (1, 14, 14, 4, 2),      # L = 49: padded rows
     (1, 16, 16, 4, 4),
     (1, 16, 16, 4, 1),
-    (2, 64, 64, 64, 2),     # mma shape, G = 32, one block
-    (1, 128, 128, 64, 2),   # L = 4096: the 512² train regime, clusters 2/4
-    (1, 128, 256, 64, 2),   # L = 8192, non-square: clusters 4/8
+    (2, 64, 64, 64, 2),     # wgmma: ws 32, 8 row tiles
+    (1, 128, 128, 64, 2),   # L = 4096: ws 64
+    (1, 128, 256, 64, 2),   # L = 8192, non-square: ws 128
 ]
 
 
@@ -226,43 +226,87 @@ def test_forward_kernel_emits_lse(cuda):
 @pytest.mark.parametrize("b,h,w,c,rate", BWD_SHAPES)
 @pytest.mark.parametrize("dtype,variant", [
     (torch.float32, "core"), (torch.bfloat16, "core"),
-    (torch.bfloat16, "mma")])
+    (torch.bfloat16, "wgmma")])
 def test_backward_kernels_match_mirror(cuda, b, h, w, c, rate, dtype,
                                        variant):
     from gan_inpainting_torch.ops.kernels.fused_attention_bwd import (
-        launch_dkv,
-        launch_dq,
         plan_bwd,
+        tap_grads,
         tap_grads_mirror,
     )
 
     hs, ws = h // rate, w // rate
-    if variant == "mma" and plan_bwd(hs, ws, c, dtype, "dq")[0] != "mma":
-        pytest.skip("shape not taken by the mma variant")
+    if variant == "wgmma" and plan_bwd(hs, ws, c, dtype).variant != "wgmma":
+        pytest.skip("shape not taken by the wgmma variant")
     f, hole, g, taps, lse, (maps, gmaps, bias, rnorm, _) = _bwd_case(
         h * c, b, h, w, c, rate, cuda, dtype)
-    want = tap_grads_mirror(maps.float(), gmaps.float(), bias, rnorm, lse,
-                            taps.float(), hs, ws, rate, 10.0)
-    if dtype == torch.bfloat16:
-        # the mirror rounds p to the maps' dtype: give it bf16 there
-        want_p = tap_grads_mirror(maps, gmaps, bias, rnorm, lse, taps, hs,
-                                  ws, rate, 10.0)
-        want = want[:2] + (want_p[2],) + want[3:]
-    dq, delta = launch_dq(maps, gmaps, bias, rnorm, lse, taps, hs, ws, rate,
-                          10.0, variant=variant)
-    dk, dv, tn = launch_dkv(maps, gmaps, bias, rnorm, lse, delta, hs, ws,
-                            rate, 10.0, variant=variant)
+    want = tap_grads_mirror(maps, gmaps, bias, rnorm, lse, taps, hs, ws,
+                            rate, 10.0)
+    got = tap_grads(maps, gmaps, bias, rnorm, lse, taps, hs, ws, rate, 10.0,
+                    variant=variant)
     torch.cuda.synchronize()
     frac = 2e-4 if dtype == torch.float32 else 2.0 ** -6
-    for name, got, ref in zip(("dq", "dk", "dv", "tnorm", "delta"),
-                              (dq, dk, dv, tn, delta), want):
+    for name, a, ref in zip(("dq", "dk", "dv", "tnorm", "delta"), got, want):
         tol = frac * max(ref.abs().max().item(), 1.0)
-        err = (got - ref).abs().max().item()
+        err = (a - ref).abs().max().item()
         assert err <= tol, (name, err, tol)
     if b >= 3:      # the all-hole sample: exactly 0
-        assert dq[1].abs().max().item() == 0.0
-        assert dk[1].abs().max().item() == 0.0
-        assert dv[1].abs().max().item() == 0.0
+        for a in got[:3]:
+            assert a[1].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("image,bsz", [(256, 16), (512, 8)])
+def test_wgmma_backward_at_the_train_shapes(cuda, image, bsz):
+    """The bf16 train maps (C 192 at a quarter of the image, rate 2): the
+    wgmma kernels against the mirror within 2^-6 of the largest entry, an
+    all-hole sample at exactly 0, two runs bit-identical, and a budget that
+    forces chunks of 3 samples giving the same bits as one chunk."""
+    from gan_inpainting_torch.ops.kernels.fused_attention_bwd import (
+        plan_bwd,
+        prepare_bwd,
+        scratch_bytes_per_sample,
+        tap_grads,
+        tap_grads_mirror,
+    )
+
+    hw, rate = image // 4, 2
+    hs = hw // rate
+    rng = np.random.default_rng(image)
+    f = torch.from_numpy(np.maximum(rng.standard_normal(
+        (bsz, hw, hw, 192)), 0).astype(np.float32)).to(cuda)
+    hole = torch.from_numpy((rng.random((bsz, hw, hw, 1)) < 0.05).astype(
+        np.float32)).to(cuda)
+    hole[1] = 1.0
+    g = torch.from_numpy(rng.standard_normal(f.shape).astype(
+        np.float32)).to(cuda)
+    fb = f.to(torch.bfloat16)
+    taps, lse = fused_attention_taps(fb, hole, want_lse=True)
+    maps, gmaps, bias, rnorm, _ = prepare_bwd(fb, hole, g, 3, rate)
+    args = (maps, gmaps, bias, rnorm, lse, taps, hs, hs, rate, 10.0)
+    assert plan_bwd(hs, hs, 192, torch.bfloat16).chunk >= bsz
+    dispatch.reset_launches()
+    got = tap_grads(*args)
+    assert {k: dispatch.launches[k] for k in (
+        "contextual_attention_bwd_delta", "contextual_attention_bwd_scores",
+        "contextual_attention_bwd_dq", "contextual_attention_bwd_dkv")} == {
+        "contextual_attention_bwd_delta": 1,
+        "contextual_attention_bwd_scores": 1,
+        "contextual_attention_bwd_dq": 1, "contextual_attention_bwd_dkv": 1}
+    again = tap_grads(*args)
+    chunked = tap_grads(*args, budget=3 * scratch_bytes_per_sample(hs * hs))
+    torch.cuda.synchronize()
+    for a, b_, c_ in zip(got, again, chunked):
+        assert torch.equal(a, b_) and torch.equal(a, c_)
+    for a in got[:4]:
+        assert torch.isfinite(a).all()
+        assert a[1].abs().max().item() == 0.0
+    for which, idx in (("dq", (0, 4)), ("dkv", (1, 2, 3))):
+        want = tap_grads_mirror(*args, which=which)
+        for i, ref in zip(idx, want):
+            err = (got[i] - ref).abs().max().item()
+            assert err <= 2.0 ** -6 * max(ref.abs().max().item(), 1.0), (
+                which, i, err)
+        del want
 
 
 @pytest.mark.parametrize("b,h,w,c,rate", BWD_SHAPES)
@@ -802,9 +846,8 @@ def test_fused_backward_from_the_wgmma_forward(cuda):
     """The fused backward kernels fed by the wgmma forward's taps and lse
     (the train path), against the mirror on the same residuals."""
     from gan_inpainting_torch.ops.kernels.fused_attention_bwd import (
-        launch_dkv,
-        launch_dq,
         prepare_bwd,
+        tap_grads,
         tap_grads_mirror,
     )
 
@@ -816,21 +859,14 @@ def test_fused_backward_from_the_wgmma_forward(cuda):
         device=cuda).manual_seed(5))
     taps, lse = fused_attention_taps(fb, hole, want_lse=True)
     maps, gmaps, bias, rnorm, _ = prepare_bwd(fb, hole, g, 3, rate)
-    want = tap_grads_mirror(maps.float(), gmaps.float(), bias, rnorm, lse,
-                            taps.float(), hs, ws, rate, 10.0)
-    want_p = tap_grads_mirror(maps, gmaps, bias, rnorm, lse, taps, hs, ws,
-                              rate, 10.0)
-    want = want[:2] + (want_p[2],) + want[3:]
-    dq, delta = launch_dq(maps, gmaps, bias, rnorm, lse, taps, hs, ws, rate,
-                          10.0)
-    dk, dv, tn = launch_dkv(maps, gmaps, bias, rnorm, lse, delta, hs, ws,
-                            rate, 10.0)
+    args = (maps, gmaps, bias, rnorm, lse, taps, hs, ws, rate, 10.0)
+    want = tap_grads_mirror(*args)
+    got = tap_grads(*args)
     torch.cuda.synchronize()
-    for name, got, ref in zip(("dq", "dk", "dv", "tnorm", "delta"),
-                              (dq, dk, dv, tn, delta), want):
+    for name, a, ref in zip(("dq", "dk", "dv", "tnorm", "delta"), got, want):
         tol = 2.0 ** -6 * max(ref.abs().max().item(), 1.0)
-        assert (got - ref).abs().max().item() <= tol, name
-    assert dq[1].abs().max().item() == 0.0
+        assert (a - ref).abs().max().item() <= tol, name
+    assert got[0][1].abs().max().item() == 0.0
 
 
 def test_patch_attention_autograd_on_cuda(cuda):

@@ -291,28 +291,30 @@ def test_fused_patch_attention_is_the_patch_major_output():
 
 
 @pytest.mark.parametrize("image,fused,bwd,route,bf16_serve_route", [
-    (256, True, True, True, True), (512, True, True, False, True),
-    (1024, True, True, False, False), (2048, False, False, False, False)])
+    (256, True, True, (True, True), True),
+    (512, True, True, (True, False), True),
+    (1024, True, True, (True, False), False),
+    (2048, False, False, (False, False), False)])
 def test_route_predicates_at_the_config_maps(image, fused, bwd, route,
                                              bf16_serve_route):
     """The attention branch sees a C = 192 map at a quarter of the image,
-    matched at rate 2: 256² → 64² (L 1024) … 2048² → 512² (L 65 536). The
-    fused route is taken up to the measured 2048 cells where a backward
-    follows (the 256² image; the 512² image's 4096 cells take the patch
-    route), and up to 4096 for a bf16 forward alone (serving the 512²
+    matched at rate 2: 256² → 64² (L 1024) … 2048² → 512² (L 65 536). Where
+    a backward follows, the fused route is taken up to the measured 16 384
+    cells in bf16 (the 1024² image) and 2048 in float32 (``route``: bf16,
+    float32); a bf16 forward alone takes it up to 4096 (serving the 512²
     image); ``fused``: whether the float32 fused kernel holds the map (the
     bf16 one holds all four)."""
     hw = image // 4
     hs = hw // 2
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, routed in zip((torch.bfloat16, torch.float32), route):
         # the bf16 wgmma variant's flash recurrence takes every config map;
         # ``fused`` is whether the float32 core variant's score rows fit
         held = fused or dtype == torch.bfloat16
         assert fa.fused_supported((1, hw, hw, 192), 3, 2, dtype) is held
-        assert fa.fused_route((1, hw, hw, 192), 3, 2, dtype) is route
+        assert fa.fused_route((1, hw, hw, 192), 3, 2, dtype) is routed
         assert fa.fused_route((1, hw, hw, 192), 3, 2, dtype,
                               backward=False) is (
-            bf16_serve_route if dtype == torch.bfloat16 else route)
+            bf16_serve_route if dtype == torch.bfloat16 else routed)
         assert fab.bwd_supported(hs, hs, 192, dtype) is bwd
         assert not fa.fused_supported((1, hw, hw, 192), 5, 2, dtype)
         if held:
@@ -322,7 +324,7 @@ def test_route_predicates_at_the_config_maps(image, fused, bwd, route,
                 fa.plan(hs, hs, 192, dtype)
         if not bwd:
             with pytest.raises(ValueError, match="patch-attention"):
-                fab.plan_bwd(hs, hs, 192, dtype, "dkv")
+                fab.plan_bwd(hs, hs, 192, dtype)
     # rate must divide the map; C % 4 and the dtype must suit the kernel
     assert not fa.fused_supported((1, 18, 18, 192), 3, 4, torch.float32)
     assert not fa.fused_supported((1, 16, 16, 6), 3, 2, torch.float32)
