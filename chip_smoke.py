@@ -15,14 +15,19 @@ Phases (each prints its lines; any failure exits non-zero):
 2. kernels against their plain PyTorch versions on the card, at the
    256² serve shape (B=8, map 64×64×192) and the 512² shape (B=2, map
    128×128×192), in float32 and bfloat16, with times of the kernel, the
-   plain version and one library call computing the same function; and
+   plain version and one library call computing the same function; the
+   fold (``gi_fold_taps``) at B 8 and B 64 on the 256² map and at the
+   8×512² train map, float32 and bf16, its wrapper's and bare launch's
+   time beside its byte bound, the plain version and ``F.fold``; and
    the fused attention backward's kernels (bf16: δ, score tiles, dQ and
-   dK/dV tap products on wgmma; float32: the core kernels) and the
-   forward's log-sum-exp at the train shapes (256²: B=16, map 64×64×192;
-   512²: B=8, map 128×128×192), with an all-hole sample, two runs and a
-   chunked run bit-identical, each launch's time beside its bound, its
-   plain version, SDPA's backward and the five products as torch.matmul;
-   and the two gated-conv kernels
+   dK/dV tap products on wgmma; float32: the core kernels; the
+   tap-gradient fold ``gi_fold_tap_grads``) and the forward's
+   log-sum-exp at the train shapes (256²: B=16, map 64×64×192; 512²: B=8,
+   map 128×128×192), with an all-hole sample, two runs and a chunked run
+   bit-identical, each launch's time beside its bound, its plain version,
+   SDPA's backward and the five products as torch.matmul, and the
+   backward's split into prep, kernels and epilogue; and the two
+   gated-conv kernels
    and the partial-conv epilogue kernel at full-width shapes of their
    paths, in float32 and bfloat16;
 3. the serve path: the pinned ``tex256_attn`` generator under the
@@ -97,6 +102,10 @@ BF16_TOL_FRAC = 2.0 ** -7     # of max|input|: weights and outputs in bf16
 # float32 sums of up to L·C products in another order; bf16 p and dsr
 BWD_F32_TOL_FRAC = 2e-4
 BWD_BF16_TOL_FRAC = 2.0 ** -6
+# the tap-gradient fold against the eager epilogue, float32, as a fraction
+# of the largest entry: the same float32 terms in the same order per pixel
+# (bf16: BF16_TOL_FRAC, the output rounded once)
+FOLD_GRAD_F32_TOL_FRAC = 1e-5
 # gated-conv and partial-epilogue kernels against their plain versions, as a
 # fraction of the largest reference entry: float32 sums of up to 1728
 # products in another order; bf16 outputs rounded to bf16
@@ -309,24 +318,12 @@ def check_kernels(torch, shape_name, bsz, hw, c, rng, smi):
     attn_ops = 2.0 * lk * int(valid.sum().item()) * (9 + 16) * c
     attn_bound, attn_by = _bound_ms(attn_bytes, attn_ops, H100_BF16_FLOPS)
 
-    fold_ms = _time_ms(torch, lambda: fold_taps(taps_b, hs, ws, rate), reps)
-    fold_plain_ms = _time_ms(
-        torch, lambda: fold_taps_plain(taps_b, hs, ws, rate), reps)
-    cols = taps_b.reshape(bsz, 4, 4, lk, c).permute(0, 4, 1, 2, 3) \
-        .reshape(bsz, c * 16, lk).contiguous()
-    fold_lib_ms = _time_ms(torch, lambda: F.fold(
-        cols, (hw, hw), 4, padding=1, stride=2), reps)
-    fold_bytes = bsz * 16 * lk * c * 2 + bsz * hw * hw * c * 2 + hw * hw * 4
-    fold_ops = bsz * hw * hw * c * 5.0
-    fold_bound, fold_by = _bound_ms(fold_bytes, fold_ops, H100_BF16_FLOPS)
     print(f"[2] {shape_name} bf16 ms: attention {attn_ms:.3f} ({variant} "
           f"G={group} cluster={cluster} kernel only {kernel_only_ms:.3f} = "
           f"{attn_ops / kernel_only_ms / 1e9:.1f} TFLOP/s of valid pairs, "
           f"core variant {core_ms:.3f} "
           f"err {err_core:.3e}, plain {attn_plain_ms:.3f}, sdpa "
-          f"{attn_lib_ms:.3f}, bound {attn_bound:.4f} by {attn_by}); fold "
-          f"{fold_ms:.4f} (plain {fold_plain_ms:.4f}, F.fold "
-          f"{fold_lib_ms:.4f}, bound {fold_bound:.4f} by {fold_by}) | {smi}")
+          f"{attn_lib_ms:.3f}, bound {attn_bound:.4f} by {attn_by}) | {smi}")
     print(f"[2] {shape_name} launches in these checks and timings "
           f"(not counted for the serve path): {dict(dispatch.launches)}")
     out["attention"] = dict(
@@ -337,11 +334,83 @@ def check_kernels(torch, shape_name, bsz, hw, c, rng, smi):
         library_ms=attn_lib_ms, bound_ms=attn_bound, bound_by=attn_by,
         tflops=attn_ops / kernel_only_ms / 1e9, max_abs_err=errb,
         max_abs_err_f32=err32, lse_max_abs_err=err_lse)
-    out["fold"] = dict(
-        ms=fold_ms, plain_ms=fold_plain_ms, library_ms=fold_lib_ms,
-        bound_ms=fold_bound, bound_by=fold_by, max_abs_err=errb_fold,
-        max_abs_err_f32=f32_fold)
     return out
+
+
+FOLD_SHAPES = (("256² serve (B=8, 64x64x192)", "b8_256", 8, 64),
+               ("64x256² serve (B=64, 64x64x192)", "b64_256", 64, 64),
+               ("8x512² train (B=8, 128x128x192)", "b8_512train", 8, 128))
+
+
+def check_fold(torch, rng, smi):
+    """Phase 2, the forward's fold (``gi_fold_taps``) at the serve and
+    train shapes: float32 and bf16 against ``fold_taps_plain``, and the
+    wrapper's time, the bare C call's (CUDA events around back-to-back
+    launches alone), the plain version's and ``F.fold``'s beside the byte
+    bound."""
+    import torch.nn.functional as F
+
+    from gan_inpainting_torch.ops.kernels.fold import (
+        fold_taps,
+        fold_taps_plain,
+        fold_vector,
+        library,
+    )
+
+    dev = torch.device("cuda")
+    rate = 2
+    res = {}
+    for shape_name, key, bsz, hw in FOLD_SHAPES:
+        hs = ws = hw // rate
+        lk, c = hs * ws, 192
+        t32 = torch.from_numpy(rng.standard_normal(
+            (bsz, 4 * rate * rate, lk, c)).astype(np.float32)).to(dev)
+        err32 = (fold_taps(t32, hs, ws, rate)
+                 - fold_taps_plain(t32, hs, ws, rate)).abs().max().item()
+        del t32
+        taps = torch.from_numpy(rng.standard_normal(
+            (bsz, 4 * rate * rate, lk, c)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        got = fold_taps(taps, hs, ws, rate)
+        errb = (got.float() - fold_taps_plain(taps.float(), hs, ws, rate)) \
+            .abs().max().item()
+        tolb = BF16_TOL_FRAC * 4 * taps.float().abs().max().item()
+        torch.cuda.synchronize()
+        _require(err32 <= 1e-5 and errb <= tolb,
+                 f"fold disagrees with its plain version at {shape_name}: "
+                 f"f32 {err32:.3e}, bf16 {errb:.3e} (tol {tolb:.3e})")
+        reps = 50 if bsz <= 8 else 20
+        ms = _time_ms(torch, lambda: fold_taps(taps, hs, ws, rate), reps)
+        lib = library()
+        out = torch.empty_like(got)
+        vec = fold_vector(c, taps.dtype, taps.data_ptr(), out.data_ptr())
+        args = (taps.data_ptr(), out.data_ptr(), bsz, hs, ws, c, rate, 1,
+                vec, torch.cuda.current_stream().cuda_stream)
+        _require(lib.gi_fold_taps(*args) == 0, "gi_fold_taps refused")
+        kernel_ms = _time_ms(torch, lambda: lib.gi_fold_taps(*args), reps)
+        _require(torch.equal(out, got), "bare fold call differs")
+        plain_ms = _time_ms(
+            torch, lambda: fold_taps_plain(taps, hs, ws, rate), 5)
+        cols = taps.reshape(bsz, 4, 4, lk, c).permute(0, 4, 1, 2, 3) \
+            .reshape(bsz, c * 16, lk).contiguous()
+        lib_ms = _time_ms(torch, lambda: F.fold(
+            cols, (hw, hw), 4, padding=1, stride=2), 5)
+        del cols
+        # each tap read once, each output written once (bf16); 4 adds and
+        # a multiply per output element
+        bound, by = _bound_ms(taps.numel() * 2 + got.numel() * 2,
+                              got.numel() * 5.0, H100_BF16_FLOPS)
+        print(f"[2] fold {shape_name} bf16 ms: wrapper {ms:.4f}, kernel "
+              f"{kernel_ms:.4f} ({vec * 2}-byte vectors; "
+              f"{100 * bound / kernel_ms:.1f} % of the bound), plain "
+              f"{plain_ms:.4f}, F.fold {lib_ms:.4f}, bound {bound:.4f} by "
+              f"{by}; max_abs_err f32 {err32:.3e} (tol 1e-5) bf16 "
+              f"{errb:.3e} (tol {tolb:.3e}) | {smi}")
+        res[key] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                        library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                        max_abs_err=errb, max_abs_err_f32=err32)
+        del taps, got, out
+    return res
 
 
 def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
@@ -364,6 +433,8 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
         _tap,
         contextual_attention_bwd,
         contextual_attention_bwd_plain,
+        fold_tap_grads,
+        fold_tap_grads_plain,
         launch_delta,
         launch_dkv,
         launch_dq,
@@ -405,7 +476,16 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
     lse_err32 = (lse_k - lse_p).abs().max().item()
     args32 = (*prepare_bwd(xs, hl, gs, 3, rate)[:4], lse_p, taps_p, hs, ws,
               rate, scale)
-    err32 = worst(tap_grads(*args32), tap_grads_mirror(*args32))
+    got32 = tap_grads(*args32)
+    err32 = worst(got32, tap_grads_mirror(*args32))
+    # the tap-gradient fold (gi_fold_tap_grads) on the core kernels' taps
+    fargs32 = (args32[0], *got32[:4], args32[3], hs, ws, rate, scale)
+    fold32 = fold_tap_grads(*fargs32)
+    fold_err32 = worst((fold32,), (fold_tap_grads_plain(*fargs32),))
+    _require(fold32[1].abs().max().item() == 0.0,
+             f"float32 tap-gradient fold: all-hole sample not 0 at "
+             f"{shape_name}")
+    del got32, fargs32, fold32
     full_k = contextual_attention_bwd(xs, hl, taps_k, lse_k, gs)
     full_p = contextual_attention_bwd_plain(xs, hl, gs)
     full_err32 = ((full_k - full_p).abs().max().item()
@@ -439,6 +519,18 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
     _require(all(t[1].abs().max().item() == 0.0 for t in got[:4])
              and all(bool(torch.isfinite(t).all()) for t in got),
              f"all-hole tap gradients not exactly 0 at {shape_name}")
+    # the tap-gradient fold on the wgmma kernels' taps, written in bf16,
+    # against the eager epilogue in float32
+    fargs = (maps, *got[:4], rnorm, hs, ws, rate, scale)
+    fold_k = fold_tap_grads(*fargs)
+    fold_repeat = torch.equal(fold_k, fold_tap_grads(*fargs))
+    fold_errb = worst((fold_k.float(),), (fold_tap_grads_plain(*fargs),))
+    _require(fold_k.dtype == torch.bfloat16
+             and fold_k[1].abs().max().item() == 0.0
+             and bool(torch.isfinite(fold_k).all()),
+             f"bf16 tap-gradient fold: all-hole sample not 0 at "
+             f"{shape_name}")
+    del fold_k
     torch.cuda.synchronize()
     print(f"[2] {shape_name} backward, error / max|reference|: f32 core "
           f"kernels {err32:.3e} whole {full_err32:.3e} (tol "
@@ -448,13 +540,20 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
           f"all-hole sample exactly 0; two runs bit-identical {repeat}; "
           f"chunks of {n_chunk} samples bit-identical to one chunk "
           f"{same_chunked}; plan {chosen._asdict()}")
+    print(f"[2] {shape_name} tap-gradient fold (gi_fold_tap_grads) against "
+          f"fold_tap_grads_plain, error / max|reference|: f32 "
+          f"{fold_err32:.3e} (tol {FOLD_GRAD_F32_TOL_FRAC:g}), bf16 "
+          f"{fold_errb:.3e} (tol {BF16_TOL_FRAC:.3e}); all-hole sample "
+          f"exactly 0; two runs bit-identical {fold_repeat}")
     _require(max(err32, full_err32) <= BWD_F32_TOL_FRAC
              and max(dq_errb, dkv_errb) <= BWD_BF16_TOL_FRAC
              and lse_err32 <= 1e-3 and lse_errb <= 2e-2,
              f"a backward kernel or lse disagrees at {shape_name}")
-    _require(repeat and same_chunked,
+    _require(fold_err32 <= FOLD_GRAD_F32_TOL_FRAC
+             and fold_errb <= BF16_TOL_FRAC,
+             f"the tap-gradient fold disagrees at {shape_name}")
+    _require(repeat and same_chunked and fold_repeat,
              f"the bf16 backward is not repeatable at {shape_name}")
-    del got
 
     # ---- times, bf16, the train batch: each launch --------------------
     reps = 5 if lk <= 1024 else 2
@@ -471,6 +570,19 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
           "dkv": _time_ms(torch, lambda: launch_dkv(
               maps, gmaps, scratch, tpart, hs, ws, rate), reps)}
     kernels_ms = _time_ms(torch, lambda: tap_grads(*args), reps)
+    prep_ms = _time_ms(torch, lambda: prepare_bwd(xb, hole, gb, 3, rate),
+                       reps)
+    fold_ms = _time_ms(torch, lambda: fold_tap_grads(*fargs), 10)
+    fold_plain_ms = _time_ms(torch, lambda: fold_tap_grads_plain(
+        *fargs).to(torch.bfloat16), 2)
+    # the 34 float32 tap gradients read once, the (0, 0) parity map, tnorm
+    # and rnorm, and the bf16 gradient written once; ~4 operations per tap
+    # element added (float32, outside the tensor cores)
+    tap_elems = sum(t.numel() for t in got[:3])
+    fold_bound = _bound_ms(
+        tap_elems * 4 + maps[:, 0, 0].numel() * 2 + 2 * bsz * lk * 4
+        + xb.numel() * 2, tap_elems * 4.0, H100_F32_FLOPS)
+    del got, fargs
     whole_ms = _time_ms(torch, lambda: contextual_attention_bwd(
         xb, hole, taps_b, lse_b, gb), reps)
     fwd_lse_ms = _time_ms(torch, lambda: fused_attention_taps(
@@ -600,6 +712,12 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
           f"torch.matmul {sum(matmul_ms.values()):.3f} "
           f"{ {k: round(v, 3) for k, v in matmul_ms.items()} }; forward "
           f"with lse {fwd_lse_ms:.3f} vs without {fwd_ms:.3f} | {smi}")
+    print(f"[2] {shape_name} backward split, bf16 ms: prep (prepare_bwd) "
+          f"{prep_ms:.3f}, kernels {kernels_ms:.3f}, epilogue (the "
+          f"tap-gradient fold) {fold_ms:.4f} (plain {fold_plain_ms:.3f}; "
+          f"bound {fold_bound[0]:.4f} by {fold_bound[1]}, "
+          f"{100 * fold_bound[0] / fold_ms:.1f} %); whole {whole_ms:.3f} "
+          f"| {smi}")
     res = {}
     for k in ("delta", "scores", "dq", "dkv"):
         res[k] = dict(ms=ms[k], plain_ms=plain_ms[k],
@@ -618,7 +736,12 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
         res[k].update(max_abs_err=dq_errb if k == "delta" else max(
             dq_errb, dkv_errb), err_is="fraction of max|reference| of the "
             "gradients downstream")
+    res["fold"] = dict(ms=fold_ms, plain_ms=fold_plain_ms, library_ms=None,
+                       bound_ms=fold_bound[0], bound_by=fold_bound[1],
+                       max_abs_err=fold_errb, max_abs_err_f32=fold_err32,
+                       err_is="fraction of max|reference|")
     res.update(whole_backward_ms=whole_ms, kernels_ms=kernels_ms,
+               prep_ms=prep_ms,
                whole_plain_ms=whole_plain_ms,
                whole_flash_bound_ms=whole_flash[0],
                whole_materialized_bound_ms=whole_mat[0],
@@ -892,9 +1015,10 @@ def train(torch, smi):
     # generator pass) and one backward. A bf16 map takes the fused route up
     # to FUSED_MAX_CELLS_BF16_FORWARD cells for the detached forward and up
     # to FUSED_MAX_CELLS for the differentiated one, whose backward then
-    # runs the fused backward's four launches (δ, scores, dQ and dK/dV
-    # products); above a limit a forward (and the backward) take the patch
-    # kernels. The 512² map has 4096 cells, the 256² map 1024.
+    # runs the fused backward's five launches (δ, scores, dQ and dK/dV
+    # products, the tap-gradient fold); above a limit a forward (and the
+    # backward) take the patch kernels. The 512² map has 4096 cells, the
+    # 256² map 1024.
     from gan_inpainting_torch.ops.kernels.fused_attention import (
         FUSED_MAX_CELLS,
         FUSED_MAX_CELLS_BF16_FORWARD,
@@ -904,14 +1028,15 @@ def train(torch, smi):
              "patch_attention_bwd_dkv", "contextual_attention_fused",
              "fold_taps", "contextual_attention_bwd_delta",
              "contextual_attention_bwd_scores", "contextual_attention_bwd_dq",
-             "contextual_attention_bwd_dkv")
+             "contextual_attention_bwd_dkv", "contextual_attention_bwd_fold")
 
     def expected(cells):
         detached = int(cells <= FUSED_MAX_CELLS_BF16_FORWARD)
         trained = int(cells <= FUSED_MAX_CELLS)
         fused = detached + trained
         return dict(zip(names, (2 - fused, 1 - trained, 1 - trained, fused,
-                                fused, trained, trained, trained, trained)))
+                                fused, trained, trained, trained, trained,
+                                trained)))
 
     per_step, per_step_256 = expected(64 * 64), expected(32 * 32)
 
@@ -2300,6 +2425,7 @@ def main() -> int:
                            smi)
     res512 = check_kernels(torch, "512² (B=2, 128x128x192)", 2, 128, 192,
                            rng, smi)
+    fold = check_fold(torch, rng, smi)
     bwd256 = check_backward(torch, "256² train (B=16, 64x64x192)", 16, 64,
                             192, rng, smi)
     bwd512 = check_backward(torch, "512² train (B=8, 128x128x192)", 8, 128,
@@ -2341,11 +2467,13 @@ def main() -> int:
             at_512["contextual_attention_fused"], attn_src, f"{tpu_fa}:52",
             launches_train=l512["contextual_attention_fused"],
             train_with_lse_ms=bwd512["forward_with_lse_ms"]),
-        row("fold_taps@256", "fold", res256, at_256["fold_taps"], fold_src,
+        # the fold at B 8 (the 256² map) with the 64x256² serve bucket
+        # under "at_64x256", and at the 8x512² train map
+        row("fold_taps@256", "b8_256", fold, at_256["fold_taps"], fold_src,
             "gan_inpainting_tpu/ops/pallas/fold.py:32",
-            launches_train=l256["fold_taps"]),
-        row("fold_taps@512", "fold", res512, at_512["fold_taps"], fold_src,
-            "gan_inpainting_tpu/ops/pallas/fold.py:32",
+            launches_train=l256["fold_taps"], at_64x256=fold["b64_256"]),
+        row("fold_taps@512train", "b8_512train", fold, at_512["fold_taps"],
+            fold_src, "gan_inpainting_tpu/ops/pallas/fold.py:32",
             launches_train=l512["fold_taps"]),
         # the fused backward: rows 4 (δ, the score tiles and the dQ
         # products; "replaces" _bwd_dq_kernel) and 5 (the dK/dV products),
@@ -2358,6 +2486,15 @@ def main() -> int:
             f"{name}@256train", kname, bwd256, l256.get(name, 0), bwd_src,
             f"{tpu_bwd}:{223 if kname == 'dkv' else 148}",
             at_512train=dict(bwd512[kname], launches=l512.get(name, 0))))
+    # the tap-gradient fold: the scatter that _bwd_dq_kernel (:148) and
+    # _bwd_dkv_kernel (:223) do in-kernel, with the XLA halo merge and
+    # norm correction (:311, :328)
+    name = "contextual_attention_bwd_fold"
+    kernels.append(row(
+        f"{name}@256train", "fold", bwd256, l256.get(name, 0), fold_src,
+        f"{tpu_bwd}:148", scatter_of=[f"{tpu_bwd}:{n}" for n in (
+            148, 223, 311, 328)],
+        at_512train=dict(bwd512["fold"], launches=l512.get(name, 0))))
     kernels += [
         # launches: path A's three requests (two forwards with the fused
         # decoder, one without) and path B's three

@@ -15,10 +15,15 @@ output, it returns the gradient of the feature map:
 2. the kernels (:func:`tap_grads`): δ, the 9 query-tap and 9 key-tap
    gradients, the 4r² value-tap gradients and the per-key scalar of the
    key-norm correction, all as float32 per-tap buffers;
-3. epilogue (:func:`fold_tap_grads`): the taps added onto the padded maps
-   in a fixed order (query/key tap (dp, dq) of cell (i, j) lands on padded
-   cell (i+dp, j+dq); value tap per its parity and offset), the norm
-   correction, the halo crop and the inverse parity transpose.
+3. epilogue (:func:`fold_tap_grads`): one launch of ``gi_fold_tap_grads``
+   (csrc/fold.cu), where the JAX kernels scatter in-kernel and XLA merges
+   the halo rows and adds the norm correction. Each output pixel gathers
+   its taps in a fixed order (query/key tap (dp, dq) of cell (i, j) lands
+   on padded cell (i+dp, j+dq), with the norm correction; value tap per
+   its parity and offset) and is written once in the feature dtype, so the
+   halo crop, the inverse parity transpose and the cast need no pass of
+   their own. :func:`fold_tap_grads_plain` is the eager version (a CPU
+   tensor takes it), :func:`fold_tap_grads_mirror` the kernel's gather.
 
 Step 2 has two variants (:func:`plan_bwd`). ``wgmma`` (bf16 maps that the
 TMA boxes take, see :func:`wgmma_bwd_takes`) materializes the scores: per
@@ -44,7 +49,9 @@ derivation and what a CPU tensor takes. :func:`tap_box` mirrors the
 producers' TMA box arithmetic. On a CUDA tensor the kernels launch or the
 call raises. Bound on an H100: 2·L²·C·(9 + 4r²) operations per image for
 the scores and 2·L²·C·(9 + 9 + 4r²) for the products, against tens of MB
-of maps, tap buffers and the scratch — bounded by operations.
+of maps, tap buffers and the scratch — bounded by operations. The
+epilogue reads (18 + 4r²)·L·C float32 tap gradients and writes the
+gradient once: bounded by bytes.
 """
 
 from __future__ import annotations
@@ -56,8 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from gan_inpainting_torch.ops.dispatch import count_launch, use_kernel
-from gan_inpainting_torch.ops.kernels import build
-from gan_inpainting_torch.ops.kernels.fold import fold_counts_inv
+from gan_inpainting_torch.ops.kernels import build, fold
 from gan_inpainting_torch.ops.kernels.fused_attention import (
     _DTYPES,
     SMEM_BYTES,
@@ -68,6 +74,7 @@ KERNEL_DELTA = "contextual_attention_bwd_delta"
 KERNEL_SCORES = "contextual_attention_bwd_scores"
 KERNEL_DQ = "contextual_attention_bwd_dq"
 KERNEL_DKV = "contextual_attention_bwd_dkv"
+KERNEL_FOLD = "contextual_attention_bwd_fold"
 TILE = 128              # score tile rows and columns; product tile rows
 UNIT = 64               # channels per TMA box
 # The p + dsr scratch of one backward (and the t partials), in bytes. One
@@ -195,7 +202,7 @@ def prepare_bwd(b_feat: torch.Tensor, hole_mask: torch.Tensor,
     to the feature dtype (the fold's adjoint) with a zero halo."""
     maps, bias, rnorm, (hs, ws) = _prepare(b_feat, hole_mask, ksize, rate)
     bsz, h, w, c = b_feat.shape
-    inv = fold_counts_inv(hs, ws, rate, b_feat.device)
+    inv = fold.fold_counts_inv(hs, ws, rate, b_feat.device)
     dyn = (g.float() * inv[None, :, :, None]).to(b_feat.dtype)
     g2d = dyn.reshape(bsz, hs, rate, ws, rate, c).permute(0, 2, 4, 1, 3, 5)
     gmaps = F.pad(g2d, (0, 0, 1, 1, 1, 1)).contiguous()
@@ -251,11 +258,13 @@ def tap_grads_mirror(maps, gmaps, bias, rnorm, lse, o_taps, hs: int, ws: int,
     return dq_taps, dk_taps, dv_taps, tnorm, delta
 
 
-def fold_tap_grads(maps, dq_taps, dk_taps, dv_taps, tnorm, rnorm, hs: int,
-                   ws: int, rate: int, scale: float) -> torch.Tensor:
-    """Epilogue: per-tap float32 gradients → (B, H, W, C) float32 gradient
-    of the feature map. The key-norm correction is −scale·t_j·rnorm_j³ (0
-    where the norm sat on its 1e-4 floor) times key j's 3×3 patch."""
+def fold_tap_grads_plain(maps, dq_taps, dk_taps, dv_taps, tnorm, rnorm,
+                         hs: int, ws: int, rate: int,
+                         scale: float) -> torch.Tensor:
+    """Epilogue in eager PyTorch: per-tap float32 gradients → (B, H, W, C)
+    float32 gradient of the feature map. The key-norm correction is
+    −scale·t_j·rnorm_j³ (0 where the norm sat on its 1e-4 floor) times key
+    j's 3×3 patch."""
     bsz, c = maps.shape[0], maps.shape[-1]
     d_maps = torch.zeros(maps.shape, dtype=torch.float32, device=maps.device)
     coef = torch.where(rnorm < 1e4, rnorm * rnorm * rnorm, 0.0)
@@ -275,6 +284,100 @@ def fold_tap_grads(maps, dq_taps, dk_taps, dv_taps, tnorm, rnorm, hs: int,
     dcrop = d_maps[:, :, :, 1:hs + 1, 1:ws + 1, :]
     return dcrop.permute(0, 3, 1, 4, 2, 5).reshape(
         bsz, rate * hs, rate * ws, c)
+
+
+def _cells(i: torch.Tensor, j: torch.Tensor, hs: int, ws: int):
+    """(rows i, columns j) of source cells → (cell index, clamped into the
+    grid, and whether the cell exists), each (len(i), len(j))."""
+    ok = ((i >= 0) & (i < hs))[:, None] & ((j >= 0) & (j < ws))[None, :]
+    cell = i.clamp(0, hs - 1)[:, None] * ws + j.clamp(0, ws - 1)[None, :]
+    return cell, ok
+
+
+def fold_tap_grads_mirror(maps, dq_taps, dk_taps, dv_taps, tnorm, rnorm,
+                          hs: int, ws: int, rate: int,
+                          scale: float) -> torch.Tensor:
+    """What ``gi_fold_tap_grads`` computes, in PyTorch: each output pixel
+    (y, x), padded cell (I, J) = (y // r + 1, x // r + 1), gathers its
+    sources. A parity-(0, 0) pixel adds, for each Q/K tap t = (dp, dq) in
+    order whose source cell (I − dp, J − dq) exists, dq_t + dk_t, then
+    −scale·tnorm·rnorm³·[rnorm < 1e4] of that cell times the (0, 0) map
+    at (I, J). Every pixel then adds its 4 value taps in tap order, from
+    cell (I − op, J − oq) as :func:`v_tap_geometry` places them, and the
+    float32 sum is rounded once to the maps' dtype."""
+    bsz, c = maps.shape[0], maps.shape[-1]
+    dev = maps.device
+    half = rate // 2
+    y, x = torch.arange(rate * hs, device=dev), torch.arange(rate * ws,
+                                                             device=dev)
+    pp, pq = y % rate, x % rate
+    rows, cols = y // rate + 1, x // rate + 1
+    acc = torch.zeros((bsz, rate * hs, rate * ws, c), dtype=torch.float32,
+                      device=dev)
+    coef = torch.where(rnorm < 1e4, rnorm * rnorm * rnorm, 0.0)
+    cm = (-scale) * tnorm * coef                                  # (B, L)
+    b00 = maps[:, 0, 0].float()[:, rows[:, None], cols[None, :]]
+    at00 = ((pp == 0)[:, None] & (pq == 0)[None, :])
+    for t in range(9):
+        cell, ok = _cells(rows - t // 3, cols - t % 3, hs, ws)
+        grad = dq_taps[:, t, cell] + dk_taps[:, t, cell]
+        term = cm[:, cell][..., None] * b00
+        acc = torch.where((ok & at00)[None, :, :, None],
+                          (acc + grad) + term, acc)
+    vp0, vq0 = (pp + half) % rate, (pq + half) % rate
+    op0, oq0 = (vp0 >= half).long(), (vq0 >= half).long()
+    for a in (0, 1):
+        for e in (0, 1):
+            cell, ok = _cells(rows - op0 - a, cols - oq0 - e, hs, ws)
+            tap = ((vp0 + a * rate) * 2 * rate)[:, None] + (vq0 + e * rate)[
+                None, :]
+            acc = acc + torch.where(ok[None, :, :, None],
+                                    dv_taps[:, tap, cell], 0.0)
+    return acc.to(maps.dtype)
+
+
+def _check_fold_inputs(maps, dq_taps, dk_taps, dv_taps, tnorm, rnorm, hs,
+                       ws, rate):
+    bsz, c = maps.shape[0], maps.shape[-1]
+    if (maps.dtype not in _DTYPES or not maps.is_contiguous() or c % 4
+            or tuple(maps.shape) != (bsz, rate, rate, hs + 2, ws + 2, c)):
+        raise ValueError(f"maps must be contiguous (B, r, r, hs+2, ws+2, C) "
+                         f"in {_DTYPES} with C % 4 == 0, got "
+                         f"{tuple(maps.shape)} {maps.dtype}")
+    lk = hs * ws
+    for name, t, shape in (
+            ("dq_taps", dq_taps, (bsz, 9, lk, c)),
+            ("dk_taps", dk_taps, (bsz, 9, lk, c)),
+            ("dv_taps", dv_taps, (bsz, 4 * rate * rate, lk, c)),
+            ("tnorm", tnorm, (bsz, lk)), ("rnorm", rnorm, (bsz, lk))):
+        _check_float(name, t, shape, maps.device)
+
+
+def fold_tap_grads(maps, dq_taps, dk_taps, dv_taps, tnorm, rnorm, hs: int,
+                   ws: int, rate: int, scale: float) -> torch.Tensor:
+    """Epilogue: per-tap float32 gradients → (B, H, W, C) gradient of the
+    feature map in the maps' dtype, the float32 sum rounded once. On a CUDA
+    tensor one launch of ``gi_fold_tap_grads`` (csrc/fold.cu), which reads
+    each tap gradient once and writes the gradient once; on a CPU tensor
+    :func:`fold_tap_grads_plain`."""
+    if not use_kernel(maps):
+        return fold_tap_grads_plain(maps, dq_taps, dk_taps, dv_taps, tnorm,
+                                    rnorm, hs, ws, rate, scale).to(maps.dtype)
+    _check_fold_inputs(maps, dq_taps, dk_taps, dv_taps, tnorm, rnorm, hs, ws,
+                       rate)
+    bsz, c = maps.shape[0], maps.shape[-1]
+    out = torch.empty((bsz, rate * hs, rate * ws, c), dtype=maps.dtype,
+                      device=maps.device)
+    lib = fold.library()
+    with fold.on_device(maps):
+        err = lib.gi_fold_tap_grads(
+            maps.data_ptr(), dq_taps.data_ptr(), dk_taps.data_ptr(),
+            dv_taps.data_ptr(), tnorm.data_ptr(), rnorm.data_ptr(),
+            out.data_ptr(), bsz, hs, ws, c, rate, float(scale),
+            int(maps.dtype == torch.bfloat16), _stream(maps))
+    count_launch(KERNEL_FOLD)
+    build.check(lib, err, KERNEL_FOLD)
+    return out
 
 
 def contextual_attention_bwd_plain(b_feat: torch.Tensor,
@@ -593,4 +696,4 @@ def contextual_attention_bwd(b_feat: torch.Tensor, hole_mask: torch.Tensor,
     dq_taps, dk_taps, dv_taps, tnorm, _ = tap_grads(
         maps, gmaps, bias, rnorm, lse, o_taps, hs, ws, rate, softmax_scale)
     return fold_tap_grads(maps, dq_taps, dk_taps, dv_taps, tnorm, rnorm, hs,
-                          ws, rate, softmax_scale).to(b_feat.dtype)
+                          ws, rate, softmax_scale)

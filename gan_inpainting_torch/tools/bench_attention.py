@@ -1,7 +1,7 @@
 """Time the bf16 attention kernels at the table shapes, on one CUDA card.
 
     python -m gan_inpainting_torch.tools.bench_attention [--turns 2]
-        [--cases fused,patch,patch_bwd,fused_bwd]
+        [--cases fused,patch,patch_bwd,fused_bwd,folds]
 
 Shapes: the fused forward at the 256² serve map (B 8, 64×64×192) and the
 512² map (B 2, 128×128×192); the patch forward at B 2, L 16 384, d 1728,
@@ -22,12 +22,18 @@ maps of 1024, 2048, 4096, 8192 and 16 384 cells, contextual attention's
 forward + backward through the fused route and through the patch route in
 turns (fused, patch, patch, fused per turn), then the fused backward's
 kernels alone (``fused_attention_bwd.tap_grads``, all chunks) with
-TFLOP/s over all (query, key) pairs. One JSON line per shape, and the
-card's name and power limit.
+TFLOP/s over all (query, key) pairs. ``folds``: the forward's fold
+(``fold.fold_taps``) on bf16 taps at B 8 and B 64 on the 256² map and
+at the 8×512² train map, the wrapper by CUDA events and its kernel's
+device time by ``torch.profiler``; and the fused backward's epilogue
+(``fused_attention_bwd.fold_tap_grads``, cast to the feature dtype) on
+float32 tap gradients at the 16×256² and 8×512² train maps. One JSON
+line per shape, and the card's name and power limit.
 
 It uses only entry points that every version of the port has
 (``fused_attention._prepare``/``_launch``, ``patch_attention.launch_fwd``,
-``launch_dq``, ``launch_dkv``, ``plan``), so two versions can be timed in
+``launch_dq``, ``launch_dkv``, ``plan``, ``fold.fold_taps``,
+``fused_attention_bwd.prepare_bwd``/``fold_tap_grads``), so two versions can be timed in
 turns on one card: run this file as a script with ``PYTHONPATH`` at the
 other checkout, e.g. ``PYTHONPATH=../parent python
 gan_inpainting_torch/tools/bench_attention.py --cases patch_bwd``.
@@ -54,6 +60,65 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int, needle: str) -> float:
+    """Mean device ms per call of the CUDA kernels whose name holds
+    ``needle`` (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and needle in e.name
+               ) / 1e3 / reps
+
+
+def fold_case(bsz: int, hw: int, turns: int) -> dict:
+    """The forward's fold on (B, 16, (hw/2)², 192) bf16 taps."""
+    from gan_inpainting_torch.ops.kernels.fold import fold_taps
+
+    gen = torch.Generator(device="cuda").manual_seed(hw + bsz)
+    hs = hw // 2
+    taps = torch.randn((bsz, 16, hs * hs, 192), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    turns_ms = [(_time_ms(lambda: fold_taps(taps, hs, hs, 2), 20),
+                 _device_ms(lambda: fold_taps(taps, hs, hs, 2), 20,
+                            "fold_kernel")) for _ in range(turns)]
+    return dict(shape=f"fold B{bsz} {hw}x{hw}x192 bf16",
+                wrapper_ms=[t[0] for t in turns_ms],
+                kernel_ms=[t[1] for t in turns_ms])
+
+
+def tap_grad_fold_case(bsz: int, hw: int, turns: int) -> dict:
+    """The fused backward's epilogue on float32 tap gradients of a bf16
+    (B, hw, hw, 192) map, through the gradient in the map's dtype."""
+    from gan_inpainting_torch.ops.kernels import fused_attention_bwd as fab
+
+    gen = torch.Generator(device="cuda").manual_seed(hw * bsz)
+    x = torch.relu(torch.randn((bsz, hw, hw, 192), generator=gen,
+                               device="cuda")).to(torch.bfloat16)
+    hole = torch.zeros((bsz, hw, hw, 1), device="cuda")
+    g = torch.randn(x.shape, generator=gen, device="cuda")
+    maps, _, _, rnorm, (hs, ws) = fab.prepare_bwd(x, hole, g, 3, 2)
+    lk = hs * ws
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    dq, dk, dv = randn(bsz, 9, lk, 192), randn(bsz, 9, lk, 192), randn(
+        bsz, 16, lk, 192)
+    tnorm = randn(bsz, lk)
+    turns_ms = [_time_ms(lambda: fab.fold_tap_grads(
+        maps, dq, dk, dv, tnorm, rnorm, hs, ws, 2, 10.0).to(maps.dtype), 10)
+        for _ in range(turns)]
+    return dict(shape=f"tap-gradient fold B{bsz} {hw}x{hw}x192 bf16",
+                ms=turns_ms)
 
 
 def fused_case(bsz: int, hw: int, turns: int) -> dict:
@@ -245,7 +310,7 @@ def main() -> None:
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--cases", default="fused,patch,patch_bwd",
                     help="comma-separated subset of fused, patch, "
-                    "patch_bwd, fused_bwd")
+                    "patch_bwd, fused_bwd, folds")
     ap.add_argument("--phases", action="store_true",
                     help="patch_bwd: cycles per step in each mainloop phase")
     args = ap.parse_args()
@@ -271,6 +336,11 @@ def main() -> None:
         runs += [lambda h=h, w=w: fused_bwd_case(h, w, args.turns)
                  for h, w in ((64, 64), (64, 128), (128, 128), (128, 256),
                               (256, 256))]
+    if "folds" in cases:
+        runs += [lambda b=b, hw=hw: fold_case(b, hw, args.turns)
+                 for b, hw in ((8, 64), (64, 64), (8, 128))]
+        runs += [lambda b=b, hw=hw: tap_grad_fold_case(b, hw, args.turns)
+                 for b, hw in ((16, 64), (8, 128))]
     for run in runs:
         print(json.dumps(run(), default=str), flush=True)
         torch.cuda.empty_cache()

@@ -31,8 +31,8 @@ from gan_inpainting_tpu.ops.pallas.fused_attention import (
 from gan_inpainting_torch.ops.contextual_attention import contextual_attention
 from gan_inpainting_torch.ops.dispatch import launches
 from gan_inpainting_torch.ops.kernels.fold import (
-    fold_counts_inv,
     fold_taps,
+    fold_taps_mirror,
     fold_taps_plain,
 )
 from gan_inpainting_torch.ops.kernels.fused_attention import (
@@ -137,27 +137,6 @@ def test_prepare_matches_jax_prepare():
 # ---------------------------------------------------------------------------
 
 
-def _mirror_fold_kernel(taps, inv, hs, ws, rate):
-    """csrc/fold.cu: each output gathers its (p, q, i, j) contributors."""
-    bsz, _, _, c = taps.shape
-    hh, ww, half = rate * hs, rate * ws, rate // 2
-    out = torch.zeros(bsz, hh, ww, c)
-    for y in range(hh):
-        for x in range(ww):
-            for p in range(2 * rate):
-                ny = y + half - p
-                if ny < 0 or ny % rate or ny // rate >= hs:
-                    continue
-                for q in range(2 * rate):
-                    nx = x + half - q
-                    if nx < 0 or nx % rate or nx // rate >= ws:
-                        continue
-                    cell = (ny // rate) * ws + nx // rate
-                    out[:, y, x] += taps[:, p * 2 * rate + q, cell]
-            out[:, y, x] *= inv[y, x]
-    return out
-
-
 # The wgmma variant's tiling (fused_attention_mirror: d units split over
 # the cluster's ranks and summed in rank order, steps of block_c keys with
 # the flash rescale) in float32 against the plain version, 2e-4: the same
@@ -178,8 +157,7 @@ def test_kernel_index_algebra_matches_plain(b, h, w, c, rate, cluster):
     np.testing.assert_allclose(taps.numpy(), want.numpy(), **TOL)
     np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=1e-5,
                                atol=1e-4)
-    folded = _mirror_fold_kernel(taps, fold_counts_inv(hs, ws, rate), hs, ws,
-                                 rate)
+    folded = fold_taps_mirror(taps, hs, ws, rate)
     np.testing.assert_allclose(folded.numpy(),
                                fold_taps_plain(taps, hs, ws, rate).numpy(),
                                rtol=1e-5, atol=1e-5)

@@ -122,7 +122,9 @@ def test_wgmma_forward_matches_plain_with_lse(cuda, b, hw):
         assert lse[1].abs().max().item() == 0.0
 
 
-@pytest.mark.parametrize("b,h,w,c,rate", SHAPES)
+# C 192 takes 16-byte vectors, C 4 16 (float32) and 8 bytes (bf16), C 5
+# one element per thread (fold_vector)
+@pytest.mark.parametrize("b,h,w,c,rate", SHAPES + [(2, 10, 14, 5, 2)])
 def test_fold_kernel_matches_plain(cuda, b, h, w, c, rate):
     hs, ws = h // rate, w // rate
     rng = np.random.default_rng(h * w)
@@ -309,6 +311,43 @@ def test_wgmma_backward_at_the_train_shapes(cuda, image, bsz):
         del want
 
 
+# the tap-gradient fold against the eager epilogue on the same tap
+# gradients: float32 1e-5 of the largest entry (the same float32 terms in
+# the same order per pixel); bf16 maps 2^-7 of it (the output rounded once
+# to bf16)
+@pytest.mark.parametrize("b,h,w,c,rate", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tap_grad_fold_kernel_matches_plain(cuda, b, h, w, c, rate, dtype):
+    from gan_inpainting_torch.ops.kernels.fused_attention_bwd import (
+        fold_tap_grads,
+        fold_tap_grads_plain,
+        tap_grads_mirror,
+    )
+
+    hs, ws = h // rate, w // rate
+    f, hole, g, taps, lse, (maps, gmaps, bias, rnorm, _) = _bwd_case(
+        h + c, b, h, w, c, rate, cuda, dtype)
+    dq, dk, dv, tnorm, _ = tap_grads_mirror(maps, gmaps, bias, rnorm, lse,
+                                            taps, hs, ws, rate, 10.0)
+    args = (maps, dq, dk, dv, tnorm, rnorm, hs, ws, rate, 10.0)
+    dispatch.reset_launches()
+    got = fold_tap_grads(*args)
+    again = fold_tap_grads(*args)
+    assert dispatch.launches["contextual_attention_bwd_fold"] == 2
+    want = fold_tap_grads_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, h, w, c)
+    assert torch.equal(got, again)
+    frac = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    tol = frac * max(want.abs().max().item(), 1.0)
+    assert (got.float() - want).abs().max().item() <= tol
+    if b >= 3:
+        assert got[1].abs().max().item() == 0.0
+    with pytest.raises(ValueError, match="dq_taps"):
+        fold_tap_grads(maps, dq[:, :8], dk, dv, tnorm, rnorm, hs, ws, rate,
+                       10.0)
+
+
 @pytest.mark.parametrize("b,h,w,c,rate", BWD_SHAPES)
 def test_attention_autograd_on_cuda_matches_plain(cuda, b, h, w, c, rate):
     from gan_inpainting_torch.ops.kernels.fused_attention_bwd import (
@@ -330,6 +369,8 @@ def test_attention_autograd_on_cuda_matches_plain(cuda, b, h, w, c, rate):
             else "patch_attention_bwd")
     assert dispatch.launches[f"{kind}_dq"] == 1
     assert dispatch.launches[f"{kind}_dkv"] == 1
+    if kind == "contextual_attention_bwd":
+        assert dispatch.launches["contextual_attention_bwd_fold"] == 1
     want = contextual_attention_bwd_plain(f, hole, g, rate=rate)
     tol = 2e-4 * max(want.abs().max().item(), 1.0)
     assert (x.grad - want).abs().max().item() <= tol
