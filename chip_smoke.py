@@ -64,7 +64,25 @@ Phases (each prints its lines; any failure exits non-zero):
    branch's gradient, ms per request and per step, peak memory; and the
    fused forward whose backward plan does not hold, its gradient through
    the patch kernels against the plain gradient;
-8. one JSON line of per-kernel numbers, then the result line.
+8. the serving tier: the pinned generator under ``serve_v4_8``'s model
+   config and its batch (1, 8, 16, 32, 64, 256) and size (256, 512)
+   buckets (full width, bf16) behind ``InpaintService``, once its
+   dispatcher thread has warmed every bucket (``ready()``) — 16
+   closed-loop clients, as ``tools/load_serve.py`` drives the service,
+   with 128 requests of 256², 16 of 512² and 4 of 200×240 (known pixels
+   bit-exact, hole pixels within ±2 of ``inpaint_batch`` of the same
+   images on ≥ 99.9 %, fewer dispatches than requests, the fused
+   attention and fold launched from the dispatcher thread at both
+   buckets); img/s, p50/p99 and the mean batch at 256² from closed-loop
+   windows of 16 and 64 clients, two of each, against ``inpaint_batch``
+   at 64×256², in turns; the HTTP front (16 closed-loop clients, two
+   windows, ``/healthz``); overload at ``max_queue=4``
+   (``ServiceOverloadedError`` in process, 429 over HTTP);
+   ``inpaint_dir`` over 8 PNGs against one ``inpaint_batch``, an
+   ``export_generator`` → ``from_npz`` round trip, and ``evaluate`` with
+   SWD;
+9. one JSON line of per-kernel numbers (with the service's under
+   ``"service"``), then the result line.
 
 Phase 2 also holds the three patch-attention kernels (forward, dQ, dK/dV)
 against their plain versions at the full widths (d 1728, dv 3072) at L
@@ -93,6 +111,9 @@ NPZ = "docs/artifacts/tex256_attn/generator_best.npz"
 SERVE_OVERRIDES = ["model.fuse_upsample=true",
                    "infer.size_buckets=256,512",
                    "infer.batch_buckets=1,8,64"]
+# phase 8 serves under serve_v4_8's own batch and size buckets
+SERVE_V4_8 = SERVE_OVERRIDES[:2] + ["infer.batch_buckets=1,8,16,32,64,256"]
+SERVICE_WINDOW_S = 5.0        # each closed-loop window of phase 8's rates
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, SXM, 700 W
 H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12    # HBM3
@@ -2324,6 +2345,453 @@ def _path_c_train(torch, smi):
     return res
 
 
+def _service_inpainter(inp):
+    """The Inpainter as the service sees it, recording per dispatch its
+    thread, its size bucket and the kernel launches it made."""
+    import threading
+
+    from gan_inpainting_torch.ops import dispatch
+
+    class Recorder:
+        cfg, device = inp.cfg, inp.device
+
+        def __init__(self):
+            self.dispatches = []
+
+        def warmup(self):
+            inp.warmup()
+
+        def inpaint_batch(self, images, masks):
+            before = dict(dispatch.launches)
+            out = inp.inpaint_batch(images, masks)
+            self.dispatches.append(dict(
+                thread=threading.current_thread().name,
+                batch=images.shape[0], size=images.shape[1],
+                launches={k: v - before.get(k, 0)
+                          for k, v in dispatch.launches.items()}))
+            return out
+
+    return Recorder()
+
+
+def _closed_loop(call, n_clients, *, items=None, pool=None, seconds=None,
+                 keep=True):
+    """Closed-loop clients, as ``tools/load_serve.py`` drives the service:
+    each of ``n_clients`` threads sends one request, waits for its answer
+    and only then sends the next. With ``items``, client k sends items k,
+    k + n, ...; with ``pool`` and ``seconds``, it sends pool entries drawn
+    by its own seeded generator until the window closes. ``call(item)``
+    sends one request and returns its answer. Returns the (item index,
+    answer) pairs (answers dropped unless ``keep``), the wall seconds from
+    the first send to the last answer, and every request's latency."""
+    import threading
+
+    answers, latency, errors = [], [], []
+    lock = threading.Lock()
+
+    def client(k):
+        pick = np.random.default_rng(k)
+        mine = iter(range(k, len(items), n_clients)) if items else None
+        try:
+            while True:
+                if mine is not None:
+                    i = next(mine, None)
+                    if i is None:
+                        return
+                    item = items[i]
+                else:
+                    if time.perf_counter() >= deadline:
+                        return
+                    i = int(pick.integers(len(pool)))
+                    item = pool[i]
+                t = time.perf_counter()
+                out = call(item)
+                dt = time.perf_counter() - t
+                with lock:
+                    latency.append(dt)
+                    answers.append((i, out if keep else None))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(n_clients)]
+    t0 = time.perf_counter()
+    deadline = t0 + (seconds or 0.0)
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    _require(not errors and not any(t.is_alive() for t in threads),
+             f"closed-loop clients failed: {errors[:3]}")
+    return answers, wall, latency
+
+
+def _percentiles_ms(latency):
+    lat = sorted(latency)
+    return (1e3 * lat[len(lat) // 2],
+            1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))])
+
+
+def _http_body(image, mask) -> bytes:
+    from gan_inpainting_torch.infer.service import _png_encode
+
+    return json.dumps({"image": _png_encode(image), "mask": _png_encode(
+        (mask * 255).astype(np.uint8))}).encode()
+
+
+def _http_post(port, body: bytes):
+    """POST one prepared body; (status, response body, headers)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/inpaint", data=body,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as e:
+        return e.code, None, e.headers
+
+
+def serving_tier(torch, rng, smi):
+    """Phase 8: the serving tier on the card. The pinned generator under
+    serve_v4_8's model config and batch and size buckets, full width,
+    bf16, behind InpaintService: (1) 16 closed-loop clients, 148 requests
+    of three sizes; 256² rates from closed-loop windows at 16 and 64
+    clients against inpaint_batch; (2) the HTTP front, 16 closed-loop
+    clients; (3) overload; (4) inpaint_dir, an export round trip and
+    evaluate with SWD."""
+    import pathlib
+    import tempfile
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from gan_inpainting_torch.configs.base import apply_overrides
+    from gan_inpainting_torch.infer.batch_files import inpaint_dir
+    from gan_inpainting_torch.infer.inpaint import Inpainter, _bucket
+    from gan_inpainting_torch.infer.service import (
+        InpaintService,
+        ServiceOverloadedError,
+        _png_decode,
+        _png_encode,
+        make_http_server,
+    )
+    from gan_inpainting_torch.io.export import export_generator
+    from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.train.evaluate import evaluate
+
+    def make(n, h, w, n_masks):
+        imgs = _smooth_images(rng, n, h, w)
+        masks = _stroke_masks(rng, n_masks, h, w)
+        return [(imgs[i], masks[i % n_masks]) for i in range(n)]
+
+    reqs = make(128, 256, 256, 16) + make(16, 512, 512, 8) + make(
+        4, 200, 240, 4)
+    order = rng.permutation(len(reqs))
+    reqs = [reqs[i] for i in order]
+    pool = [r for r in reqs if r[0].shape[:2] == (256, 256)]
+
+    # warmup() of every bucket runs on the dispatcher thread (cuDNN's tuned
+    # plans are per thread); ready() waits for it and raises its error
+    inp = Inpainter.from_npz(NPZ, overrides=SERVE_V4_8, device="cuda")
+    batch_buckets = inp.cfg.infer.batch_buckets
+    rec = _service_inpainter(inp)
+    t0 = time.perf_counter()
+    service = InpaintService(rec, max_wait_ms=5.0)
+    service.ready(timeout=900)
+    warm_s = time.perf_counter() - t0
+    res = {"warmup_s": warm_s, "batch_buckets": list(batch_buckets),
+           "size_buckets": list(inp.cfg.infer.size_buckets)}
+
+    def submit(item):
+        return service.submit(*item).result(timeout=600)
+
+    def batches_since(n_before):
+        sizes = [d["batch"] for d in rec.dispatches[n_before:]]
+        padded = [_bucket(n, batch_buckets) for n in sizes]
+        return (sum(sizes) / len(sizes), sum(padded) / len(padded),
+                len(sizes))
+
+    # ---- (1) 16 closed-loop clients: 128 x 256², 16 x 512², 4 x 200x240
+    rec.dispatches.clear()
+    before = service.stats
+    dispatch.reset_launches()
+    answers, wall, latency = _closed_loop(submit, 16, items=reqs)
+    launches = dict(dispatch.launches)
+    after = service.stats
+    outs = dict(answers)
+    stats = {k: after[k] - before[k] for k in ("requests", "dispatches",
+                                                "rejected")}
+    stats["inflight"] = after["inflight"]
+    stats["latency_p50_ms"], stats["latency_p99_ms"] = _percentiles_ms(
+        latency)
+    _require(stats["requests"] == len(reqs) and len(outs) == len(reqs)
+             and stats["inflight"] == 0
+             and stats["dispatches"] < len(reqs)
+             and len(rec.dispatches) == stats["dispatches"],
+             f"service stats {stats}")
+    _require(all(d["thread"] == "inpaint-dispatch" for d in rec.dispatches),
+             "a dispatch ran outside the dispatcher thread")
+    by_bucket = {}
+    for d in rec.dispatches:
+        acc = by_bucket.setdefault(d["size"], {})
+        for k, v in d["launches"].items():
+            acc[k] = acc.get(k, 0) + v
+    for size in (256, 512):
+        for name in ("contextual_attention_fused", "fold_taps"):
+            _require(by_bucket.get(size, {}).get(name, 0) > 0,
+                     f"service: no {name} launch at the {size}² bucket "
+                     f"({by_bucket.get(size)})")
+    # against inpaint_batch of the same images, grouped by size (<= 64)
+    worst = 1.0
+    groups = {}
+    for i, (img, _) in enumerate(reqs):
+        groups.setdefault(img.shape[:2], []).append(i)
+    for idx in groups.values():
+        for lo in range(0, len(idx), 64):
+            part = idx[lo:lo + 64]
+            imgs = np.stack([reqs[i][0] for i in part])
+            masks = np.stack([reqs[i][1] for i in part])
+            want = inp.inpaint_batch(imgs, masks)
+            got = np.stack([outs[i] for i in part])
+            keep = np.broadcast_to(masks[..., None] == 0, imgs.shape)
+            _require(got.shape == imgs.shape and got.dtype == np.uint8
+                     and np.array_equal(got[keep], imgs[keep]),
+                     "service: known pixels changed")
+            diff = np.abs(got.astype(int) - want.astype(int))[~keep]
+            worst = min(worst, float((diff <= BF16_SERVE_LEVELS).mean()))
+    _require(worst >= BF16_SERVE_FRAC, f"service vs inpaint_batch: hole "
+             f"pixels within ±{BF16_SERVE_LEVELS} on {worst:.6f}")
+    mean_batch = stats["requests"] / stats["dispatches"]
+    res.update(mixed=dict(requests=len(reqs), clients=16, wall_s=wall,
+                          stats=stats, mean_batch=mean_batch,
+                          hole_within_2=worst, launches=launches,
+                          launches_by_bucket=by_bucket))
+    print(f"[8] service (batch buckets {batch_buckets}), 16 closed-loop "
+          f"clients, {len(reqs)} requests (128x256², 16x512², 4x200x240) in "
+          f"{wall:.2f} s after warmup() on the dispatcher thread "
+          f"({warm_s:.1f} s to ready()): {stats['dispatches']} dispatches "
+          f"(mean batch {mean_batch:.1f}), p50 "
+          f"{stats['latency_p50_ms']:.1f} ms, p99 "
+          f"{stats['latency_p99_ms']:.1f} ms; known pixels bit-exact, hole "
+          f"pixels within ±{BF16_SERVE_LEVELS} of inpaint_batch on "
+          f"{worst:.6f}; launches from the dispatcher thread by bucket "
+          f"{by_bucket} | {smi}")
+
+    # ---- 256² rates: closed-loop windows at 16 and 64 clients against
+    # inpaint_batch at 64x256², in turns, each window SERVICE_WINDOW_S long
+    imgs64 = np.stack([r[0] for r in pool[:64]])
+    masks64 = np.stack([r[1] for r in pool[:64]])
+    windows = []
+    batch_rates = []
+    for turn in ("service", "inpaint_batch", "inpaint_batch", "service"):
+        if turn == "inpaint_batch":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(8):
+                inp.inpaint_batch(imgs64, masks64)
+            batch_rates.append(8 * 64 / (time.perf_counter() - t0))
+            continue
+        for clients in (16, 64):
+            n_before = len(rec.dispatches)
+            answers, wall, latency = _closed_loop(
+                submit, clients, pool=pool, seconds=SERVICE_WINDOW_S,
+                keep=False)
+            mb, padded, n_disp = batches_since(n_before)
+            p50, p99 = _percentiles_ms(latency)
+            windows.append(dict(clients=clients, requests=len(latency),
+                                wall_s=wall, img_s=len(latency) / wall,
+                                latency_p50_ms=p50, latency_p99_ms=p99,
+                                dispatches=n_disp, mean_batch=mb,
+                                mean_padded_batch=padded))
+    res.update(rate_256=dict(windows=windows,
+                             inpaint_batch_64x256_img_s=batch_rates))
+    for c in (16, 64):
+        ws = [w for w in windows if w["clients"] == c]
+        print(f"[8] 256² InpaintService, {c} closed-loop clients, two "
+              f"{SERVICE_WINDOW_S:.0f} s windows (turns service, "
+              f"inpaint_batch, inpaint_batch, service): "
+              + "; ".join(f"{w['requests']} requests, {w['img_s']:.1f} "
+                          f"img/s, p50 {w['latency_p50_ms']:.1f} ms, p99 "
+                          f"{w['latency_p99_ms']:.1f} ms, mean batch "
+                          f"{w['mean_batch']:.1f} (padded "
+                          f"{w['mean_padded_batch']:.1f})" for w in ws)
+              + f" | {smi}")
+    print(f"[8] inpaint_batch at 64x256², 8 calls per turn: "
+          f"{', '.join(f'{v:.1f}' for v in batch_rates)} img/s | {smi}")
+
+    # ---- (2) HTTP: 16 closed-loop clients, two windows, /healthz ---------
+    before = service.stats
+    server = make_http_server(service, "127.0.0.1", 0)
+    port = server.server_address[1]
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    try:
+        # bodies encoded before the clock starts: a client encodes its
+        # PNGs on its own machine; the server decodes, batches, encodes
+        bodies = [_http_body(*r) for r in pool[:32]]
+        http_windows = []
+        sent = 0
+        for _ in range(2):
+            d_before = service.stats["dispatches"]
+            answers, wall, latency = _closed_loop(
+                lambda b: _http_post(port, b), 16, pool=bodies,
+                seconds=SERVICE_WINDOW_S)
+            d_after = service.stats["dispatches"]
+            sent += len(answers)
+            _require(all(a[0] == 200 for _, a in answers),
+                     f"HTTP: codes {sorted({a[0] for _, a in answers})}")
+            for i, (_, payload, _) in answers:
+                img, mask = pool[i]
+                out = _png_decode(json.loads(payload)["output"])
+                keep = np.broadcast_to(mask[..., None] == 0, img.shape)
+                _require(out.shape == img.shape
+                         and np.array_equal(out[keep], img[keep]),
+                         "HTTP: known pixels changed")
+            p50, p99 = _percentiles_ms(latency)
+            http_windows.append(dict(
+                clients=16, requests=len(latency), wall_s=wall,
+                img_s=len(latency) / wall, latency_p50_ms=p50,
+                latency_p99_ms=p99,
+                mean_batch=len(latency) / (d_after - d_before)))
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=60) as resp:
+            health = json.loads(resp.read())
+        _require(health.get("ok")
+                 and health.get("requests") == before["requests"] + sent,
+                 f"/healthz {health}")
+        last_out = _png_decode(json.loads(answers[0][1][1])["output"])
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+    # the server's PNG work per 256² request, one thread: decode the image
+    # and the mask, encode the output
+    body = json.loads(bodies[0])
+    t0 = time.perf_counter()
+    for _ in range(20):
+        _png_decode(body["image"]), _png_decode(body["mask"])
+    dec_ms = (time.perf_counter() - t0) / 20 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(20):
+        _png_encode(last_out)
+    enc_ms = (time.perf_counter() - t0) / 20 * 1e3
+    res.update(http=dict(windows=http_windows, png_decode_ms=dec_ms,
+                         png_encode_ms=enc_ms, healthz=health))
+    print(f"[8] HTTP front, 16 closed-loop clients in this process, 256² "
+          f"PNG bodies encoded beforehand, two {SERVICE_WINDOW_S:.0f} s "
+          f"windows: "
+          + "; ".join(f"{w['requests']} requests, {w['img_s']:.1f} img/s, "
+                      f"round trip p50 {w['latency_p50_ms']:.1f} ms, p99 "
+                      f"{w['latency_p99_ms']:.1f} ms, mean batch "
+                      f"{w['mean_batch']:.1f}" for w in http_windows)
+          + f"; known pixels bit-exact; the server's PNG work per request, "
+          f"one thread: decode image + mask {dec_ms:.2f} ms, encode the "
+          f"output {enc_ms:.2f} ms; /healthz {health} | {smi}")
+
+    # ---- (3) overload: max_queue=4 -------------------------------------
+    # a service of its own over an Inpainter with two batch buckets, so its
+    # dispatcher thread's warmup stays short
+    small = Inpainter.from_npz(NPZ, overrides=SERVE_OVERRIDES[:2] + [
+        "infer.batch_buckets=1,8"], device="cuda")
+    service = InpaintService(small, max_wait_ms=5.0, max_queue=4)
+    server = make_http_server(service, "127.0.0.1", 0)
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        service.ready(timeout=900)
+        admitted, rejected = [], 0
+        for img, mask in pool[:16]:
+            try:
+                admitted.append(service.submit(img, mask))
+            except ServiceOverloadedError:
+                rejected += 1
+        for f in admitted:
+            f.result(timeout=600)
+        _require(rejected >= 1 and len(admitted) >= 4,
+                 f"overload in process: {len(admitted)} admitted, "
+                 f"{rejected} rejected")
+        # four 512² requests fill the window; 16 HTTP posts arrive behind
+        big = [r for r in reqs if r[0].shape[0] == 512][:4]
+        held = [service.submit(*r) for r in big]
+        codes, retry = [], []
+
+        def post(i):
+            status, _, headers = _http_post(port, bodies[i])
+            codes.append(status)
+            retry.append(headers.get("Retry-After"))
+
+        posts = [threading.Thread(target=post, args=(i,)) for i in range(16)]
+        for p in posts:
+            p.start()
+        for p in posts:
+            p.join(timeout=600)
+        for f in held:
+            f.result(timeout=600)
+        n429 = codes.count(429)
+        _require(n429 >= 1 and set(codes) <= {200, 429} and all(
+            r == "1" for c, r in zip(codes, retry) if c == 429),
+            f"overload over HTTP: codes {codes}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+    del small
+    res.update(overload=dict(in_process_admitted=len(admitted),
+                             in_process_rejected=rejected,
+                             http_codes=sorted(codes)))
+    print(f"[8] overload (max_queue=4, batch buckets 1,8): a burst of 16 in "
+          f"process, {len(admitted)} admitted and {rejected} refused with "
+          f"ServiceOverloadedError; 16 HTTP posts behind 4 held 512² "
+          f"requests: {n429} x 429 (Retry-After: 1), {codes.count(200)} x "
+          f"200")
+
+    # ---- (4) inpaint_dir, export round trip, evaluate with SWD ---------
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        for sub in ("images", "masks", "out"):
+            (root / sub).mkdir()
+        eight = pool[:8]
+        for i, (img, mask) in enumerate(eight):
+            Image.fromarray(img).save(root / "images" / f"{i}.png")
+            Image.fromarray((mask * 255).astype(np.uint8)).save(
+                root / "masks" / f"{i}.png")
+        t0 = time.perf_counter()
+        n = inpaint_dir(inp, root / "images", root / "masks", root / "out")
+        dir_s = time.perf_counter() - t0
+        got = np.stack([np.asarray(Image.open(root / "out" / f"{i}.png"))
+                        for i in range(8)])
+        imgs8 = np.stack([r[0] for r in eight])
+        masks8 = np.stack([r[1] for r in eight])
+        want = inp.inpaint_batch(imgs8, masks8)
+        _require(n == 8 and np.array_equal(got, want),
+                 "inpaint_dir differs from one inpaint_batch of the same 8")
+        path = str(root / "g.npz")
+        export_generator(inp.cfg, inp.state_dict, path)
+        again = Inpainter.from_npz(path, device="cuda")
+        _require(again.cfg == inp.cfg and np.array_equal(
+            again.inpaint_batch(imgs8, masks8), want),
+            "export round trip (float32 storage) changed the outputs")
+    ecfg = apply_overrides(inp.cfg, ["data.num_eval_batches=2"])
+    t0 = time.perf_counter()
+    ev = evaluate(ecfg, inp.state_dict, device="cuda")
+    eval_s = time.perf_counter() - t0
+    _require({"psnr", "ssim", "swd_avg", "swd_256", "swd_16"} <= set(ev)
+             and all(np.isfinite(v) for v in ev.values()),
+             f"evaluate: {ev}")
+    res.update(inpaint_dir_s=dir_s, evaluate=ev, evaluate_s=eval_s)
+    print(f"[8] inpaint_dir over 8 PNGs bit-identical to one inpaint_batch "
+          f"({dir_s:.2f} s with PNG I/O); export_generator -> from_npz "
+          f"(float32) bit-identical; evaluate with swd, 2 x "
+          f"{ecfg.data.eval_batch_size} images, {eval_s:.1f} s: {ev}")
+    del inp, again
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2445,6 +2913,9 @@ def main() -> int:
     path_b = partial_family(torch, rng, smi)
     torch.cuda.empty_cache()
     large = path_c(torch, rng, smi)
+    torch.cuda.empty_cache()
+    service = serving_tier(torch, rng, smi)
+    svc = service["mixed"]["launches_by_bucket"]
 
     def row(name, kernel, res, launches, source, replaces, **extra):
         return dict(name=name, route="cuda", source=source,
@@ -2462,19 +2933,23 @@ def main() -> int:
         row("contextual_attention_fused@256", "attention", res256,
             at_256["contextual_attention_fused"], attn_src, f"{tpu_fa}:136",
             launches_train=l256["contextual_attention_fused"],
+            launches_service=svc[256]["contextual_attention_fused"],
             train_with_lse_ms=bwd256["forward_with_lse_ms"]),
         row("contextual_attention_fused@512", "attention", res512,
             at_512["contextual_attention_fused"], attn_src, f"{tpu_fa}:52",
             launches_train=l512["contextual_attention_fused"],
+            launches_service=svc[512]["contextual_attention_fused"],
             train_with_lse_ms=bwd512["forward_with_lse_ms"]),
         # the fold at B 8 (the 256² map) with the 64x256² serve bucket
         # under "at_64x256", and at the 8x512² train map
         row("fold_taps@256", "b8_256", fold, at_256["fold_taps"], fold_src,
             "gan_inpainting_tpu/ops/pallas/fold.py:32",
-            launches_train=l256["fold_taps"], at_64x256=fold["b64_256"]),
+            launches_train=l256["fold_taps"], at_64x256=fold["b64_256"],
+            launches_service=svc[256]["fold_taps"]),
         row("fold_taps@512train", "b8_512train", fold, at_512["fold_taps"],
             fold_src, "gan_inpainting_tpu/ops/pallas/fold.py:32",
-            launches_train=l512["fold_taps"]),
+            launches_train=l512["fold_taps"],
+            launches_service=svc[512]["fold_taps"]),
         # the fused backward: rows 4 (δ, the score tiles and the dQ
         # products; "replaces" _bwd_dq_kernel) and 5 (the dK/dV products),
         # at the 256² train shape with the 512² one under "at_512train";
@@ -2544,7 +3019,8 @@ def main() -> int:
         "phases_ms_512": tr["parts_512"], "phases_ms_256": tr["parts_256"],
         "partialconv256_16x256_ms_per_step": path_b["train_ms"]},
         "serve_64x256": {"serve_v4_8": rates_a,
-                         "partialconv256": path_b["rates"]}}))
+                         "partialconv256": path_b["rates"]},
+        "service": service}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -91,13 +91,16 @@ class Inpainter:
 
     @classmethod
     def from_checkpoint(cls, cfg: Config, workdir: str | None = None, *,
-                        best: bool = False, step: int | None = None,
+                        use_ema: bool = True, best: bool = False,
+                        step: int | None = None,
                         device: str | torch.device | None = None,
                         ) -> "Inpainter":
         """Serve from a training checkpoint under ``workdir`` (default
-        ``cfg.train.workdir``): the EMA generator when the run tracked one,
-        else the raw parameters. The model is the checkpoint's own saved
-        one; ``cfg`` supplies the serving knobs (``infer``)."""
+        ``cfg.train.workdir``): with ``use_ema`` the EMA generator when the
+        run tracked one, else the raw parameters; ``best`` takes the
+        best-eval-PSNR slot (``checkpoints_best``). The model is the
+        checkpoint's own saved one; ``cfg`` supplies the serving knobs
+        (``infer``)."""
         from gan_inpainting_torch.configs.base import config_from_dict
         from gan_inpainting_torch.io.checkpoint import CheckpointManager
 
@@ -105,7 +108,8 @@ class Inpainter:
         ckpt = CheckpointManager(workdir or cfg.train.workdir, subdir=subdir)
         saved = config_from_dict(ckpt.restore_config(step))
         raw = ckpt.restore_raw(step)
-        params = raw["g_ema"] or raw["g_params"]
+        params = (raw["g_ema"] if use_ema and raw["g_ema"]
+                  else raw["g_params"])
         return cls(dataclasses.replace(cfg, model=saved.model), params,
                    device=device)
 

@@ -10,7 +10,8 @@ the ``exp_avg``/``exp_avg_sq``/``step`` of ``torch.optim.Adam``. The same
 mapping carries a partial-conv ``DilatedGenerator`` tree (its layers own a
 plain (k, k, Cin, Cout) kernel) and the VGG16 feature extractor's
 ``conv{block}_{i}/{kernel,bias}`` (losses/perceptual.py), in memory or from
-the converted ``.npz`` the JAX package reads.
+the converted ``.npz`` the JAX package reads. :func:`params_to_jax` goes
+the other way, for the export artifact.
 """
 
 from __future__ import annotations
@@ -52,6 +53,31 @@ def params_from_jax(params) -> dict[str, torch.Tensor]:
         state[".".join(parts[:-1] + [leaf])] = torch.from_numpy(
             np.ascontiguousarray(arr))
     return state
+
+
+def params_to_jax(state_dict) -> dict:
+    """A port ``state_dict`` → the nested flax tree of float32 numpy
+    arrays that :func:`params_from_jax` reads: OIHW ``weight`` → HWIO
+    ``kernel``, ``bias`` and ``u`` as they are. The inverse of
+    :func:`params_from_jax`, exactly."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        parts = key.split(".")
+        leaf = parts[-1]
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            if arr.ndim != 4:
+                raise ValueError(f"{key}: expected an OIHW kernel, got "
+                                 f"shape {arr.shape}")
+            arr = arr.transpose(2, 3, 1, 0)          # OIHW -> HWIO
+            leaf = "kernel"
+        elif leaf not in ("bias", "u"):
+            raise ValueError(f"{key}: unknown param leaf {leaf!r}")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree
 
 
 def vgg_state_from_npz(path: str, like: Mapping) -> dict[str, torch.Tensor]:

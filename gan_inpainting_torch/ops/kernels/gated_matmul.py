@@ -32,6 +32,7 @@ through that plain composition: no backward kernel.
 from __future__ import annotations
 
 import ctypes
+import threading
 import weakref
 from typing import NamedTuple
 
@@ -160,6 +161,7 @@ def pack_weights(weight: torch.Tensor, p: GatedPlan) -> torch.Tensor:
 
 
 _packed: dict[int, tuple] = {}
+_packed_lock = threading.Lock()   # the service's dispatcher thread, callers
 
 
 def packed_weights(weight: torch.Tensor, p: GatedPlan,
@@ -167,19 +169,21 @@ def packed_weights(weight: torch.Tensor, p: GatedPlan,
     """:func:`pack_weights` of ``weight`` in ``dtype``, kept per weight
     tensor and (dtype, plan), and repacked when (data_ptr, _version)
     changes — an optimizer's in-place step bumps ``_version`` — so a
-    served layer packs once. Inference tensors, which keep no version, are
-    packed per call."""
+    served layer packs once, whichever thread serves it. Inference tensors,
+    which keep no version, are packed per call."""
     if weight.is_inference():
         return pack_weights(weight.detach().to(dtype), p)
     state = (weight.data_ptr(), weight._version)
-    hit = _packed.get(id(weight))
-    if hit is None or hit[0]() is not weight or hit[1] != state:
-        ref = weakref.ref(weight, lambda _, i=id(weight): _packed.pop(i, None))
-        hit = _packed[id(weight)] = (ref, state, {})
-    layouts = hit[2]
-    if (dtype, p) not in layouts:
-        layouts[(dtype, p)] = pack_weights(weight.detach().to(dtype), p)
-    return layouts[(dtype, p)]
+    with _packed_lock:
+        hit = _packed.get(id(weight))
+        if hit is None or hit[0]() is not weight or hit[1] != state:
+            ref = weakref.ref(weight,
+                              lambda _, i=id(weight): _packed.pop(i, None))
+            hit = _packed[id(weight)] = (ref, state, {})
+        layouts = hit[2]
+        if (dtype, p) not in layouts:
+            layouts[(dtype, p)] = pack_weights(weight.detach().to(dtype), p)
+        return layouts[(dtype, p)]
 
 
 class ConvGeom(NamedTuple):
