@@ -81,8 +81,24 @@ Phases (each prints its lines; any failure exits non-zero):
    ``inpaint_dir`` over 8 PNGs against one ``inpaint_batch``, an
    ``export_generator`` → ``from_npz`` round trip, and ``evaluate`` with
    SWD;
-9. one JSON line of per-kernel numbers (with the service's under
-   ``"service"``), then the result line.
+9. file data and the run's record: a JPEG corpus written at run time
+   (640 files of 640×480, quality 92, from one seed); the decoder used
+   and decode rates at 512², batch 8 (native libjpeg and PIL, 2 and 4
+   decoder threads; native against PIL within the JAX package's bound);
+   ``train()`` of ``places512_deepfill`` at full width fed from the folder
+   (6 steps, evals at 3 and 6 on 2 × 16 images, checkpoints; metrics.jsonl
+   lines, the sample grid in TensorBoard where it imports, the fused
+   attention, fold and fused backward launched); steps/s fed from the
+   folder and from synthetic data in turns, with the share of a step's
+   host time spent in ``next(data)``; ``make_dataset(start=6)`` against
+   the uninterrupted stream; ``run_parity`` of every config on the card
+   against the committed ``cuda`` pins, and ``evaluate`` of the three
+   pinned artifacts beside their manifests' TPU-era figures; one step
+   under ``interpret_kernels`` (no launch, metrics near the kernel
+   step's) and one under ``debug_mode``;
+10. one JSON line of per-kernel numbers (with the service's under
+   ``"service"`` and phase 9's under ``"file_data"``), then the result
+   line.
 
 Phase 2 also holds the three patch-attention kernels (forward, dQ, dK/dV)
 against their plain versions at the full widths (d 1728, dv 3072) at L
@@ -150,6 +166,26 @@ DIRECT_FUSED, DIRECT_UNFUSED, MATMUL_PER_FWD, PARTIAL_PER_FWD = 29, 33, 6, 16
 PATCH_BWD_REPLACED_MS = {"dq": (137.66, 1083.23), "dkv": (183.95, 1454.20)}
 TRAIN_512 = ["data.synthetic_family=textured"]
 TRAIN_256 = ["model.use_attention=true", "data.synthetic_family=textured"]
+# a JPEG corpus as users hand the folder loader: 640 photos of 640×480 at
+# JPEG quality 92 (608 train, 32 eval files), from one seed
+CORPUS_FILES, CORPUS_W, CORPUS_H, CORPUS_QUALITY = 640, 640, 480, 92
+# decode rates: images per measurement, batch 8 at 512²
+DECODE_BATCHES = 32
+# steps per timed train() run in phase 9's turns, logged every 4: the
+# windows [4, 8) and [8, 12) carry no R1 pass and no warm-up
+TURN_STEPS, TURN_LOG = 12, 4
+# the step under interpret_kernels against the kernel step, per metric:
+# |a − b| ≤ this · max(|b|, 1e-2) (bf16 mirrors round p and ds where the
+# kernels do, but add float32 terms in another order)
+INTERPRET_STEP_TOL = 2e-2
+# the fused attention and fold launches (rows 2, 3), the fused backward's
+# four (rows 4, 5) and the tap-gradient fold (5b): the 512² train path's
+FILE_PATH_KERNELS = (
+    "contextual_attention_fused", "fold_taps",
+    "contextual_attention_bwd_delta", "contextual_attention_bwd_scores",
+    "contextual_attention_bwd_dq", "contextual_attention_bwd_dkv",
+    "contextual_attention_bwd_fold")
+ARTIFACTS = ("tex256_attn", "qual256_stab", "qual512")
 
 
 def _smooth_images(rng, b, h, w):
@@ -2792,6 +2828,359 @@ def serving_tier(torch, rng, smi):
     return res
 
 
+def _jpeg_corpus(root, seed=0):
+    """CORPUS_FILES JPEGs from one numpy seed: a bicubic colour field from
+    a 6×8 grid of random colours, a stripe field and pixel noise."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    coarse = rng.integers(0, 256, (CORPUS_FILES, 6, 8, 3), dtype=np.uint8)
+    freq = rng.uniform(0.02, 0.2, CORPUS_FILES)
+    phase = rng.uniform(0.0, 2 * np.pi, CORPUS_FILES)
+    seeds = rng.integers(0, 2 ** 31, CORPUS_FILES)
+    yy, xx = np.mgrid[:CORPUS_H, :CORPUS_W].astype(np.float32)
+
+    def one(i):
+        img = np.asarray(Image.fromarray(coarse[i]).resize(
+            (CORPUS_W, CORPUS_H), Image.BICUBIC), np.float32)
+        img = img + 25.0 * np.sin(freq[i] * (xx + 0.5 * yy)
+                                  + phase[i])[..., None]
+        img += np.random.default_rng(seeds[i]).normal(0.0, 6.0, img.shape)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            root / f"{i:06d}.jpg", quality=CORPUS_QUALITY)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, range(CORPUS_FILES)))
+
+
+def _decode_rate(data_cfg, threads: int, pil: bool) -> float:
+    """Images/s of the folder stream on the host, from the iterator's
+    creation to its DECODE_BATCHES-th batch."""
+    import contextlib
+    import dataclasses
+    from unittest import mock
+
+    from gan_inpainting_torch.data import native_loader
+    from gan_inpainting_torch.data.loader import make_dataset
+
+    cfg = dataclasses.replace(data_cfg, loader_threads=threads,
+                              loader_cache="off")
+    force = (mock.patch.object(native_loader, "available", lambda: False)
+             if pil else contextlib.nullcontext())
+    with force:
+        t0 = time.perf_counter()
+        it = make_dataset(cfg, seed=0, device="cpu")
+        for _ in range(DECODE_BATCHES):
+            next(it)
+        dt = time.perf_counter() - t0
+        it.close()
+    return DECODE_BATCHES * cfg.batch_size / dt
+
+
+def _loop_run(torch, overrides, workdir):
+    """train() from step 0 for TURN_STEPS steps; returns (steps/s of the
+    windows after the first, the share of those steps' host time spent in
+    next(data), the launches)."""
+    from gan_inpainting_torch.configs.base import apply_overrides, get_config
+    from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.train import loop
+
+    cfg = apply_overrides(get_config("places512_deepfill"), overrides + [
+        f"train.steps={TURN_STEPS}", f"train.log_every={TURN_LOG}",
+        "train.eval_every=1000000", "train.checkpoint_every=1000000",
+        "data.num_eval_batches=1", f"train.workdir={workdir}"])
+    spans = []
+    real = loop.make_dataset
+
+    def timed(*args, **kwargs):
+        it = real(*args, **kwargs)
+
+        def gen():
+            try:
+                while True:
+                    t = time.perf_counter()
+                    batch = next(it)
+                    spans.append((t, time.perf_counter()))
+                    yield batch
+            finally:
+                it.close()
+        return gen()
+
+    loop.make_dataset = timed
+    dispatch.reset_launches()
+    try:
+        loop.train(cfg, resume=False, verbose=False, device="cuda")
+    finally:
+        loop.make_dataset = real
+    torch.cuda.synchronize()
+    launches = dict(dispatch.launches)
+    recs = [json.loads(ln) for ln in
+            (workdir / "metrics.jsonl").read_text().splitlines()]
+    rates = [r["steps_per_sec"] for r in recs
+             if "steps_per_sec" in r and r["step"] > TURN_LOG]
+    train_spans = spans[TURN_LOG:TURN_STEPS - 1]
+    wait = sum(b - a for a, b in train_spans)
+    share = wait / (spans[TURN_STEPS - 1][0] - spans[TURN_LOG][0])
+    return rates, share, launches
+
+
+def file_data(torch, smi):
+    """Phase 9: file data and the run's record on the card. A JPEG corpus
+    written at run time; decode rates (native libjpeg and PIL, 2 and 4
+    decoder threads); train() of places512_deepfill at full width fed
+    from the folder (metrics.jsonl, evals, a checkpoint, the sample grid
+    in TensorBoard, the attention kernels launched); steps/s fed from the
+    folder and from synthetic data in turns, and the share of a step spent
+    waiting for data; the resumed stream; the parity fingerprint on the
+    card against the committed cuda pins, and the pinned artifacts'
+    evaluate; one step under interpret_kernels and one under
+    debug_mode."""
+    import dataclasses
+    import pathlib
+    import tempfile
+
+    from gan_inpainting_torch.configs.base import apply_overrides, get_config
+    from gan_inpainting_torch.data import native_loader
+    from gan_inpainting_torch.data.loader import (
+        _load_batch,
+        _load_image,
+        make_dataset,
+        split_files,
+    )
+    from gan_inpainting_torch.infer.inpaint import Inpainter
+    from gan_inpainting_torch.io.checkpoint import CheckpointManager
+    from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.train.evaluate import evaluate
+    from gan_inpainting_torch.train.loop import train as train_loop
+    from gan_inpainting_torch.train.parity import (
+        PINNED_PATH,
+        check_parity,
+        run_parity,
+    )
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        root = tmp / "corpus"
+        root.mkdir()
+        t0 = time.perf_counter()
+        _jpeg_corpus(root)
+        folder = ["data.dataset=folder", f"data.root={root}",
+                  f"data.loader_cache_dir={tmp / 'cache'}"]
+        cfg = apply_overrides(get_config("places512_deepfill"), folder)
+        n_train = len(split_files(cfg.data, "train"))
+        n_eval = len(split_files(cfg.data, "eval"))
+        _require((n_train, n_eval) == (608, 32), f"split {n_train}/{n_eval}")
+        native = native_loader.available()
+        print(f"[9] corpus: {CORPUS_FILES} JPEGs {CORPUS_W}x{CORPUS_H} "
+              f"q{CORPUS_QUALITY} in {time.perf_counter() - t0:.1f} s "
+              f"({n_train} train, {n_eval} eval); decoder for JPEG batches: "
+              f"{'native libjpeg (g++ build)' if native else 'PIL'}")
+
+        # ---- decode rates, 512², batch 8 ----------------------------------
+        rates = {}
+        for pil in ((False, True) if native else (True,)):
+            for threads in (2, 4):
+                name = f"{'PIL' if pil else 'native'}_{threads}"
+                rates[name] = _decode_rate(cfg.data, threads, pil)
+        diff = None
+        if native:
+            files = split_files(cfg.data, "train")[:8]
+            nat = _load_batch(files, 512)
+            pil_b = np.stack([_load_image(p, 512) for p in files])
+            diff = float(np.abs(nat.astype(int) - pil_b.astype(int)).mean())
+            _require(diff < 12.0, f"native vs PIL decode mean |Δ| {diff}")
+        print(f"[9] decode rate at 512², batch 8, images/s (host, from the "
+              f"iterator's start over {DECODE_BATCHES} batches): "
+              + ", ".join(f"{k} threads {v:.1f}" for k, v in rates.items())
+              + "; native vs PIL mean |Δ| "
+              + (f"{diff:.2f} levels (bound 12, tests/unit/"
+                 "test_native_loader.py)" if native else
+                 "not checked: no native loader (g++ or libjpeg missing)")
+              + f" | {smi}")
+        res.update(decoder="native" if native else "PIL",
+                   decode_img_per_s=rates, native_vs_pil_mean_abs=diff)
+
+        # ---- train() fed from the folder, full width ----------------------
+        work = tmp / "run"
+        run_cfg = apply_overrides(cfg, [
+            "train.steps=6", "train.log_every=2", "train.eval_every=3",
+            "train.checkpoint_every=3", "data.num_eval_batches=2",
+            f"train.workdir={work}"])
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        _, last = train_loop(run_cfg, resume=False, verbose=False,
+                             device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(dispatch.launches)
+        recs = [json.loads(ln) for ln in
+                (work / "metrics.jsonl").read_text().splitlines()]
+        logged = [r["step"] for r in recs if "g_loss" in r]
+        evals = {r["step"]: r for r in recs if "eval_psnr" in r}
+        _require(logged == [2, 4, 6] and sorted(evals) == [3, 6],
+                 f"metrics.jsonl steps {logged}, evals {sorted(evals)}")
+        _require(all(np.isfinite(r["eval_psnr"]) for r in evals.values())
+                 and all(np.isfinite(v) for v in last.values()),
+                 f"metrics not finite: {last} {evals}")
+        _require(CheckpointManager(str(work)).latest_step() == 6,
+                 "no checkpoint at step 6")
+        missing = [k for k in FILE_PATH_KERNELS if not launches.get(k)]
+        _require(not missing, f"not launched from the folder run: {missing}")
+        tb = (work / "tb").exists()
+        tb_images = None
+        if tb:
+            from tensorboard.backend.event_processing.event_accumulator \
+                import EventAccumulator
+
+            acc = EventAccumulator(str(work / "tb"),
+                                   size_guidance={"images": 0})
+            acc.Reload()
+            tb_images = acc.Tags()["images"]
+            _require(any("samples" in t for t in tb_images)
+                     and len(acc.Images(tb_images[0])) == 2,
+                     f"sample grids in TensorBoard: {tb_images}")
+        print(f"[9] train() places512_deepfill 8x512² bf16 from the folder: "
+              f"6 steps, 2 evals (2 x 16 images, a cut), 2 checkpoints, "
+              f"{run_s:.1f} s with cuDNN tuning; metrics.jsonl steps "
+              f"{logged}, evals {sorted(evals)}: eval_psnr "
+              f"{[round(evals[s]['eval_psnr'], 3) for s in sorted(evals)]}; "
+              f"TensorBoard {'on, sample grids ' + str(tb_images) if tb else 'off (does not import): metrics.jsonl only'}; "
+              f"launches {launches} | {smi}")
+        res.update(train_s=run_s, launches=launches, tensorboard=tb,
+                   eval_psnr={s: evals[s]["eval_psnr"] for s in evals})
+
+        # ---- the loop fed from the folder and from synthetic data --------
+        synthetic = ["data.synthetic_family=textured"]
+        turns = {"folder": [], "synthetic": []}
+        shares = {"folder": [], "synthetic": []}
+        for i, kind in enumerate(("folder", "synthetic", "synthetic",
+                                  "folder")):
+            rates_, share, _ = _loop_run(
+                torch, folder if kind == "folder" else synthetic,
+                tmp / f"turn{i}")
+            turns[kind] += rates_
+            shares[kind].append(share)
+        gain, spread = _decide(turns["synthetic"], turns["folder"])
+        print(f"[9] train() steps/s at 8x512², windows of {TURN_LOG} steps "
+              f"after the first, in turns folder, synthetic, synthetic, "
+              f"folder: folder {[round(r, 3) for r in turns['folder']]}, "
+              f"synthetic (textured, rendered on the card) "
+              f"{[round(r, 3) for r in turns['synthetic']]}; folder "
+              f"{'faster' if gain < 0 else 'slower'} by {abs(gain):.3f} "
+              f"steps/s, spread {spread:.3f}; share of a step's host time in "
+              f"next(data): folder {[round(s, 4) for s in shares['folder']]}"
+              f", synthetic {[round(s, 4) for s in shares['synthetic']]} "
+              f"| {smi}")
+        res.update(steps_per_s=turns, data_wait_share=shares)
+
+        # ---- resume: start=6 is the uninterrupted stream's 7th batch ------
+        rdata = dataclasses.replace(cfg.data, loader_cache="on")
+        t0 = time.perf_counter()
+        it = make_dataset(rdata, seed=0, device="cpu")
+        stream = [next(it) for _ in range(7)]
+        it.close()
+        again = make_dataset(rdata, seed=0, device="cpu", start=6)
+        resumed = next(again)
+        again.close()
+        _require(torch.equal(resumed, stream[6]),
+                 "make_dataset(start=6) is not the 7th batch")
+        print(f"[9] resume: make_dataset(start=6) equals the uninterrupted "
+              f"stream's 7th batch (decode-once cache on, built and read in "
+              f"{time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
+    # ---- parity: the fixed-seed fingerprint against the cuda pins -----
+    t0 = time.perf_counter()
+    par = run_parity(device="cuda")
+    par.update(run_parity(["places512_deepfill", "places512_sn_vgg"], 256,
+                          device="cuda"))
+    pins = json.loads(PINNED_PATH.read_text())
+    for key, got in par.items():
+        print(f"[9] parity {key}: cuda {got} | pinned cuda "
+              f"{pins.get('cuda', {}).get(key)} | pinned cpu "
+              f"{pins['cpu'].get(key)}")
+    problems = check_parity(par, device="cuda")
+    _require(not problems, f"parity drift on the card: {problems}")
+    print(f"[9] parity: {len(par)} entries within ±0.1 dB PSNR, 0.005 SSIM, "
+          f"2 % SWD of the committed cuda pins ({time.perf_counter() - t0:.1f}"
+          f" s) | {smi}")
+    res.update(parity=par)
+    arts = {}
+    for name in ARTIFACTS:
+        base = pathlib.Path("docs/artifacts") / name
+        inp = Inpainter.from_npz(str(base / "generator_best.npz"),
+                                 device="cuda")
+        ev = evaluate(inp.cfg, inp.state_dict, device="cuda")
+        tpu = json.loads((base / "manifest.json").read_text())[
+            "reproduced_from_npz"]
+        _require(all(np.isfinite(v) for v in ev.values()), f"{name}: {ev}")
+        arts[name] = ev
+        print(f"[9] evaluate {name} ({inp.cfg.name}, "
+              f"{inp.cfg.data.num_eval_batches} x "
+              f"{inp.cfg.data.eval_batch_size} images): "
+              f"{ {k: round(v, 4) for k, v in ev.items()} } | TPU-era figure, "
+              f"different draws: {tpu} | {smi}")
+        del inp
+    res.update(artifacts=arts)
+    torch.cuda.empty_cache()
+    res.update(debug_steps(torch, smi))
+    return res
+
+
+def debug_steps(torch, smi):
+    """Phase 9's last part: one places512_deepfill step (8x512², bf16)
+    under interpret_kernels against the same step on the kernels, and one
+    under debug_mode."""
+    from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.utils.debug import debug_mode, interpret_kernels
+
+    def fresh():
+        _, st, fn, bt = _train_setup(torch, "places512_deepfill", TRAIN_512,
+                                     n_batches=1)
+        st.step = 1                       # no R1 pass
+        return st, fn, bt[0]
+
+    def one_step(fn, st, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = {k: float(v) for k, v in fn(st, batch).items()}
+        return m, (time.perf_counter() - t) * 1e3
+
+    st, fn, batch = fresh()
+    one_step(fn, st, batch)               # cuDNN tunes a fresh process here
+    st, fn, batch = fresh()
+    m_kernel, ms_kernel = one_step(fn, st, batch)
+    st_i, fn_i, _ = fresh()
+    dispatch.reset_launches()
+    with interpret_kernels():
+        m_interp, ms_interp = one_step(fn_i, st_i, batch)
+    inside = {k: v for k, v in dispatch.launches.items() if v}
+    _require(not inside, f"kernels launched under interpret_kernels: "
+             f"{inside}")
+    rel = max(abs(m_interp[k] - m_kernel[k]) / max(abs(m_kernel[k]), 1e-2)
+              for k in m_kernel)
+    _require(rel <= INTERPRET_STEP_TOL,
+             f"interpret step vs kernel step: {m_interp} vs {m_kernel}")
+    del st_i, fn_i
+    with debug_mode():
+        m_debug, ms_debug = one_step(fn, st, batch)
+    _require(all(np.isfinite(v) for v in m_debug.values()),
+             f"debug step: {m_debug}")
+    print(f"[9] one 8x512² bf16 step: kernels {ms_kernel:.1f} ms; under "
+          f"interpret_kernels (every kernel's mirror, 0 launches) "
+          f"{ms_interp:.1f} ms, metrics within {rel:.2e} of the kernel "
+          f"step's (tol {INTERPRET_STEP_TOL}); under debug_mode (NaN check "
+          f"per op, anomaly detection) {ms_debug:.1f} ms, nothing raised "
+          f"| {smi}")
+    del st, fn, batch
+    torch.cuda.empty_cache()
+    return dict(step_ms={"kernels": ms_kernel, "interpret": ms_interp,
+                         "debug_mode": ms_debug}, interpret_rel=rel)
+
+
 def main() -> int:
     import torch
 
@@ -2916,6 +3305,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     service = serving_tier(torch, rng, smi)
     svc = service["mixed"]["launches_by_bucket"]
+    torch.cuda.empty_cache()
+    files = file_data(torch, smi)
+    fl = files["launches"]            # phase 9's train() from the folder
 
     def row(name, kernel, res, launches, source, replaces, **extra):
         return dict(name=name, route="cuda", source=source,
@@ -2939,6 +3331,7 @@ def main() -> int:
             at_512["contextual_attention_fused"], attn_src, f"{tpu_fa}:52",
             launches_train=l512["contextual_attention_fused"],
             launches_service=svc[512]["contextual_attention_fused"],
+            launches_file_train=fl["contextual_attention_fused"],
             train_with_lse_ms=bwd512["forward_with_lse_ms"]),
         # the fold at B 8 (the 256² map) with the 64x256² serve bucket
         # under "at_64x256", and at the 8x512² train map
@@ -2949,7 +3342,8 @@ def main() -> int:
         row("fold_taps@512train", "b8_512train", fold, at_512["fold_taps"],
             fold_src, "gan_inpainting_tpu/ops/pallas/fold.py:32",
             launches_train=l512["fold_taps"],
-            launches_service=svc[512]["fold_taps"]),
+            launches_service=svc[512]["fold_taps"],
+            launches_file_train=fl["fold_taps"]),
         # the fused backward: rows 4 (δ, the score tiles and the dQ
         # products; "replaces" _bwd_dq_kernel) and 5 (the dK/dV products),
         # at the 256² train shape with the 512² one under "at_512train";
@@ -2960,7 +3354,8 @@ def main() -> int:
         kernels.append(row(
             f"{name}@256train", kname, bwd256, l256.get(name, 0), bwd_src,
             f"{tpu_bwd}:{223 if kname == 'dkv' else 148}",
-            at_512train=dict(bwd512[kname], launches=l512.get(name, 0))))
+            at_512train=dict(bwd512[kname], launches=l512.get(name, 0)),
+            launches_file_train=fl.get(name, 0)))
     # the tap-gradient fold: the scatter that _bwd_dq_kernel (:148) and
     # _bwd_dkv_kernel (:223) do in-kernel, with the XLA halo merge and
     # norm correction (:311, :328)
@@ -2969,7 +3364,8 @@ def main() -> int:
         f"{name}@256train", "fold", bwd256, l256.get(name, 0), fold_src,
         f"{tpu_bwd}:148", scatter_of=[f"{tpu_bwd}:{n}" for n in (
             148, 223, 311, 328)],
-        at_512train=dict(bwd512["fold"], launches=l512.get(name, 0))))
+        at_512train=dict(bwd512["fold"], launches=l512.get(name, 0)),
+        launches_file_train=fl.get(name, 0)))
     kernels += [
         # launches: path A's three requests (two forwards with the fused
         # decoder, one without) and path B's three
@@ -3020,7 +3416,7 @@ def main() -> int:
         "partialconv256_16x256_ms_per_step": path_b["train_ms"]},
         "serve_64x256": {"serve_v4_8": rates_a,
                          "partialconv256": path_b["rates"]},
-        "service": service}))
+        "service": service, "file_data": files}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,12 +2,12 @@
 DEV] [section.key=value ...]``.
 
 Subcommands: ``configs``, ``train``, ``eval``, ``infer``, ``export``,
-``mask``, ``serve`` and ``profile``, with the JAX package's flags. Every
-command but ``configs`` runs on the CUDA card unless ``--device`` names
-another device, and raises when there is no card and none is named
-(``export`` only moves weights between files, but checks the same).
-``--aot`` (AOT-compiled serving artifacts) and the ``bench`` and
-``parity`` commands are not ported yet (ROADMAP Queue 1).
+``mask``, ``serve``, ``profile`` and ``parity``, with the JAX package's
+flags. Every command but ``configs`` runs on the CUDA card unless
+``--device`` names another device, and raises when there is no card and
+none is named (``export`` only moves weights between files, but checks
+the same). ``--aot`` (AOT-compiled serving artifacts) and the ``bench``
+command are not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -24,8 +24,8 @@ from gan_inpainting_torch.configs.base import (
     list_configs,
 )
 
-_AOT_TODO = ("AOT serving artifacts are not ported yet: ROADMAP Queue 1 "
-             "item 8 (io/aot.py)")
+_AOT_TODO = ("AOT serving artifacts are not ported yet: ROADMAP Queue 1, "
+             "io/aot.py")
 
 
 def _add_common(p: argparse.ArgumentParser):
@@ -116,6 +116,22 @@ def _parser() -> argparse.ArgumentParser:
         "(Chrome trace under <train.workdir>/profile)")
     _add_common(p_prof)
     p_prof.add_argument("--steps", type=int, default=5)
+
+    p_par = sub.add_parser(
+        "parity", help="pinned PSNR/SSIM/SWD fingerprint across named "
+        "configs, fixed seeds (train/parity.py)")
+    p_par.add_argument("--configs", nargs="*", default=None)
+    p_par.add_argument("--max-image-size", type=int, default=None,
+                       help="cap image size (CPU runs of 512² configs)")
+    p_par.add_argument("--update", action="store_true",
+                       help="rewrite the pins of this device type with "
+                       "these results")
+    p_par.add_argument("--pinned", default=None,
+                       help="pinned-metrics file (default: the package's "
+                       "parity_pinned.json)")
+    p_par.add_argument("--device", default=None,
+                       help="torch device; default: CUDA, and an error when "
+                       "there is none")
     return parser
 
 
@@ -141,6 +157,27 @@ def main(argv=None) -> int:
     from gan_inpainting_torch.ops.dispatch import resolve_device
 
     device = resolve_device(args.device)
+
+    if args.cmd == "parity":
+        from gan_inpainting_torch.train.parity import (
+            PINNED_PATH,
+            check_parity,
+            run_parity,
+            update_pins,
+        )
+
+        pinned = pathlib.Path(args.pinned) if args.pinned else PINNED_PATH
+        results = run_parity(args.configs, args.max_image_size, device)
+        print(json.dumps(results, indent=2))
+        if args.update:
+            platform = update_pins(results, pinned, device)
+            print(f"pinned[{platform}] -> {pinned}")
+            return 0
+        problems = check_parity(results, pinned, device=device)
+        for p in problems:
+            print(f"DRIFT: {p}", file=sys.stderr)
+        return 1 if problems else 0
+
     cfg = apply_overrides(get_config(args.config), args.overrides)
 
     if args.cmd == "train":

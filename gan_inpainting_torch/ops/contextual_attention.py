@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from gan_inpainting_torch.ops.dispatch import (
+    interpreting,
     resolve_backend,
     section,
     use_kernel,
@@ -203,7 +204,7 @@ def contextual_attention(f, b, hole_mask, *, ksize: int = 3, rate: int = 2,
       (B, H, W, C) attended features, in f's dtype.
     """
     backend = resolve_backend(backend, op="contextual_attention")
-    if backend == "xla" or not use_kernel(b):
+    if backend == "xla" or not (interpreting() or use_kernel(b)):
         return contextual_attention_plain(f, b, hole_mask, ksize=ksize,
                                           rate=rate,
                                           softmax_scale=softmax_scale)

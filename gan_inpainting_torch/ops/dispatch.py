@@ -19,6 +19,14 @@ configs load and mean the same thing (:func:`resolve_backend`):
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels.
 
+``interpret_kernels()`` is the counterpart of Pallas interpret mode: inside
+the block no kernel launches, and every wrapper that would launch one takes
+that kernel's mirror instead (its tiling and order of sums, in PyTorch),
+on any device. Wrappers read the one global flag through
+:func:`interpreting`; a kernel without a mirror (the partial-conv epilogue)
+takes its plain version. Routes (fused or patch attention, the backends)
+are chosen as outside the block.
+
 ``section(name)`` marks a named stretch of work (the train step's phases,
 the attention backward). It does nothing unless a measuring tool installs
 a hook with ``set_section_hook``: a function ``name -> context manager``
@@ -89,6 +97,26 @@ def override_backend(backend: str):
 
 
 launches: dict[str, int] = {}
+_interpret = False            # set by interpret_kernels, for every thread
+
+
+@contextlib.contextmanager
+def interpret_kernels():
+    """Run every kernel's mirror instead of the kernel inside the block, in
+    every thread, as ``pltpu.force_tpu_interpret_mode`` does for Pallas;
+    the previous setting is restored on exit."""
+    global _interpret
+    prev = _interpret
+    _interpret = True
+    try:
+        yield
+    finally:
+        _interpret = prev
+
+
+def interpreting() -> bool:
+    """True inside :func:`interpret_kernels`: take the mirror."""
+    return _interpret
 
 
 def count_launch(name: str) -> None:
@@ -102,12 +130,11 @@ def reset_launches() -> None:
 
 def use_kernel(x: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (take the plain version); any other device raises."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"no implementation for device {x.device}")
+    (take the plain version) and inside :func:`interpret_kernels`, where
+    nothing launches; any other device raises."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no implementation for device {x.device}")
+    return x.device.type == "cuda" and not _interpret
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

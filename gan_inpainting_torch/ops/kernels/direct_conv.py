@@ -22,15 +22,16 @@ variants and the weight packing are in the source note of
 the launch are shared with ops/kernels/gated_matmul.py.
 
 On a CPU tensor the wrapper takes the plain version (conv2d +
-``gated_epilogue``). The gradient recomputes through the plain composition,
-as the JAX kernel's custom VJP does.
+``gated_epilogue``); inside ``interpret_kernels`` the kernel's mirror
+(``gated_matmul.forward_mirror``). The gradient recomputes through the
+plain composition, as the JAX kernel's custom VJP does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gan_inpainting_torch.ops.dispatch import use_kernel
+from gan_inpainting_torch.ops.dispatch import interpreting, use_kernel
 from gan_inpainting_torch.ops.gated_conv import gated_conv_plain
 from gan_inpainting_torch.ops.kernels.gated_matmul import (
     GatedPlan,
@@ -38,6 +39,7 @@ from gan_inpainting_torch.ops.kernels.gated_matmul import (
     _check_cuda,
     _GatedConv,
     conv_geom,
+    forward_mirror,
     launch_gated,
     packed_weights,
     pad_channels,
@@ -88,12 +90,16 @@ def gated_conv_direct(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(
             f"gated_conv_direct takes stride 1 and an odd window, got "
             f"stride={stride} k={weight.shape[2]} x={tuple(x.shape)}")
-    if not use_kernel(x):
+    if not (interpreting() or use_kernel(x)):
         return gated_conv_plain(x, weight, bias, stride=1, dilation=dilation,
                                 activation=activation)
     _check_cuda(x, weight, bias)
     x = x.contiguous()
     bias32 = bias.float().contiguous()
-    return _GatedConv.apply(x, weight, bias, 1, dilation, activation,
-                            lambda: _forward_direct(x, weight, bias32,
-                                                    dilation, activation))
+    if interpreting():
+        def fwd():
+            return forward_mirror(x, weight, bias32, 1, dilation, activation)
+    else:
+        def fwd():
+            return _forward_direct(x, weight, bias32, dilation, activation)
+    return _GatedConv.apply(x, weight, bias, 1, dilation, activation, fwd)

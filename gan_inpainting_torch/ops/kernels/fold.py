@@ -26,7 +26,11 @@ import functools
 
 import torch
 
-from gan_inpainting_torch.ops.dispatch import count_launch, use_kernel
+from gan_inpainting_torch.ops.dispatch import (
+    count_launch,
+    interpreting,
+    use_kernel,
+)
 from gan_inpainting_torch.ops.kernels import build
 from gan_inpainting_torch.ops.patches import fold_patches
 
@@ -109,8 +113,9 @@ def fold_taps_mirror(taps: torch.Tensor, hs: int, ws: int,
     q1), (p1, q0), (p1, q1), and scales by :func:`fold_inv`."""
     _check(taps, hs, ws, rate)
     win = 2 * rate
-    p0, i0, r0, r1 = fold_pairs(rate * hs, hs, rate)
-    q0, j0, c0, c1 = fold_pairs(rate * ws, ws, rate)
+    dev = taps.device
+    p0, i0, r0, r1 = (t.to(dev) for t in fold_pairs(rate * hs, hs, rate))
+    q0, j0, c0, c1 = (t.to(dev) for t in fold_pairs(rate * ws, ws, rate))
     acc = torch.zeros((taps.shape[0], rate * hs, rate * ws, taps.shape[-1]),
                       device=taps.device)
     for p, i, rv in ((p0, i0, r0), (p0 + rate, i0 - 1, r1)):
@@ -148,6 +153,8 @@ def fold_taps(taps: torch.Tensor, hs: int, ws: int,
     """Overlap-add (B, 4r², hs·ws, C) tap-major patches (window 2r, stride
     r, SAME) into (B, r·hs, r·ws, C), divided by the overlap counts."""
     _check(taps, hs, ws, rate)
+    if interpreting():
+        return fold_taps_mirror(taps, hs, ws, rate)
     if not use_kernel(taps):
         return fold_taps_plain(taps, hs, ws, rate)
     if taps.dtype not in _DTYPES:

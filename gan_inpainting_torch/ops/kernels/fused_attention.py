@@ -39,7 +39,11 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from gan_inpainting_torch.ops.dispatch import count_launch, use_kernel
+from gan_inpainting_torch.ops.dispatch import (
+    count_launch,
+    interpreting,
+    use_kernel,
+)
 from gan_inpainting_torch.ops.kernels import build
 from gan_inpainting_torch.ops.kernels.patch_attention import wgmma_cluster
 
@@ -371,7 +375,7 @@ def fused_attention_taps(b_feat: torch.Tensor, hole_mask: torch.Tensor, *,
     if tuple(hole_mask.shape) != (bsz, h, w, 1):
         raise ValueError(f"hole_mask {tuple(hole_mask.shape)} must be "
                          f"{(bsz, h, w, 1)}")
-    if not use_kernel(b_feat):
+    if not (interpreting() or use_kernel(b_feat)):
         return fused_attention_taps_plain(b_feat, hole_mask, ksize=ksize,
                                           rate=rate,
                                           softmax_scale=softmax_scale,
@@ -385,6 +389,12 @@ def fused_attention_taps(b_feat: torch.Tensor, hole_mask: torch.Tensor, *,
     if hole_mask.device != b_feat.device:
         raise ValueError("hole_mask and b_feat must be on one device")
     maps, bias, rnorm, (hs, ws) = _prepare(b_feat, hole_mask, ksize, rate)
+    if interpreting():
+        # the kernel's mirror at the cluster its plan picks
+        cluster = plan(hs, ws, b_feat.shape[-1], b_feat.dtype, rate)[2]
+        taps, lse = fused_attention_mirror(maps, bias, rnorm, hs, ws, rate,
+                                           softmax_scale, cluster=cluster)
+        return (taps, lse) if want_lse else taps
     return _launch(maps, bias, rnorm, hs, ws, rate, softmax_scale,
                    want_lse=want_lse)
 

@@ -62,7 +62,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from gan_inpainting_torch.ops.dispatch import count_launch, use_kernel
+from gan_inpainting_torch.ops.dispatch import (
+    count_launch,
+    interpreting,
+    use_kernel,
+)
 from gan_inpainting_torch.ops.kernels import build, fold
 from gan_inpainting_torch.ops.kernels.fused_attention import (
     _DTYPES,
@@ -360,6 +364,9 @@ def fold_tap_grads(maps, dq_taps, dk_taps, dv_taps, tnorm, rnorm, hs: int,
     tensor one launch of ``gi_fold_tap_grads`` (csrc/fold.cu), which reads
     each tap gradient once and writes the gradient once; on a CPU tensor
     :func:`fold_tap_grads_plain`."""
+    if interpreting():
+        return fold_tap_grads_mirror(maps, dq_taps, dk_taps, dv_taps, tnorm,
+                                     rnorm, hs, ws, rate, scale)
     if not use_kernel(maps):
         return fold_tap_grads_plain(maps, dq_taps, dk_taps, dv_taps, tnorm,
                                     rnorm, hs, ws, rate, scale).to(maps.dtype)
@@ -634,7 +641,7 @@ def tap_grads(maps, gmaps, bias, rnorm, lse, o_taps, hs: int, ws: int,
     ``variant`` None takes :func:`plan_bwd`'s; "core" forces the core
     kernels (also on bf16). The wgmma variant runs δ once, then per chunk
     of samples (at most ``budget`` bytes of scratch) the scores, dQ and
-    dK/dV launches."""
+    dK/dV launches. Inside ``interpret_kernels`` the mirror too."""
     if not use_kernel(maps):
         return tap_grads_mirror(maps, gmaps, bias, rnorm, lse, o_taps, hs,
                                 ws, rate, scale)
@@ -681,7 +688,7 @@ def contextual_attention_bwd(b_feat: torch.Tensor, hole_mask: torch.Tensor,
                              softmax_scale: float = 10.0) -> torch.Tensor:
     """d(fold(fused attention)) / d ``b_feat`` (B, H, W, C), in its dtype,
     from the forward's residuals and the output gradient ``g``."""
-    if not use_kernel(b_feat):
+    if not (interpreting() or use_kernel(b_feat)):
         return contextual_attention_bwd_plain(
             b_feat, hole_mask, g, ksize=ksize, rate=rate,
             softmax_scale=softmax_scale)

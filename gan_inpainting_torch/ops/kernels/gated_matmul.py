@@ -39,7 +39,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from gan_inpainting_torch.ops.dispatch import count_launch, use_kernel
+from gan_inpainting_torch.ops.dispatch import (
+    count_launch,
+    interpreting,
+    use_kernel,
+)
 from gan_inpainting_torch.ops.gated_conv import (
     gated_conv_plain,
     gated_epilogue,
@@ -372,6 +376,19 @@ class _GatedConv(torch.autograd.Function):
                      for t in leaves) + (None,) * 4
 
 
+def forward_mirror(x, weight, bias, stride, dilation, activation):
+    """The forward of ``interpret_kernels``: :func:`gated_conv_mirror` on
+    the operands the kernel would get, on the CPU (the mirror walks its
+    tiles there), returned on x's device in x's dtype."""
+    f = weight.shape[0] // 2
+    p = plan(x.shape[3], f, x.dtype)
+    g = conv_geom(x.shape[1], x.shape[2], weight.shape[2], stride, dilation)
+    out = gated_conv_mirror(pad_channels(x, p.cin_pad).cpu(),
+                            pack_weights(weight.detach().to(x.dtype), p).cpu(),
+                            bias.cpu(), f, g, p, activation)
+    return out.to(x.device, x.dtype)
+
+
 def _forward_matmul(x, weight, bias, stride, dilation, activation):
     f = weight.shape[0] // 2
     p = plan(x.shape[3], f, x.dtype)
@@ -388,12 +405,13 @@ def gated_conv_matmul(x: torch.Tensor, weight: torch.Tensor,
     master weights), bias: (2F,) → (B, Ho, Wo, F), TF-SAME. Kernel on a
     CUDA tensor, plain on the CPU."""
     _check(x, weight, bias, activation)
-    if not use_kernel(x):
+    if not (interpreting() or use_kernel(x)):
         return gated_conv_plain(x, weight, bias, stride=stride,
                                 dilation=dilation, activation=activation)
     _check_cuda(x, weight, bias)
     x = x.contiguous()
     bias32 = bias.float().contiguous()
+    fwd = forward_mirror if interpreting() else _forward_matmul
     return _GatedConv.apply(x, weight, bias, stride, dilation, activation,
-                            lambda: _forward_matmul(x, weight, bias32, stride,
-                                                    dilation, activation))
+                            lambda: fwd(x, weight, bias32, stride, dilation,
+                                        activation))

@@ -107,7 +107,8 @@ class _PartialEpilogue(torch.autograd.Function):
 def partial_conv_epilogue(raw: torch.Tensor, counts: torch.Tensor,
                           bias: torch.Tensor, window: int):
     """(y, valid_out) as :func:`partial_conv_epilogue_plain`: the kernel on
-    a CUDA tensor, the plain version on a CPU tensor."""
+    a CUDA tensor, the plain version on a CPU tensor and inside
+    ``interpret_kernels`` (the kernel has no mirror)."""
     if raw.dim() != 4 or counts.shape != raw.shape[:3] + (1,) \
             or bias.shape != raw.shape[3:]:
         raise ValueError(f"raw {tuple(raw.shape)}, counts "

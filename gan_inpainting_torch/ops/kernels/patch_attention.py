@@ -46,7 +46,11 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from gan_inpainting_torch.ops.dispatch import count_launch, use_kernel
+from gan_inpainting_torch.ops.dispatch import (
+    count_launch,
+    interpreting,
+    use_kernel,
+)
 from gan_inpainting_torch.ops.kernels import build
 
 KERNEL_FWD = "patch_attention_fwd"
@@ -351,6 +355,15 @@ def patch_attention_mirror(q, k, key_valid, v, *, softmax_scale: float,
 # ---------------------------------------------------------------------------
 
 
+def _mirror_tiles(which: str, d: int, dv: int, dtype: torch.dtype) -> dict:
+    """:func:`patch_attention_mirror`'s tiling for the kernel that
+    :func:`plan` picks: the wgmma kernels' 64-wide units and 128-column
+    steps, the float32 template's 16 and 32, at the plan's cluster."""
+    variant, cluster = plan(d, dv, dtype, which)
+    unit, block_c = (WGMMA_UNIT, 128) if variant == "wgmma" else (16, 32)
+    return dict(cluster=cluster, block_c=block_c, unit=unit)
+
+
 def _check(q, k, key_valid, v, *extra):
     if q.dtype not in _DTYPES:
         raise TypeError(f"patch attention kernels take {_DTYPES}, got "
@@ -543,6 +556,12 @@ def patch_attention(q, k, key_valid, v, *, softmax_scale: float,
     key_valid (B, Lk) bool, v (B, Lk, dv) → (B, Lq, dv) in v's dtype; rows
     with no valid key are exactly 0. ``want_lse`` also returns the (B, Lq)
     float32 log-sum-exp the backward rebuilds p from."""
+    if interpreting():
+        _check(q, k, key_valid, v)
+        out, lse = patch_attention_mirror(
+            q, k, key_valid, v, softmax_scale=softmax_scale,
+            **_mirror_tiles("fwd", q.shape[-1], v.shape[-1], q.dtype))
+        return (out, lse) if want_lse else out
     if not use_kernel(q):
         return patch_attention_plain(q, k, key_valid, v,
                                      softmax_scale=softmax_scale,
@@ -555,6 +574,17 @@ def patch_attention_bwd(q, k, key_valid, v, out, lse, g, *,
                         softmax_scale: float):
     """(dq, dk, dv) of patch attention from the forward's (out, lse) and
     the output gradient ``g``; δ = rowsum(g∘out) is taken in float32."""
+    if interpreting():
+        _check(q, k, key_valid, v)
+        d, dv = q.shape[-1], v.shape[-1]
+        args = dict(softmax_scale=softmax_scale, out=out, lse=lse,
+                    g=g.to(q.dtype))
+        dq = patch_attention_mirror(q, k, key_valid, v, **args,
+                                    **_mirror_tiles("dq", d, dv, q.dtype))[0]
+        _, dk, dv_ = patch_attention_mirror(
+            q, k, key_valid, v, **args, **_mirror_tiles("dkv", d, dv,
+                                                        q.dtype))
+        return dq.to(q.dtype), dk.to(q.dtype), dv_.to(q.dtype)
     if not use_kernel(q):
         return patch_attention_bwd_plain(q, k, key_valid, v, out, lse, g,
                                          softmax_scale=softmax_scale)

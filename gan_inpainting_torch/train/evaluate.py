@@ -1,7 +1,7 @@
 """Eval loop: mean PSNR / SSIM of the composited output on held-out
-synthetic batches with fresh masks, all drawn from the run's seed, and the
-multi-scale SWD (metrics/swd.py) over the pooled composites when
-``eval.metrics`` asks for ``swd``."""
+batches (the eval split of ``data.dataset``) with fresh masks drawn from
+the run's seed, and the multi-scale SWD (metrics/swd.py) over the pooled
+composites when ``eval.metrics`` asks for ``swd``."""
 
 from __future__ import annotations
 
@@ -25,7 +25,9 @@ def make_eval_step(cfg: Config, device: str | torch.device | None = None):
     on a generator of its own, so evaluating the EMA never touches the
     training modules. With ``swd`` in ``eval.metrics`` the result also
     holds ``_composite``, the composited images as float16 (the SWD
-    descriptors are normalized anyway), for :func:`evaluate` to pool."""
+    descriptors are normalized anyway), for :func:`evaluate` to pool.
+    ``eval_step.generator`` is that generator module (the loop's sample
+    grid runs it too)."""
     names = tuple(cfg.eval.metrics)
     unknown = [n for n in names if n not in _METRIC_FNS and n != "swd"]
     if unknown:
@@ -47,6 +49,7 @@ def make_eval_step(cfg: Config, device: str | torch.device | None = None):
             res["_composite"] = comp.to(torch.float16)
         return res
 
+    eval_step.generator = gen
     return eval_step
 
 
@@ -77,6 +80,7 @@ def evaluate(cfg: Config, g_state_dict, seed: int = 0, eval_step=None,
                 continue
             sums[name] = sums.get(name, 0.0) + float(value)
         count += cfg.data.eval_batch_size
+    it.close()                  # a folder stream's decoder threads end here
     out = {name: total / count for name, total in sums.items()}
     if comps:
         real = torch.cat(reals)[:swd_cap].float()

@@ -1,5 +1,6 @@
-"""Training loop: data, step, periodic logging / eval / checkpoints, and
-resume from the latest checkpoint. All math lives in the step.
+"""Training loop: data, step, periodic logging / eval / sample grids /
+checkpoints, and resume from the latest checkpoint. All math lives in the
+step.
 
 Every random draw of step ``n`` (data batch, crop, flip, masks) comes from
 a generator derived from (seed, stream, n), so a resumed run continues
@@ -12,12 +13,14 @@ import json
 import pathlib
 import time
 
+import numpy as np
 import torch
 
 from gan_inpainting_torch.configs.base import Config
 from gan_inpainting_torch.data.loader import make_dataset
-from gan_inpainting_torch.data.pipeline import make_train_batch
+from gan_inpainting_torch.data.pipeline import denormalize, make_train_batch
 from gan_inpainting_torch.io.checkpoint import CheckpointManager
+from gan_inpainting_torch.io.metrics_writer import MetricsWriter
 from gan_inpainting_torch.ops.dispatch import resolve_device
 from gan_inpainting_torch.train.evaluate import evaluate, make_eval_step
 from gan_inpainting_torch.train.state import (
@@ -25,16 +28,22 @@ from gan_inpainting_torch.train.state import (
     ema_generator_params,
     warm_start,
 )
-from gan_inpainting_torch.train.step import make_train_step
-from gan_inpainting_torch.utils.rng import STREAM_MASKS, stream_generator
+from gan_inpainting_torch.train.step import composite, make_train_step
+from gan_inpainting_torch.utils.rng import (
+    STREAM_EVAL,
+    STREAM_MASKS,
+    stream_generator,
+)
 
 
 def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
           device: str | torch.device | None = None):
     """Run ``cfg.train.steps`` of GAN training on ``device`` (CUDA unless
     the caller asks for another); returns (state, last metrics as floats).
-    Scalars stream to ``<workdir>/metrics.jsonl``. Raises for a
-    ``train.mesh`` above one device (``create_state``)."""
+    Scalars stream to ``<workdir>/metrics.jsonl`` and, with the sample grid
+    of every eval, to TensorBoard under ``<workdir>/tb`` where it imports
+    (io/metrics_writer.py). Raises for a ``train.mesh`` above one device
+    (``create_state``)."""
     device = resolve_device(device)
     state = create_state(cfg, device=device)
     ckpt = CheckpointManager(cfg.train.workdir, cfg.train.max_checkpoints)
@@ -60,13 +69,7 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
             best_psnr = json.loads(best_path.read_text()).get(
                 "psnr", float("-inf"))
 
-    log = open(pathlib.Path(cfg.train.workdir) / "metrics.jsonl", "a",
-               buffering=1)
-
-    def write(step: int, values: dict) -> None:
-        log.write(json.dumps({"step": step, "time": time.time(),
-                              **values}) + "\n")
-
+    writer = MetricsWriter(cfg.train.workdir)
     train_step = make_train_step(cfg)
     eval_step = make_eval_step(cfg, device)
     data = make_dataset(cfg.data, seed=cfg.train.seed, split="train",
@@ -95,7 +98,7 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
                 t_last, steps_since_log = now, 0
                 scalars["steps_per_sec"] = sps
                 scalars["images_per_sec"] = sps * cfg.data.batch_size
-                write(next_step, scalars)
+                writer.scalars(next_step, scalars)
                 if verbose:
                     msg = " ".join(f"{k}={v:.4g}" for k, v in scalars.items())
                     print(f"[train] step {next_step}: {msg}")
@@ -103,7 +106,8 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
             if next_step % cfg.train.eval_every == 0 or last:
                 ev = evaluate(cfg, ema_generator_params(state),
                               eval_step=eval_step, device=device)
-                write(next_step, {f"eval_{k}": v for k, v in ev.items()})
+                writer.scalars(next_step,
+                               {f"eval_{k}": v for k, v in ev.items()})
                 if verbose:
                     print(f"[train] eval@{next_step}: {ev}")
                 if track_best and ev.get("psnr", float("-inf")) > best_psnr:
@@ -114,9 +118,39 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
                     if verbose:
                         print(f"[train] new best psnr {best_psnr:.3f} "
                               f"@ {next_step} -> checkpoints_best")
+                _dump_samples(cfg, state, writer, next_step, eval_step,
+                              device)
 
             if next_step % cfg.train.checkpoint_every == 0 or last:
                 ckpt.save(next_step, state, cfg)
     finally:
-        log.close()
+        data.close()            # a folder stream's decoder threads end here
+        writer.close()
     return state, scalars
+
+
+@torch.no_grad()
+def _dump_samples(cfg: Config, state, writer: MetricsWriter, step: int,
+                  eval_step, device, n: int = 4) -> np.ndarray:
+    """Write a (masked | output | composite | target) grid of ``n`` eval
+    images (at most an eval batch, which the eval split holds), side by
+    side on the width axis, as TensorBoard images; masks from the run's
+    eval stream at ``step``. The EMA generator runs on the eval step's
+    module. Returns the (n, H, 4W, 3) uint8 grid."""
+    it = make_dataset(cfg.data, seed=cfg.train.seed, split="eval",
+                      batch_size=min(n, cfg.data.eval_batch_size),
+                      device=device)
+    images = next(it)
+    it.close()
+    batch = make_train_batch(
+        images, stream_generator(cfg.train.seed, STREAM_EVAL, step),
+        cfg.mask)
+    gen = eval_step.generator
+    gen.load_state_dict(ema_generator_params(state))
+    out = gen(batch.masked, batch.mask).fine.float()
+    comp = composite(out, batch.image, batch.mask)
+    grid = torch.cat([denormalize(t) for t in (batch.masked, out, comp,
+                                               batch.image)], dim=2)
+    grid = grid.cpu().numpy()
+    writer.images(step, "samples", grid)
+    return grid

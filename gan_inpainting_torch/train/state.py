@@ -118,14 +118,14 @@ def require_one_device(cfg: Config) -> None:
     """Raise for a ``train.mesh`` the port cannot run: it trains on one
     device, so ``model``, ``spatial`` or ``data`` above 1 would otherwise
     be ignored without a word (``data = -1``, all devices, is the one
-    card). Meshes come with ROADMAP Queue 1 item 7 (``parallel/``)."""
+    card). Meshes come with ROADMAP Queue 1, ``parallel/``."""
     mesh = cfg.train.mesh
     for axis in ("model", "spatial", "data"):
         n = getattr(mesh, axis)
         if n > 1:
             raise NotImplementedError(
                 f"train.mesh.{axis}={n}: the PyTorch port trains on one "
-                "device; meshes await ROADMAP Queue 1 item 7 (parallel/)")
+                "device; meshes await ROADMAP Queue 1, parallel/")
 
 
 def create_state(cfg: Config, seed: int | None = None,

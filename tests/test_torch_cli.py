@@ -18,7 +18,7 @@ from gan_inpainting_torch.io.export import export_generator
 from gan_inpainting_torch.models.generator import build_generator
 
 COMMANDS = ("configs", "train", "eval", "infer", "export", "mask", "serve",
-            "profile")
+            "profile", "parity")
 # celebahq256_freeform with attention at width 8 (eval.metrics has swd)
 TINY = ["model.base_features=8", "model.disc_features=8",
         "model.use_attention=true", "model.dtype_policy=f32",
@@ -63,7 +63,7 @@ def test_help_lists_every_command(capsys):
 
 @pytest.mark.parametrize("argv", [
     ["train"], ["eval"], ["export", "--output", "g.npz"],
-    ["mask", "--output", "m.png"], ["serve"], ["profile"],
+    ["mask", "--output", "m.png"], ["serve"], ["profile"], ["parity"],
     ["infer", "--image", "i.png", "--mask", "m.png", "--output", "o.png"],
 ], ids=lambda a: a[0])
 def test_commands_raise_without_cuda(monkeypatch, argv):
@@ -178,7 +178,7 @@ def test_profile_writes_a_trace(tmp_path, capsys):
     ["export", "--output", "g.npz", "--aot"],
 ], ids=lambda a: a[0])
 def test_aot_raises(argv):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1, io/aot.py"):
         main(argv + ["--device", "cpu"])
 
 
@@ -215,3 +215,23 @@ def test_serve_answers_over_http(npz, monkeypatch):
             made[0].shutdown()
         thread.join(timeout=60)
     assert not thread.is_alive() and rc == [0]
+
+
+def test_parity_command(tmp_path, capsys, monkeypatch):
+    from gan_inpainting_torch.train import parity
+
+    argv = ["parity", "--device", "cpu", "--configs", "celeba128_center"]
+    assert main(argv) == 0                   # the package's own cpu pins
+    res = json.loads(capsys.readouterr().out)
+    assert set(res["celeba128_center"]) == {"psnr", "ssim"}
+    # the same fingerprint again, without evaluating it again
+    monkeypatch.setattr(parity, "run_parity", lambda *a: res)
+    pins = tmp_path / "pins.json"
+    assert main([*argv, "--pinned", str(pins), "--update"]) == 0
+    assert json.loads(pins.read_text()) == {"cpu": res}
+    drift = {"cpu": {"celeba128_center": {"psnr": res["celeba128_center"][
+        "psnr"] + 0.5, "ssim": res["celeba128_center"]["ssim"]}}}
+    pins.write_text(json.dumps(drift))
+    capsys.readouterr()
+    assert main([*argv, "--pinned", str(pins)]) == 1
+    assert "DRIFT: celeba128_center.psnr" in capsys.readouterr().err

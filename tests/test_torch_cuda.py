@@ -971,3 +971,32 @@ def test_contextual_attention_patch_routes_on_cuda(cuda, case, monkeypatch):
         want = contextual_attention_bwd_plain(f, hole, g, ksize=ksize)
     assert _rel(x.grad, want) <= 2e-4
     assert x.grad[1].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_interpret_kernels_launches_nothing_on_the_card(cuda, dtype):
+    """Inside interpret_kernels a CUDA feature map takes the mirrors (no
+    launch) and agrees with the kernels; after it the kernels launch."""
+    from gan_inpainting_torch.utils.debug import interpret_kernels
+
+    f, hole = _case(11, 3, 32, 32, 64, cuda)
+    f = f.to(dtype)
+    g = torch.randn(f.shape, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(0)).to(dtype)
+
+    def run():
+        x = f.clone().requires_grad_(True)
+        y = contextual_attention(x, x, hole)
+        (dx,) = torch.autograd.grad(y, x, g)
+        return y.float(), dx.float()
+
+    dispatch.reset_launches()
+    with interpret_kernels():
+        y_i, dx_i = run()
+    assert not any(dispatch.launches.values())
+    y_k, dx_k = run()
+    assert dispatch.launches["contextual_attention_fused"] == 1
+    frac = 2e-4 if dtype == torch.float32 else 2.0 ** -6
+    for a, b in ((y_i, y_k), (dx_i, dx_k)):
+        assert (a - b).abs().max().item() <= frac * max(
+            b.abs().max().item(), 1.0)

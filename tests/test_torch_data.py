@@ -221,5 +221,8 @@ def test_make_train_batch_and_dataset():
                for row in windows for wd in row)
     with pytest.raises(ValueError, match="exceeds"):
         make_train_batch(first, _gen(), mcfg, crop=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_dataset(DataConfig(dataset="folder"), seed=0)
+    with pytest.raises(FileNotFoundError, match="no images"):
+        next(make_dataset(DataConfig(dataset="folder",
+                                     root="/nonexistent_dir_xyz"), seed=0))
+    with pytest.raises(ValueError, match="unknown dataset"):
+        make_dataset(DataConfig(dataset="lmdb"), seed=0)
