@@ -96,9 +96,27 @@ Phases (each prints its lines; any failure exits non-zero):
    pinned artifacts beside their manifests' TPU-era figures; one step
    under ``interpret_kernels`` (no launch, metrics near the kernel
    step's) and one under ``debug_mode``;
-10. one JSON line of per-kernel numbers (with the service's under
-   ``"service"`` and phase 9's under ``"file_data"``), then the result
-   line.
+10. path F, data parallelism: (a) ``torchrun --nproc-per-node 1 -m
+   gan_inpainting_torch train --config places512_deepfill`` (one NCCL
+   rank, 6 steps, an eval): the record (metrics.jsonl with the world size
+   and 2 gradient all-reduces per step, a checkpoint, the sample grid) and
+   steps/s beside the same train() without torchrun, in this process, in
+   turns (torchrun, alone, torchrun); (b) two
+   gloo ranks sharing cuda:0 (spawned workers calling the port with
+   ``device="cuda:0"``): ``places512_deepfill`` at full width, global
+   batch 8 (4 per rank), 2 steps on fixed batches in bf16 at 512² and in
+   float32 at 256² with the ranks' whole state bit-identical after each
+   step, the float32 steps against one process on the 8 images, then
+   ``train()`` over both ranks (4 steps, an eval, a checkpoint; only rank
+   0 writes) resumed to step 5, each rank's peak memory, steps/s and
+   launches of rows 2–5b; (c) an
+   ``Inpainter`` over two replicas on cuda:0 at 64×256² bf16 against one
+   replica (known pixels bit-exact, holes within ±2 on ≥ 99.9 %), behind
+   ``InpaintService``, img/s of one and two replicas in turns. One card
+   cannot time NCCL across cards: no rate of this phase is one;
+11. one JSON line of per-kernel numbers (with the service's under
+   ``"service"``, phase 9's under ``"file_data"`` and phase 10's under
+   ``"data_parallel"``), then the result line.
 
 Phase 2 also holds the three patch-attention kernels (forward, dQ, dK/dV)
 against their plain versions at the full widths (d 1728, dv 3072) at L
@@ -1368,6 +1386,7 @@ def serve(torch, rng, smi):
           f"min {min(lat):.2f} ms over 10 | {smi}")
 
     # ---- throughput: 64×256² bf16 --------------------------------------
+    t_c = time.perf_counter()
     imgs = _smooth_images(rng, 64, 256, 256)
     masks = _stroke_masks(rng, 64, 256, 256)
     inp.inpaint_batch(imgs, masks)
@@ -1522,6 +1541,7 @@ def serve_kernel_backend(torch, rng, smi, img1, msk1, cpu_f32):
              "f32 pallas output disagrees with xla or the CPU")
 
     # ---- throughput, 64×256² bf16, the three backend values --------------
+    t_c = time.perf_counter()
     imgs = _smooth_images(rng, 64, 256, 256)
     masks = _stroke_masks(rng, 64, 256, 256)
     auto = load("auto")
@@ -3181,6 +3201,435 @@ def debug_steps(torch, smi):
                          "debug_mode": ms_debug}, interpret_rel=rel)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: path F, data parallelism
+# ---------------------------------------------------------------------------
+
+# (a) the train command under torchrun and without it: steps, logged every
+# DP_LOG (the windows after the first carry no R1 pass and no tuning); the
+# eval batch is a train batch, so that it needs no cuDNN tuning of its own
+DP_STEPS, DP_LOG = 6, 2
+DP_TRAIN = ["data.synthetic_family=textured", "data.num_eval_batches=1",
+            "data.eval_batch_size=8"]
+# (b) the float32 steps at 256² images (full width; the 512² map's float32
+# tuning and patch route took minutes of the phase), bf16 at 512²
+DP_F32 = TRAIN_512 + ["model.dtype_policy=f32", "data.image_size=256"]
+# (b) the f32 2-rank steps against one process on the whole batch: the
+# metrics within F32_DP_METRIC_REL (relative), and the parameters within
+# F32_DP_PARAM_ATOL on at least F32_DP_PARAM_FRAC of the entries, none
+# further apart than two Adam steps can move them (2 · 2 · the larger lr:
+# where a gradient is near 0, its rounding noise decides the direction of
+# the update, as in phase 4)
+F32_DP_METRIC_REL, F32_DP_PARAM_ATOL, F32_DP_PARAM_FRAC = 1e-3, 1e-5, 0.999
+# (c) two replicas serve 256² only: two buckets to warm per replica thread
+DP_SERVE = ["model.fuse_upsample=true", "infer.size_buckets=256",
+            "infer.batch_buckets=8,64"]
+
+
+def _dp_command(torch, workdir, torchrun: bool):
+    """The train command for DP_STEPS steps: the user's command line under
+    ``torchrun --nproc-per-node 1`` (a process of its own), or train() of
+    the same config in this process, alone (its cuDNN plans tuned by the
+    phases before). Returns (the command's stdout, the metrics.jsonl
+    records, the steps/s of the windows after the first)."""
+    import os
+
+    overrides = DP_TRAIN + [
+        f"train.steps={DP_STEPS}", f"train.log_every={DP_LOG}",
+        f"train.eval_every={DP_STEPS}", f"train.checkpoint_every={DP_STEPS}",
+        f"train.workdir={workdir}"]
+    out = ""
+    if torchrun:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", "-m", "gan_inpainting_torch", "train",
+               "--config", "places512_deepfill"] + overrides
+        res = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
+            __file__)), capture_output=True, text=True, timeout=600)
+        _require(res.returncode == 0, f"{' '.join(cmd[:8])} ... exited "
+                 f"{res.returncode}: {res.stderr[-3000:]}")
+        out = res.stdout
+    else:
+        from gan_inpainting_torch.configs.base import (
+            apply_overrides,
+            get_config,
+        )
+        from gan_inpainting_torch.train.loop import train as train_loop
+
+        train_loop(apply_overrides(get_config("places512_deepfill"),
+                                   overrides),
+                   resume=False, verbose=False, device="cuda")
+    recs = [json.loads(ln) for ln in
+            (workdir / "metrics.jsonl").read_text().splitlines()]
+    rates = [r["steps_per_sec"] for r in recs
+             if "steps_per_sec" in r and r["step"] > DP_LOG]
+    return out, recs, rates
+
+
+def _dp_identical(torch, state) -> bool:
+    """Whether every rank holds rank 0's state bit for bit: parameters,
+    spectral vectors, both Adams (their step counters too) and the EMA."""
+    import torch.distributed as dist
+
+    from gan_inpainting_torch.parallel.sharding import _state_tensors
+
+    mine = torch.cat([t.reshape(-1).float().to(state.device)
+                      for t in _state_tensors(
+                          (state.generator, state.discriminator),
+                          (state.g_opt, state.d_opt), state.g_ema.values())])
+    ref = mine.clone()
+    dist.broadcast(ref, 0)
+    differs = torch.tensor([0.0 if torch.equal(ref, mine) else 1.0])
+    dist.all_reduce(differs)
+    return differs.item() == 0.0
+
+
+def _dp_batches(torch, cfg, n):
+    """n fixed global batches, made on the CPU from seeds (every process
+    makes the same ones)."""
+    from gan_inpainting_torch.data.loader import make_dataset
+    from gan_inpainting_torch.data.pipeline import make_train_batch
+    from gan_inpainting_torch.utils.rng import STREAM_MASKS, stream_generator
+
+    data = make_dataset(cfg.data, seed=0, device="cpu")
+    return [make_train_batch(next(data),
+                             stream_generator(0, STREAM_MASKS, i), cfg.mask)
+            for i in range(n)]
+
+
+def _dp_rank(rank, tmp):
+    """Phase 10 (b), one of two gloo ranks sharing cuda:0: the port's step
+    and train() with device="cuda:0" inside a group this worker sets up."""
+    import os
+    import pathlib
+    import pickle
+
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    import torch
+    import torch.distributed as dist
+
+    tmp = pathlib.Path(tmp)
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'store'}",
+                            rank=rank, world_size=2)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        pickle.dump(_dp_rank_jobs(torch, rank, tmp),
+                    open(tmp / f"rank{rank}.pkl", "wb"))
+    except BaseException:
+        import traceback
+
+        (tmp / f"error{rank}.txt").write_text(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_rank_jobs(torch, rank, tmp):
+    import dataclasses
+
+    from gan_inpainting_torch.configs.base import apply_overrides, get_config
+    from gan_inpainting_torch.data.pipeline import Batch
+    from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.parallel.sharding import reduce_metrics
+    from gan_inpainting_torch.train.loop import train as train_loop
+    from gan_inpainting_torch.train.state import create_state
+    from gan_inpainting_torch.train.step import make_train_step
+
+    out = {}
+    for kind in ("f32", "bf16"):
+        batches = torch.load(tmp / f"batches_{kind}.pt", weights_only=False)
+        cfg = apply_overrides(get_config("places512_deepfill"),
+                              DP_F32 if kind == "f32" else TRAIN_512)
+        state = create_state(cfg, device="cuda:0")
+        step = make_train_step(cfg)
+        same, metrics = [_dp_identical(torch, state)], []
+        for b in batches:
+            half = Batch(*(t[4 * rank:4 * rank + 4].cuda() for t in b))
+            metrics.append(reduce_metrics(step(state, half)))
+            same.append(_dp_identical(torch, state))
+        res = dict(identical=same, metrics=metrics)
+        if kind == "f32" and rank == 0:
+            while not (tmp / "f32_ref.pt").exists():     # the parent's
+                time.sleep(0.5)
+            ref = torch.load(tmp / "f32_ref.pt", weights_only=True)
+            sd = state.state_dict()
+            gaps = torch.cat([(sd[p][k].cpu() - v).abs().flatten()
+                              for p in ("g_params", "d_params", "g_ema")
+                              for k, v in ref[p].items()])
+            res.update(param_max=gaps.max().item(),
+                       param_frac=(gaps <= F32_DP_PARAM_ATOL).float()
+                       .mean().item())
+        out[kind] = res
+        del state, step
+        torch.cuda.empty_cache()
+
+    # train() over both ranks: 4 steps with an eval and a checkpoint, then
+    # resumed to 5
+    torch.cuda.reset_peak_memory_stats()
+    cfg = apply_overrides(get_config("places512_deepfill"), DP_TRAIN + [
+        "train.steps=4", "train.log_every=2", "train.eval_every=4",
+        "train.checkpoint_every=4", f"train.workdir={tmp / 'run'}"])
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    state, scalars = train_loop(cfg, resume=False, verbose=False,
+                                device="cuda:0")
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["launches"] = dict(dispatch.launches)
+    out["scalars"] = scalars
+    out["identical_after_train"] = _dp_identical(torch, state)
+    del state
+    more = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                              steps=5))
+    state, _ = train_loop(more, resume=True, verbose=False, device="cuda:0")
+    out["resumed_step"] = state.step
+    out["identical_after_resume"] = _dp_identical(torch, state)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _dp_torchrun(torch, tmp, smi):
+    """Phase 10 (a): the train command over one NCCL rank through torchrun,
+    its record, and steps/s beside train() alone in this process, in
+    turns."""
+    turns = {"torchrun": [], "alone": []}
+    t_all = time.perf_counter()
+    for i, kind in enumerate(("torchrun", "alone", "torchrun")):
+        t0 = time.perf_counter()
+        out, recs, rates = _dp_command(torch, tmp / f"a{i}",
+                                       kind == "torchrun")
+        turns[kind].append(rates)
+        if i == 0:
+            wall = time.perf_counter() - t0
+            logged = [r for r in recs if "g_loss" in r]
+            evals = [r["step"] for r in recs if "eval_psnr" in r]
+            _require("backend nccl" in out and "over 1 rank" in out,
+                     f"torchrun run: no NCCL group in {out[-2000:]}")
+            _require([r["step"] for r in logged] == list(
+                range(DP_LOG, DP_STEPS + 1, DP_LOG)) and evals == [
+                DP_STEPS], f"torchrun record: steps "
+                f"{[r['step'] for r in logged]}, evals {evals}")
+            _require(all(r["world_size"] == 1
+                         and r["grad_all_reduces"] == 2 * r["step"]
+                         for r in logged),
+                     f"NCCL gradient reduces: {logged}")
+            _require((tmp / "a0" / "checkpoints" /
+                      f"step_{DP_STEPS}.pt").exists(),
+                     "torchrun run: no checkpoint")
+            grid = (tmp / "a0" / "tb").exists()
+            print(f"[10] (a) torchrun --nproc-per-node 1 -m "
+                  f"gan_inpainting_torch train --config "
+                  f"places512_deepfill (8x512² bf16, {DP_STEPS} steps, "
+                  f"1 eval): NCCL group of 1, gradient all-reduces "
+                  f"{[r['grad_all_reduces'] for r in logged]} at steps "
+                  f"{[r['step'] for r in logged]} (2 per step), "
+                  f"metrics.jsonl, eval_psnr "
+                  f"{[round(r['eval_psnr'], 3) for r in recs if 'eval_psnr' in r]}, "
+                  f"checkpoint step_{DP_STEPS}, TensorBoard sample grid "
+                  f"{'written' if grid else 'off (does not import)'}; "
+                  f"{wall:.1f} s with start-up and cuDNN tuning | {smi}")
+    flat = {k: [r for rates in v for r in rates] for k, v in turns.items()}
+    gain, spread = _decide(flat["alone"], flat["torchrun"])
+    print(f"[10] (a) steps/s at 8x512², windows of {DP_LOG} steps after "
+          f"the first, in turns torchrun, alone (train() in this "
+          f"process), torchrun ({time.perf_counter() - t_all:.1f} s for "
+          f"the three runs): "
+          f"torchrun {[round(r, 3) for r in flat['torchrun']]}, alone "
+          f"{[round(r, 3) for r in flat['alone']]}; torchrun "
+          f"{'faster' if gain < 0 else 'slower'} by {abs(gain):.3f} "
+          f"steps/s, spread {spread:.3f} (no gain claimed) | {smi}")
+    return dict(steps_per_s=flat, wall_s=wall)
+
+
+def _dp_gloo(torch, tmp, smi):
+    """Phase 10 (b): two gloo ranks sharing cuda:0 through the port's step
+    and train(): bit-identical ranks, float32 parity with one process on
+    the whole batch, a resumed run."""
+    import multiprocessing
+    import pickle
+
+    from gan_inpainting_torch.configs.base import apply_overrides, get_config
+    from gan_inpainting_torch.train.state import create_state
+    from gan_inpainting_torch.train.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # as main() and the
+    torch.backends.cudnn.allow_tf32 = False          # ranks have them
+    torch.save(_dp_batches(torch, apply_overrides(
+        get_config("places512_deepfill"), TRAIN_512), 2),
+        tmp / "batches_bf16.pt")
+    cfg = apply_overrides(get_config("places512_deepfill"), DP_F32)
+    batches = _dp_batches(torch, cfg, 2)
+    torch.save(batches, tmp / "batches_f32.pt")
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_dp_rank, args=(r, str(tmp)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        # the reference, while the ranks start: rank 0 waits for its file
+        state = create_state(cfg, device="cuda:0")
+        step = make_train_step(cfg)
+        one = [{k: float(v) for k, v in step(
+            state, type(b)(*(t.cuda() for t in b))).items()}
+            for b in batches]
+        sd = state.state_dict()
+        torch.save({p: {k: v.cpu() for k, v in sd[p].items()}
+                    for p in ("g_params", "d_params", "g_ema")},
+                   tmp / "f32_ref.part")
+        (tmp / "f32_ref.part").rename(tmp / "f32_ref.pt")
+        del state, step, sd
+        torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            p.join(timeout=900)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+    errors = [f.read_text()[-3000:] for f in tmp.glob("error*.txt")]
+    _require(not alive and not errors
+             and all(p.exitcode == 0 for p in procs),
+             f"gloo ranks: alive {alive}, exit codes "
+             f"{[p.exitcode for p in procs]}, {errors}")
+    ranks = [pickle.load(open(tmp / f"rank{r}.pkl", "rb"))
+             for r in range(2)]
+    b_s = time.perf_counter() - t0
+    r0, r1 = ranks
+    for kind in ("f32", "bf16"):
+        _require(all(r0[kind]["identical"]) and all(
+            r1[kind]["identical"]),
+            f"{kind}: ranks differ after a step: "
+            f"{r0[kind]['identical']}")
+        _require(r0[kind]["metrics"] == r1[kind]["metrics"],
+                 f"{kind}: the reduced metrics differ between ranks")
+    rel = max(abs(m[k] - w[k]) / max(abs(w[k]), 1e-3)
+              for m, w in zip(r0["f32"]["metrics"], one) for k in w)
+    lr = max(cfg.train.g_lr, cfg.train.d_lr)
+    f32 = r0["f32"]
+    print(f"[10] (b) places512_deepfill full width, global batch 8 as "
+          f"2 gloo ranks x 4 on cuda:0, 2 steps on fixed batches: ranks' "
+          f"parameters, spectral vectors, Adam states and EMA "
+          f"bit-identical after each step, bf16 at 512² and f32 at 256²; "
+          f"f32 against one process on the 8 images (run beside the "
+          f"ranks, {ref_s:.1f} s): "
+          f"metrics max rel diff {rel:.3e} "
+          f"(tol {F32_DP_METRIC_REL}), parameters max abs diff "
+          f"{f32['param_max']:.3e} (bound {4 * lr:.1e}), "
+          f"{100 * f32['param_frac']:.4f} % within "
+          f"{F32_DP_PARAM_ATOL} (need {100 * F32_DP_PARAM_FRAC} %) "
+          f"| {smi}")
+    _require(rel <= F32_DP_METRIC_REL
+             and f32["param_max"] <= 4 * lr
+             and f32["param_frac"] >= F32_DP_PARAM_FRAC,
+             "f32 2-rank steps disagree with one process")
+    recs = [json.loads(ln) for ln in
+            (tmp / "run" / "metrics.jsonl").read_text().splitlines()]
+    steps = [r["step"] for r in recs if "g_loss" in r]
+    evals = [r["step"] for r in recs if "eval_psnr" in r]
+    _require(steps == [2, 4, 5] and evals == [4, 5]
+             and all(r["world_size"] == 2 for r in recs if "g_loss" in r),
+             f"2-rank train() record: steps {steps}, evals {evals}")
+    _require(all(r["resumed_step"] == 5 and r["identical_after_train"]
+                 and r["identical_after_resume"] for r in ranks),
+             "2-rank train() did not resume to step 5 bit-identical")
+    missing = [k for k in FILE_PATH_KERNELS
+               if not all(r["launches"].get(k) for r in ranks)]
+    _require(not missing, f"path F: not launched on every rank: "
+             f"{missing}")
+    print(f"[10] (b) train() over the 2 ranks: 4 steps, an eval and a "
+          f"checkpoint, then resumed to step 5 (record written once, "
+          f"by rank 0: steps {steps}, evals {evals}); per rank peak "
+          f"memory {[round(r['peak_gib'], 2) for r in ranks]} GiB, "
+          f"steps/s {[round(r['scalars']['steps_per_sec'], 3) for r in ranks]} "
+          f"(gloo stages every reduce through the host: a check, not a "
+          f"rate of NCCL); launches per rank "
+          f"{[{k: r['launches'].get(k, 0) for k in FILE_PATH_KERNELS} for r in ranks]}; "
+          f"{b_s:.1f} s with spawn and cuDNN tuning | {smi}")
+    return dict(f32_metric_rel=rel, f32_param_max=f32["param_max"],
+                f32_reference_s=ref_s,
+                f32_param_frac=f32["param_frac"],
+                peak_gib=[r["peak_gib"] for r in ranks],
+                steps_per_s=[r["scalars"]["steps_per_sec"] for r in ranks],
+                launches=[r["launches"] for r in ranks], wall_s=b_s)
+
+
+def _dp_serve(torch, rng, smi):
+    """Phase 10 (c): an Inpainter over two replicas on cuda:0, and
+    InpaintService over it, against one replica."""
+    from gan_inpainting_torch.infer.inpaint import Inpainter
+    from gan_inpainting_torch.infer.service import InpaintService
+
+    t_c = time.perf_counter()
+    imgs = _smooth_images(rng, 64, 256, 256)
+    masks = _stroke_masks(rng, 64, 256, 256)
+    one = Inpainter.from_npz(NPZ, overrides=DP_SERVE, device="cuda:0")
+    two = Inpainter.from_npz(NPZ, overrides=DP_SERVE,
+                             devices=["cuda:0", "cuda:0"])
+    out1 = one.inpaint_batch(imgs, masks)
+    out2 = two.inpaint_batch(imgs, masks)
+    _known_exact(out2, imgs, masks, "two replicas")
+    agree = _hole_agreement(out2, out1, masks)
+    _require(agree[f"within_{BF16_SERVE_LEVELS}"] >= BF16_SERVE_FRAC,
+             f"two replicas vs one: {agree}")
+    rates = {"one": [], "two": []}
+    for kind in ("one", "two", "two", "one"):
+        inp = one if kind == "one" else two
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            inp.inpaint_batch(imgs, masks)
+        torch.cuda.synchronize()
+        rates[kind].append(3 * 64 / (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    service = InpaintService(two, max_wait_ms=5.0)
+    try:
+        service.ready(timeout=600)
+        warm_s = time.perf_counter() - t0
+        futs = [service.submit(imgs[i], masks[i]) for i in range(16)]
+        served = np.stack([f.result(timeout=600) for f in futs])
+    finally:
+        service.close()
+    _known_exact(served, imgs[:16], masks[:16], "service over two replicas")
+    s_agree = _hole_agreement(served, out1[:16], masks[:16])
+    _require(s_agree[f"within_{BF16_SERVE_LEVELS}"] >= BF16_SERVE_FRAC,
+             f"service over two replicas vs one replica: {s_agree}")
+    print(f"[10] (c) Inpainter over 2 replicas on cuda:0 (tex256_attn npz, "
+          f"64x256² bf16, 32 per replica thread): known pixels bit-exact, "
+          f"hole pixels within ±{BF16_SERVE_LEVELS} of one replica's on "
+          f"{agree[f'within_{BF16_SERVE_LEVELS}']:.6f} (max {agree['max']}); "
+          f"InpaintService over it: warm-up of 2 buckets on each replica's "
+          f"thread {warm_s:.1f} s, 16 requests within ±{BF16_SERVE_LEVELS} on "
+          f"{s_agree[f'within_{BF16_SERVE_LEVELS}']:.6f}; inpaint_batch "
+          f"img/s in turns one, two, two, one: one replica "
+          f"{[round(r, 1) for r in rates['one']]}, two on the same card "
+          f"{[round(r, 1) for r in rates['two']]} (one card: no gain "
+          f"claimed); {time.perf_counter() - t_c:.1f} s | {smi}")
+    two.close()
+    del one, two
+    torch.cuda.empty_cache()
+    return dict(hole_agreement=agree, service_agreement=s_agree,
+                img_per_s=rates, service_warmup_s=warm_s)
+
+
+def data_parallel(torch, rng, smi):
+    """Phase 10, path F: (a) torchrun, (b) gloo ranks on one card, (c) two
+    serving replicas on one card."""
+    import pathlib
+    import tempfile
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        res["a"] = _dp_torchrun(torch, pathlib.Path(tmp), smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        res["b"] = _dp_gloo(torch, pathlib.Path(tmp), smi)
+    torch.cuda.empty_cache()
+    res["c"] = _dp_serve(torch, rng, smi)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3308,6 +3757,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     files = file_data(torch, smi)
     fl = files["launches"]            # phase 9's train() from the folder
+    torch.cuda.empty_cache()
+    dp = data_parallel(torch, rng, smi)
+    # path F: each gloo rank's train() (4 steps and an eval; rank 0 also
+    # the sample grid), counted in the rank's own process
+    path_f = {f"path_f_rank{r}": launches
+              for r, launches in enumerate(dp["b"]["launches"])}
+
+    def by_path(name):
+        return {k: v.get(name, 0) for k, v in path_f.items()}
 
     def row(name, kernel, res, launches, source, replaces, **extra):
         return dict(name=name, route="cuda", source=source,
@@ -3332,6 +3790,7 @@ def main() -> int:
             launches_train=l512["contextual_attention_fused"],
             launches_service=svc[512]["contextual_attention_fused"],
             launches_file_train=fl["contextual_attention_fused"],
+            launches_by_path=by_path("contextual_attention_fused"),
             train_with_lse_ms=bwd512["forward_with_lse_ms"]),
         # the fold at B 8 (the 256² map) with the 64x256² serve bucket
         # under "at_64x256", and at the 8x512² train map
@@ -3343,7 +3802,8 @@ def main() -> int:
             fold_src, "gan_inpainting_tpu/ops/pallas/fold.py:32",
             launches_train=l512["fold_taps"],
             launches_service=svc[512]["fold_taps"],
-            launches_file_train=fl["fold_taps"]),
+            launches_file_train=fl["fold_taps"],
+            launches_by_path=by_path("fold_taps")),
         # the fused backward: rows 4 (δ, the score tiles and the dQ
         # products; "replaces" _bwd_dq_kernel) and 5 (the dK/dV products),
         # at the 256² train shape with the 512² one under "at_512train";
@@ -3355,7 +3815,8 @@ def main() -> int:
             f"{name}@256train", kname, bwd256, l256.get(name, 0), bwd_src,
             f"{tpu_bwd}:{223 if kname == 'dkv' else 148}",
             at_512train=dict(bwd512[kname], launches=l512.get(name, 0)),
-            launches_file_train=fl.get(name, 0)))
+            launches_file_train=fl.get(name, 0),
+            launches_by_path=by_path(name)))
     # the tap-gradient fold: the scatter that _bwd_dq_kernel (:148) and
     # _bwd_dkv_kernel (:223) do in-kernel, with the XLA halo merge and
     # norm correction (:311, :328)
@@ -3365,7 +3826,7 @@ def main() -> int:
         f"{tpu_bwd}:148", scatter_of=[f"{tpu_bwd}:{n}" for n in (
             148, 223, 311, 328)],
         at_512train=dict(bwd512["fold"], launches=l512.get(name, 0)),
-        launches_file_train=fl.get(name, 0)))
+        launches_file_train=fl.get(name, 0), launches_by_path=by_path(name)))
     kernels += [
         # launches: path A's three requests (two forwards with the fused
         # decoder, one without) and path B's three
@@ -3416,7 +3877,7 @@ def main() -> int:
         "partialconv256_16x256_ms_per_step": path_b["train_ms"]},
         "serve_64x256": {"serve_v4_8": rates_a,
                          "partialconv256": path_b["rates"]},
-        "service": service, "file_data": files}))
+        "service": service, "file_data": files, "data_parallel": dp}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,6 +8,12 @@ flags. Every command but ``configs`` runs on the CUDA card unless
 none is named (``export`` only moves weights between files, but checks
 the same). ``--aot`` (AOT-compiled serving artifacts) and the ``bench``
 command are not ported yet (ROADMAP Queue 1).
+
+Cards: ``torchrun --nproc-per-node N -m gan_inpainting_torch train ...``
+trains over N cards, one rank each (``eval`` under ``torchrun`` reduces
+over its ranks the same way); only rank 0 prints. ``serve`` and ``infer``
+serve over every local card of the config's mesh unless ``--device`` pins
+one; ``eval`` without ``torchrun`` runs on one card.
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--config", default="celeba128_center",
                    choices=list_configs())
     p.add_argument("--device", default=None,
-                   help="torch device; default: CUDA, and an error when "
-                   "there is none")
+                   help="torch device; default: CUDA (under torchrun the "
+                   "rank's card; serve and infer: every card of the "
+                   "config's mesh), and an error when there is none")
     p.add_argument("overrides", nargs="*",
                    help="config overrides, e.g. train.steps=100")
 
@@ -136,6 +143,8 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _inpainter(args, cfg, device):
+    """The Inpainter of the command's model source, on ``device`` (None:
+    every local card of the config's mesh)."""
     from gan_inpainting_torch.infer.inpaint import Inpainter
 
     if getattr(args, "aot", None):
@@ -180,24 +189,33 @@ def main(argv=None) -> int:
 
     cfg = apply_overrides(get_config(args.config), args.overrides)
 
-    if args.cmd == "train":
-        from gan_inpainting_torch.train.loop import train
+    if args.cmd in ("train", "eval"):
+        from gan_inpainting_torch.parallel import multihost
 
-        train(cfg, resume=not args.no_resume, device=device)
-        return 0
+        joined = not multihost.initialized()
+        multihost.ensure_initialized(device)      # a torchrun launch
+        try:
+            if args.cmd == "train":
+                from gan_inpainting_torch.train.loop import train
 
-    if args.cmd == "eval":
-        from gan_inpainting_torch.train.evaluate import evaluate
+                train(cfg, resume=not args.no_resume, device=device)
+            else:
+                from gan_inpainting_torch.train.evaluate import evaluate
 
-        inp = _inpainter(args, cfg, device)
-        print(json.dumps(evaluate(inp.cfg, inp.state_dict, device=device)))
+                inp = _inpainter(args, cfg, device)
+                res = evaluate(inp.cfg, inp.state_dict, device=device)
+                if multihost.is_main():
+                    print(json.dumps(res))
+        finally:
+            if joined:
+                multihost.shutdown()
         return 0
 
     if args.cmd == "infer":
         import numpy as np
         from PIL import Image
 
-        inpainter = _inpainter(args, cfg, device)
+        inpainter = _inpainter(args, cfg, args.device)
         image_path = pathlib.Path(args.image)
         if image_path.is_dir():
             from gan_inpainting_torch.infer.batch_files import inpaint_dir
@@ -250,8 +268,9 @@ def main(argv=None) -> int:
     if args.cmd == "serve":
         from gan_inpainting_torch.infer.service import serve
 
-        serve(_inpainter(args, cfg, device), host=args.host, port=args.port,
-              max_wait_ms=args.max_wait_ms, max_queue=args.max_queue)
+        serve(_inpainter(args, cfg, args.device), host=args.host,
+              port=args.port, max_wait_ms=args.max_wait_ms,
+              max_queue=args.max_queue)
         return 0
 
     if args.cmd == "profile":

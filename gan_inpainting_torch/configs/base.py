@@ -6,11 +6,11 @@ every exported ``.npz`` parses identically here. The rationale behind each
 default is documented beside the original; the measurements quoted there
 were taken on TPUs and are not the port's.
 
-``MeshConfig`` is a local copy of the dataclass from the JAX package's
-``parallel/mesh.py`` (which imports jax): embedded configs carry it under
-``train.mesh``, so serving parses any mesh, while the trainer runs on one
-card and raises for a mesh above it (``train/state.py``
-``require_one_device``).
+``MeshConfig`` lives in ``parallel/mesh.py``, which copies the JAX
+package's dataclass (the JAX module imports jax): embedded configs carry it
+under ``train.mesh`` and parse in both packages. The port runs its data
+axis; a ``model`` or ``spatial`` axis above 1 raises where the mesh is
+built (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -20,14 +20,7 @@ import json
 import typing
 from typing import Any
 
-
-@dataclasses.dataclass(frozen=True)
-class MeshConfig:
-    """Logical mesh shape of the JAX package. `data=-1` = all devices."""
-
-    data: int = -1
-    model: int = 1
-    spatial: int = 1
+from gan_inpainting_torch.parallel.mesh import MeshConfig
 
 
 @dataclasses.dataclass(frozen=True)

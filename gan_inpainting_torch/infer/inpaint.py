@@ -5,12 +5,26 @@ bit-exact) → uint8. Inputs are padded up to the nearest configured
 (batch, size) bucket, as in the JAX package, so every request runs one of a
 fixed set of shapes; non-square images pad H and W to the square bucket of
 the larger side and are cropped back.
+
+An :class:`Inpainter` serves over the data axis of its config's mesh,
+which is every local card by default, as the JAX package's is: one
+generator replica per card, each fed by a persistent worker thread under
+``torch.cuda.device`` of its card, the bucket rounded up to a multiple of
+the replicas and split into equal contiguous shards that run at once.
+PyTorch keeps cuDNN's tuned plans per thread, so a replica is tuned on its
+own thread by the first batch of each bucket it runs (``warmup``). One
+replica runs in the caller's thread.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import queue
+import threading
+import weakref
+from concurrent.futures import Future
 
 import numpy as np
 import torch
@@ -19,6 +33,7 @@ from gan_inpainting_torch.configs.base import Config, InferConfig
 from gan_inpainting_torch.data.pipeline import denormalize, normalize
 from gan_inpainting_torch.models.generator import build_generator
 from gan_inpainting_torch.ops.dispatch import resolve_device
+from gan_inpainting_torch.parallel.mesh import build_mesh
 
 
 def _bucket(value: int, buckets) -> int:
@@ -52,17 +67,68 @@ def make_forward_fn(cfg: Config, state_dict,
     return fwd
 
 
+def device_scope(device: torch.device):
+    """``torch.cuda.device`` of a card (a ``cuda`` device without an index
+    means the calling thread's current card); a null context off the
+    card."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(torch.cuda.current_device()
+                             if device.index is None else device.index)
+
+
+def _run_jobs(jobs: queue.SimpleQueue, device: torch.device) -> None:
+    """A replica's worker thread: run each (fn, args, future) under the
+    replica's card until a None arrives. It holds no reference to the
+    Inpainter, so a dropped Inpainter can be collected and stop it."""
+    with device_scope(device):
+        while (job := jobs.get()) is not None:
+            fn, args, fut = job
+            try:
+                fut.set_result(fn(*args))
+            except Exception as e:  # noqa: BLE001 — raised by the caller
+                fut.set_exception(e)
+            del job, fn, args, fut
+
+
+def _stop_workers(workers) -> None:
+    for jobs, _ in workers:
+        jobs.put(None)
+    for _, thread in workers:
+        # the collector may run this on a worker thread itself
+        if thread is not threading.current_thread():
+            thread.join()
+
+
 class Inpainter:
     """Serves inpaint requests from a generator ``state_dict`` (see
     :func:`gan_inpainting_torch.io.convert.params_from_jax`) or, through
-    :meth:`from_npz`, from an exported artifact. Runs on CUDA unless
-    ``device`` says otherwise."""
+    :meth:`from_npz`, from an exported artifact.
+
+    Where it runs: an explicit ``devices`` list gives one replica on each
+    (a device may repeat); an explicit ``device`` one replica there;
+    otherwise the data axis of ``cfg.train.mesh`` over the local cards
+    (``data = -1``, the default, is every card; ``data = n`` the first n),
+    and an error when there is no card. ``close()`` stops the replicas'
+    threads (collecting the Inpainter does too)."""
 
     def __init__(self, cfg: Config, state_dict,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 devices=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        if devices is not None:
+            self.devices = tuple(torch.device(d) for d in devices)
+            if not self.devices:
+                raise ValueError("devices is empty")
+        elif device is not None:
+            self.devices = (resolve_device(device),)
+        else:
+            resolve_device(None)            # raises without a card
+            cards = [torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count())]
+            self.devices = build_mesh(cfg.train.mesh, cards).devices
+        self.device = self.devices[0]
+        if any(d.type == "cuda" for d in self.devices):
             # every request runs one of a fixed set of bucket shapes, so
             # cuDNN's per-shape algorithm search pays once per bucket (as
             # the JAX package compiles once per bucket); its heuristic
@@ -70,14 +136,29 @@ class Inpainter:
             # (PERF.md)
             torch.backends.cudnn.benchmark = True
         self.state_dict = state_dict
-        # one generator per decoder formulation: eager PyTorch needs no
-        # program per bucket shape
-        self._forward = functools.lru_cache(maxsize=None)(
-            self._build_forward)
+        # one generator per replica and decoder formulation: eager PyTorch
+        # needs no program per bucket shape. _forward is the first
+        # replica's (profiling tools call it)
+        self._forwards = [
+            functools.lru_cache(maxsize=None)(
+                functools.partial(self._build_forward, replica=i))
+            for i in range(len(self.devices))]
+        self._forward = self._forwards[0]
+        self._workers = []
+        if len(self.devices) > 1:
+            for i, dev in enumerate(self.devices):
+                jobs: queue.SimpleQueue = queue.SimpleQueue()
+                thread = threading.Thread(
+                    target=_run_jobs, args=(jobs, dev), daemon=True,
+                    name=f"inpaint-replica-{i}")
+                thread.start()
+                self._workers.append((jobs, thread))
+        self.close = weakref.finalize(self, _stop_workers, self._workers)
 
     @classmethod
     def from_npz(cls, path: str, overrides: list[str] | None = None,
-                 device: str | torch.device | None = None) -> "Inpainter":
+                 device: str | torch.device | None = None,
+                 devices=None) -> "Inpainter":
         """Serve from a portable export artifact: the generator params plus
         the embedded config. ``overrides`` apply on top of that config."""
         from gan_inpainting_torch.configs.base import apply_overrides
@@ -87,14 +168,15 @@ class Inpainter:
         cfg, params = load_generator(path)
         if overrides:
             cfg = apply_overrides(cfg, list(overrides))
-        return cls(cfg, params_from_jax(params), device=device)
+        return cls(cfg, params_from_jax(params), device=device,
+                   devices=devices)
 
     @classmethod
     def from_checkpoint(cls, cfg: Config, workdir: str | None = None, *,
                         use_ema: bool = True, best: bool = False,
                         step: int | None = None,
                         device: str | torch.device | None = None,
-                        ) -> "Inpainter":
+                        devices=None) -> "Inpainter":
         """Serve from a training checkpoint under ``workdir`` (default
         ``cfg.train.workdir``): with ``use_ema`` the EMA generator when the
         run tracked one, else the raw parameters; ``best`` takes the
@@ -111,7 +193,7 @@ class Inpainter:
         params = (raw["g_ema"] if use_ema and raw["g_ema"]
                   else raw["g_params"])
         return cls(dataclasses.replace(cfg, model=saved.model), params,
-                   device=device)
+                   device=device, devices=devices)
 
     # ------------------------------------------------------------------
     def _cfg_for_size(self, size: int) -> Config:
@@ -126,11 +208,21 @@ class Inpainter:
                                                fuse_upsample=False))
         return cfg
 
-    def _build_forward(self, fuse_upsample: bool):
+    def _build_forward(self, fuse_upsample: bool, replica: int):
         cfg = dataclasses.replace(
             self.cfg, model=dataclasses.replace(self.cfg.model,
                                                 fuse_upsample=fuse_upsample))
-        return make_forward_fn(cfg, self.state_dict, self.device)
+        return make_forward_fn(cfg, self.state_dict, self.devices[replica])
+
+    def _run(self, replica: int, fuse_upsample: bool, images_u8, masks,
+             rows: int, h: int, w: int) -> np.ndarray:
+        """One replica's shard: the forward on its card, the first ``rows``
+        outputs cropped to (h, w) and brought to the host."""
+        dev = self.devices[replica]
+        out = self._forwards[replica](fuse_upsample)(
+            torch.from_numpy(images_u8).to(dev),
+            torch.from_numpy(masks).to(dev))
+        return out[:rows, :h, :w, :].cpu().numpy()
 
     # ------------------------------------------------------------------
     def inpaint_batch(self, images_u8, masks) -> np.ndarray:
@@ -145,7 +237,10 @@ class Inpainter:
                 f"mask shape {masks.shape[:3]} does not match images "
                 f"{(b, h, w)}")
         icfg: InferConfig = self.cfg.infer
-        bb = _bucket(b, icfg.batch_buckets)
+        n = len(self.devices)
+        # the bucket rounds up to a multiple of the replicas, so every
+        # shard is whole (gan_inpainting_tpu/infer/inpaint.py:175-176)
+        bb = -(-_bucket(b, icfg.batch_buckets) // n) * n
         sb = _bucket(max(h, w), icfg.size_buckets)
         if sb != h or sb != w:
             # padded area is "known" (mask 0): context, cropped off below
@@ -156,11 +251,28 @@ class Inpainter:
             reps = ((0, bb - b),) + ((0, 0),) * 3
             images_u8 = np.pad(images_u8, reps)
             masks = np.pad(masks, reps)
-        fwd = self._forward(self._cfg_for_size(sb).model.fuse_upsample)
-        out = fwd(
-            torch.from_numpy(images_u8).to(self.device),
-            torch.from_numpy(masks).to(self.device))
-        return out[:b, :h, :w, :].cpu().numpy()
+        fuse = self._cfg_for_size(sb).model.fuse_upsample
+        if n == 1:
+            return self._run(0, fuse, images_u8, masks, b, h, w)
+        shard = bb // n
+        futures = []
+        for i, (jobs, _) in enumerate(self._workers):
+            part = slice(i * shard, (i + 1) * shard)
+            fut: Future = Future()
+            rows = min(shard, max(b - i * shard, 0))
+            jobs.put((self._run, (i, fuse, images_u8[part], masks[part],
+                                  rows, h, w), fut))
+            futures.append(fut)
+        # wait for every shard, then raise the first error
+        outs, errors = [], []
+        for fut in futures:
+            try:
+                outs.append(fut.result())
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+        if errors:
+            raise errors[0]
+        return np.concatenate(outs)
 
     def __call__(self, image, mask) -> np.ndarray:
         """Single-image API: (H,W,3) uint8 + (H,W[,1]) mask → (H,W,3) uint8."""

@@ -31,6 +31,11 @@ dispatcher thread therefore runs ``Inpainter.warmup()`` itself before its
 first dispatch; requests submitted meanwhile wait in the queue.
 :meth:`InpaintService.ready` waits for that warmup and raises its error;
 after a failed warmup every request fails with it.
+
+An Inpainter over several cards runs each shard on its replica's own
+worker thread, under that replica's card: the dispatcher's warmup then
+tunes every replica on the thread that will serve it, and waits for all
+of them; ``ready()`` raises the first replica's error.
 """
 
 from __future__ import annotations
@@ -49,7 +54,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from gan_inpainting_torch.infer.inpaint import Inpainter, _bucket
+from gan_inpainting_torch.infer.inpaint import (
+    Inpainter,
+    _bucket,
+    device_scope,
+)
 
 
 class ServiceOverloadedError(RuntimeError):
@@ -66,16 +75,12 @@ class _Request:
 
 
 def _device_scope(inpainter):
-    """``torch.cuda.device`` of the Inpainter's card, resolved in the
-    calling thread (a ``cuda`` device without an index means that thread's
-    current card); a null context off the card."""
+    """``torch.cuda.device`` of the Inpainter's (first) card, resolved in
+    the calling thread; a null context off the card."""
     device = getattr(inpainter, "device", None)
-    if device is None or torch.device(device).type != "cuda":
+    if device is None:
         return contextlib.nullcontext()
-    device = torch.device(device)
-    index = (torch.cuda.current_device() if device.index is None
-             else device.index)
-    return torch.cuda.device(index)
+    return device_scope(torch.device(device))
 
 
 class InpaintService:
@@ -363,8 +368,9 @@ def serve(inpainter: Inpainter, host: str = "127.0.0.1",
         raise
     server = make_http_server(service, host, port)
     print(f"[serve] inpaint service on http://{host}:{port} "
-          f"(config {cfg.name}, buckets {cfg.infer.size_buckets}, device "
-          f"{inpainter.device})", flush=True)
+          f"(config {cfg.name}, buckets {cfg.infer.size_buckets}, "
+          f"replicas on {', '.join(map(str, inpainter.devices))})",
+          flush=True)
     try:
         server.serve_forever()
     finally:

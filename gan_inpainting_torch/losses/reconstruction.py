@@ -1,11 +1,18 @@
 """L1 reconstruction losses: hole/valid-weighted L1, the spatially
 discounted weighting of DeepFill v1, and total variation over the hole.
+
+Both divide by a sum over the batch (of weights, of hole pixels). Under
+data parallelism that sum is the mean of the ranks' sums, so the mean of
+the ranks' losses is the loss of the global batch, as in the JAX step
+that GSPMD shards; in one process it is the batch's own sum.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from gan_inpainting_torch.parallel.sharding import mean_over_ranks
 
 
 def _max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -41,8 +48,8 @@ def l1_loss(output: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
         disc = spatial_discount_mask(mask, discount_gamma)
         weights = weights * torch.where(mask > 0, disc, 1.0)
     err = torch.abs(output - target)
-    return torch.sum(weights * err) / (torch.sum(weights) * err.shape[-1]
-                                       + 1e-8)
+    return torch.sum(weights * err) / (
+        mean_over_ranks(torch.sum(weights)) * err.shape[-1] + 1e-8)
 
 
 def tv_loss(comp: torch.Tensor, mask: torch.Tensor, *,
@@ -58,4 +65,5 @@ def tv_loss(comp: torch.Tensor, mask: torch.Tensor, *,
     diff_h = torch.abs(comp[:, :, 1:, :] - comp[:, :, :-1, :])
     diff_v = torch.abs(comp[:, 1:, :, :] - comp[:, :-1, :, :])
     num = torch.sum(pair_h * diff_h) + torch.sum(pair_v * diff_v)
-    return num / (torch.sum(region) * comp.shape[-1] + 1e-8)
+    return num / (mean_over_ranks(torch.sum(region)) * comp.shape[-1]
+                  + 1e-8)

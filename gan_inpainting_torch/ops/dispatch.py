@@ -40,6 +40,8 @@ import threading
 
 import torch
 
+from gan_inpainting_torch.parallel.multihost import local_device_index
+
 VALID = ("auto", "xla", "pallas")
 
 # What "auto" means per op on a CUDA card, set by measurement on one NVIDIA
@@ -139,12 +141,16 @@ def use_kernel(x: torch.Tensor) -> bool:
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
-    another. With no device asked for and no card present, raise."""
+    another; in a process a launcher started (``torchrun``), the card of
+    its ``LOCAL_RANK``. With no device asked for and no card present, or a
+    ``LOCAL_RANK`` beyond the host's cards, raise. An explicit device
+    passes through unchanged."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device found; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
+        index = local_device_index(torch.cuda.device_count())
+        return torch.device("cuda" if index is None else f"cuda:{index}")
     return torch.device(device)
 
 

@@ -14,6 +14,15 @@ from gan_inpainting_torch.metrics.image import psnr, ssim
 from gan_inpainting_torch.metrics.swd import swd
 from gan_inpainting_torch.models.generator import build_generator
 from gan_inpainting_torch.ops.dispatch import resolve_device
+from gan_inpainting_torch.parallel.multihost import (
+    process_batch_slice,
+    rank,
+    world,
+)
+from gan_inpainting_torch.parallel.sharding import (
+    all_gather_rows,
+    reduce_metrics,
+)
 from gan_inpainting_torch.train.step import composite
 from gan_inpainting_torch.utils.rng import STREAM_EVAL, stream_generator
 
@@ -58,33 +67,45 @@ def evaluate(cfg: Config, g_state_dict, seed: int = 0, eval_step=None,
     """Mean metrics over ``data.num_eval_batches`` held-out batches; with
     ``swd`` asked for, ``swd_<res>`` per pyramid level and ``swd_avg``
     over the first ``eval.swd_max_images`` composites against their
-    ground truth, the draws from a generator seeded ``seed + 1234``."""
+    ground truth, the draws from a generator seeded ``seed + 1234``.
+
+    Over several ranks each rank evaluates its slice of every eval batch
+    from data and mask streams of its own (rank 0's are one process's);
+    the metric sums are added over ranks, so the means cover every rank's
+    images, and the SWD pools the first ⌈cap / ranks⌉ composites of each
+    rank, gathered in rank order and cut to the cap. Every rank returns
+    the same numbers."""
     device = resolve_device(device)
     if eval_step is None:
         eval_step = make_eval_step(cfg, device)
-    it = make_dataset(cfg.data, seed=cfg.train.seed, split="eval",
-                      device=device)
+    local_bs, seed_offset = process_batch_slice(cfg.data.eval_batch_size)
+    it = make_dataset(cfg.data, seed=cfg.train.seed + seed_offset,
+                      split="eval", batch_size=local_bs, device=device)
     sums: dict[str, float] = {}
     count = 0
     swd_cap = cfg.eval.swd_max_images
+    local_cap = -(-swd_cap // world())
     reals: list[torch.Tensor] = []
     comps: list[torch.Tensor] = []
     for i in range(cfg.data.num_eval_batches):
         batch = make_train_batch(
-            next(it), stream_generator(seed + 777, STREAM_EVAL, i), cfg.mask)
+            next(it), stream_generator(seed + 777, STREAM_EVAL, i,
+                                       extra=rank()), cfg.mask)
         for name, value in eval_step(g_state_dict, batch).items():
             if name == "_composite":
-                if sum(c.shape[0] for c in comps) < swd_cap:
+                if sum(c.shape[0] for c in comps) < local_cap:
                     comps.append(value)
                     reals.append(batch.image.to(torch.float16))
                 continue
             sums[name] = sums.get(name, 0.0) + float(value)
         count += cfg.data.eval_batch_size
     it.close()                  # a folder stream's decoder threads end here
+    sums = reduce_metrics(sums, average=False)
     out = {name: total / count for name, total in sums.items()}
     if comps:
-        real = torch.cat(reals)[:swd_cap].float()
-        fake = torch.cat(comps)[:swd_cap].float()
+        real = all_gather_rows(torch.cat(reals)[:local_cap])[:swd_cap]
+        fake = all_gather_rows(torch.cat(comps)[:local_cap])[:swd_cap]
         gen = torch.Generator(device=device).manual_seed(seed + 1234)
-        out.update({k: float(v) for k, v in swd(real, fake, gen).items()})
+        out.update({k: float(v) for k, v in
+                    swd(real.float(), fake.float(), gen).items()})
     return out

@@ -4,7 +4,9 @@ step.
 
 Every random draw of step ``n`` (data batch, crop, flip, masks) comes from
 a generator derived from (seed, stream, n), so a resumed run continues
-exactly as the uninterrupted one would.
+exactly as the uninterrupted one would. Under data parallelism each rank
+derives its own: its data stream from ``seed + rank · 1 000 003``, its
+masks with ``extra = rank``; rank 0 draws what a single process draws.
 """
 
 from __future__ import annotations
@@ -22,8 +24,21 @@ from gan_inpainting_torch.data.pipeline import denormalize, make_train_batch
 from gan_inpainting_torch.io.checkpoint import CheckpointManager
 from gan_inpainting_torch.io.metrics_writer import MetricsWriter
 from gan_inpainting_torch.ops.dispatch import resolve_device
+from gan_inpainting_torch.parallel.multihost import (
+    ensure_initialized,
+    initialized,
+    is_main,
+    process_batch_slice,
+    rank,
+)
+from gan_inpainting_torch.parallel.sharding import (
+    barrier,
+    counts,
+    reduce_metrics,
+)
 from gan_inpainting_torch.train.evaluate import evaluate, make_eval_step
 from gan_inpainting_torch.train.state import (
+    broadcast_state,
     create_state,
     ema_generator_params,
     warm_start,
@@ -39,25 +54,47 @@ from gan_inpainting_torch.utils.rng import (
 def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
           device: str | torch.device | None = None):
     """Run ``cfg.train.steps`` of GAN training on ``device`` (CUDA unless
-    the caller asks for another); returns (state, last metrics as floats).
-    Scalars stream to ``<workdir>/metrics.jsonl`` and, with the sample grid
-    of every eval, to TensorBoard under ``<workdir>/tb`` where it imports
-    (io/metrics_writer.py). Raises for a ``train.mesh`` above one device
-    (``create_state``)."""
+    the caller asks for another; under ``torchrun``, this rank's card);
+    returns (state, last metrics as floats). Scalars stream to
+    ``<workdir>/metrics.jsonl`` and, with the sample grid of every eval, to
+    TensorBoard under ``<workdir>/tb`` where it imports
+    (io/metrics_writer.py).
+
+    Over several ranks (a ``torchrun`` launch, or a process group the
+    caller set up) each rank trains its slice of ``data.batch_size`` from
+    data and mask streams of its own, the gradients averaged over ranks;
+    logged metrics and evals are reduced over ranks, and only rank 0
+    writes (record, samples, checkpoints) and prints. ``train.mesh`` must
+    be the world's data axis (``create_state``)."""
     device = resolve_device(device)
+    n_ranks = ensure_initialized(device)
+    main = is_main()
+    verbose = verbose and main
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)   # the eager ops between the kernels
+    # each rank feeds its slice of the global batch from a stream of its
+    # own; one process takes the whole batch with the seed untouched
+    local_batch, seed_offset = process_batch_slice(cfg.data.batch_size)
     state = create_state(cfg, device=device)
     ckpt = CheckpointManager(cfg.train.workdir, cfg.train.max_checkpoints)
+    barrier()                   # no rank looks before every rank is here
     if resume and ckpt.latest_step() is not None:
         ckpt.restore(state)
+        broadcast_state(state)
         if verbose:
             print(f"[train] resumed from step {state.step}")
     elif cfg.train.init_from:
         warm_start(state, cfg)
         if verbose:
             print(f"[train] warm-started params from {cfg.train.init_from}")
+    if verbose and initialized():
+        print(f"[train] data parallel over {n_ranks} rank(s), "
+              f"{local_batch} images each, backend "
+              f"{torch.distributed.get_backend()}")
 
     # best-eval-PSNR retention: a second single-slot manager and a small
-    # json of the best metrics
+    # json of the best metrics; every rank reads the same reduced eval, so
+    # all agree on a new best, and rank 0 writes it
     track_best = cfg.train.keep_best and "psnr" in cfg.eval.metrics
     best_ckpt = best_path = None
     best_psnr = float("-inf")
@@ -69,21 +106,23 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
             best_psnr = json.loads(best_path.read_text()).get(
                 "psnr", float("-inf"))
 
-    writer = MetricsWriter(cfg.train.workdir)
+    writer = MetricsWriter(cfg.train.workdir) if main else None
     train_step = make_train_step(cfg)
     eval_step = make_eval_step(cfg, device)
-    data = make_dataset(cfg.data, seed=cfg.train.seed, split="train",
-                        device=device, start=state.step)
+    data = make_dataset(cfg.data, seed=cfg.train.seed + seed_offset,
+                        split="train", batch_size=local_batch, device=device,
+                        start=state.step)
     scalars: dict[str, float] = {}
     t_last = time.perf_counter()
     steps_since_log = 0
+    reduces_before = counts["all_reduce_mean_"]
     cur_steps = cfg.mask.curriculum_steps
     try:
         for step in range(state.step, cfg.train.steps):
             progress = min(1.0, step / cur_steps) if cur_steps else 1.0
             batch = make_train_batch(
                 next(data), stream_generator(cfg.train.seed, STREAM_MASKS,
-                                             step),
+                                             step, extra=rank()),
                 cfg.mask, progress, flip=cfg.data.random_flip,
                 crop=cfg.data.image_size if cfg.data.random_crop else 0)
             metrics = train_step(state, batch)
@@ -92,13 +131,18 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
             next_step = step + 1
             last = next_step == cfg.train.steps
             if next_step % cfg.train.log_every == 0 or last:
-                scalars = {k: float(v) for k, v in metrics.items()}
-                now = time.perf_counter()    # float() above waited for the card
+                scalars = reduce_metrics(metrics)
+                now = time.perf_counter()    # the values above waited
                 sps = steps_since_log / max(now - t_last, 1e-9)
                 t_last, steps_since_log = now, 0
                 scalars["steps_per_sec"] = sps
                 scalars["images_per_sec"] = sps * cfg.data.batch_size
-                writer.scalars(next_step, scalars)
+                if initialized():
+                    scalars["world_size"] = n_ranks
+                    scalars["grad_all_reduces"] = (
+                        counts["all_reduce_mean_"] - reduces_before)
+                if main:
+                    writer.scalars(next_step, scalars)
                 if verbose:
                     msg = " ".join(f"{k}={v:.4g}" for k, v in scalars.items())
                     print(f"[train] step {next_step}: {msg}")
@@ -106,26 +150,32 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
             if next_step % cfg.train.eval_every == 0 or last:
                 ev = evaluate(cfg, ema_generator_params(state),
                               eval_step=eval_step, device=device)
-                writer.scalars(next_step,
-                               {f"eval_{k}": v for k, v in ev.items()})
+                if main:
+                    writer.scalars(next_step,
+                                   {f"eval_{k}": v for k, v in ev.items()})
                 if verbose:
                     print(f"[train] eval@{next_step}: {ev}")
                 if track_best and ev.get("psnr", float("-inf")) > best_psnr:
                     best_psnr = ev["psnr"]
-                    best_ckpt.save(next_step, state, cfg)
-                    best_path.write_text(json.dumps(
-                        {"step": next_step, **ev}, indent=2) + "\n")
+                    if main:
+                        best_ckpt.save(next_step, state, cfg)
+                        best_path.write_text(json.dumps(
+                            {"step": next_step, **ev}, indent=2) + "\n")
                     if verbose:
                         print(f"[train] new best psnr {best_psnr:.3f} "
                               f"@ {next_step} -> checkpoints_best")
-                _dump_samples(cfg, state, writer, next_step, eval_step,
-                              device)
+                if main:
+                    _dump_samples(cfg, state, writer, next_step, eval_step,
+                                  device)
 
             if next_step % cfg.train.checkpoint_every == 0 or last:
-                ckpt.save(next_step, state, cfg)
+                if main:
+                    ckpt.save(next_step, state, cfg)
+                barrier()       # the file is whole before any rank reads it
     finally:
         data.close()            # a folder stream's decoder threads end here
-        writer.close()
+        if writer is not None:
+            writer.close()
     return state, scalars
 
 

@@ -20,6 +20,9 @@ from gan_inpainting_torch.configs.base import Config
 from gan_inpainting_torch.models.discriminator import build_discriminator
 from gan_inpainting_torch.models.generator import build_generator
 from gan_inpainting_torch.ops.dispatch import resolve_device
+from gan_inpainting_torch.parallel.mesh import train_mesh
+from gan_inpainting_torch.parallel.multihost import world
+from gan_inpainting_torch.parallel.sharding import broadcast_module_state
 
 
 @dataclasses.dataclass
@@ -114,26 +117,24 @@ def make_optimizers(cfg: Config, generator: nn.Module,
             adam(discriminator, cfg.train.d_lr))
 
 
-def require_one_device(cfg: Config) -> None:
-    """Raise for a ``train.mesh`` the port cannot run: it trains on one
-    device, so ``model``, ``spatial`` or ``data`` above 1 would otherwise
-    be ignored without a word (``data = -1``, all devices, is the one
-    card). Meshes come with ROADMAP Queue 1, ``parallel/``."""
-    mesh = cfg.train.mesh
-    for axis in ("model", "spatial", "data"):
-        n = getattr(mesh, axis)
-        if n > 1:
-            raise NotImplementedError(
-                f"train.mesh.{axis}={n}: the PyTorch port trains on one "
-                "device; meshes await ROADMAP Queue 1, parallel/")
+def broadcast_state(state: GANTrainState) -> GANTrainState:
+    """Make every rank's state rank 0's (parameters, spectral vectors, both
+    Adams, the EMA); nothing to do in a world of one."""
+    if world() > 1:
+        broadcast_module_state([state.generator, state.discriminator],
+                               optimizers=(state.g_opt, state.d_opt),
+                               extra=state.g_ema.values())
+    return state
 
 
 def create_state(cfg: Config, seed: int | None = None,
                  device: str | torch.device | None = None) -> GANTrainState:
     """Initialize G, D (seeded), the optimizers and the EMA for a config, on
-    ``device`` (CUDA unless the caller asks for another). Raises for a
-    mesh above one device (:func:`require_one_device`)."""
-    require_one_device(cfg)
+    ``device`` (CUDA unless the caller asks for another), equal on every
+    rank. ``train.mesh`` must be the world's data axis (``ValueError``
+    otherwise; ``NotImplementedError`` for a model or spatial axis, see
+    ``parallel/mesh.py``)."""
+    train_mesh(cfg.train.mesh, world())
     device = resolve_device(device)
     if device.type == "cuda":
         # a run repeats a few fixed shapes: let cuDNN search once per shape
@@ -148,9 +149,9 @@ def create_state(cfg: Config, seed: int | None = None,
     g_ema = ({k: v.detach().clone()
               for k, v in generator.state_dict().items()}
              if cfg.train.g_ema_decay > 0 else {})
-    return GANTrainState(step=0, generator=generator,
-                         discriminator=discriminator, g_opt=g_opt,
-                         d_opt=d_opt, g_ema=g_ema)
+    return broadcast_state(GANTrainState(
+        step=0, generator=generator, discriminator=discriminator,
+        g_opt=g_opt, d_opt=d_opt, g_ema=g_ema))
 
 
 def warm_start(state: GANTrainState, cfg: Config) -> GANTrainState:
@@ -182,4 +183,4 @@ def warm_start(state: GANTrainState, cfg: Config) -> GANTrainState:
         raise ValueError(
             f"train.init_from={cfg.train.init_from!r}: the source does not "
             f"match this config's architecture: {err}") from err
-    return state
+    return broadcast_state(state)

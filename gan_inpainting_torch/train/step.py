@@ -8,6 +8,12 @@ exactly once → R1 on the real images on every k-th step, weighted γ·k →
 G step against the *updated* D (adversarial + L1, optional VGG perceptual
 and style, TV and feature matching) → EMA of the generator. Metrics come
 back as 0-d tensors on the device, so a step does not wait for the card.
+
+Under data parallelism each rank runs the step on its slice of the global
+batch; the gradients are averaged over ranks once per optimizer step
+(``parallel/sharding.py``), and the L1 and TV losses divide by the global
+batch's normalizers, so the ranks step as one process would on the whole
+batch. The metrics stay the rank's own.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from gan_inpainting_torch.losses.perceptual import (
 )
 from gan_inpainting_torch.losses.reconstruction import l1_loss, tv_loss
 from gan_inpainting_torch.ops.dispatch import section
+from gan_inpainting_torch.parallel.sharding import all_reduce_mean_
 from gan_inpainting_torch.train.state import (
     GANTrainState,
     clip_by_global_norm,
@@ -130,6 +137,9 @@ def make_train_step(cfg: Config) -> Callable[[GANTrainState, Batch], dict]:
         return total, aux
 
     def apply(opt: torch.optim.Adam, params, grads, lr: float) -> None:
+        # the mean over ranks first, so that the clip reads the global
+        # batch's norm, as GSPMD's all-reduce gives it in the JAX step
+        all_reduce_mean_(grads)
         if accum > 1:
             torch._foreach_div_(grads, accum)
         if tc.grad_clip > 0:

@@ -41,7 +41,9 @@ def test_port_imports_no_jax():
         for name in ("ops.partial_conv", "ops.s2d_conv", "ops.gated_conv",
                      "ops.kernels.partial_epilogue", "ops.kernels.direct_conv",
                      "ops.kernels.gated_matmul", "losses.perceptual",
-                     "tools.profile_serve", "ops.kernels.patch_attention"):
+                     "tools.profile_serve", "ops.kernels.patch_attention",
+                     "parallel.mesh", "parallel.multihost",
+                     "parallel.sharding"):
             assert "gan_inpainting_torch." + name in sys.modules, name
         assert set(build.SOURCES) >= {"gated_conv", "partial_epilogue",
                                       "patch_attention"}
