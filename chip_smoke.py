@@ -114,9 +114,27 @@ Phases (each prints its lines; any failure exits non-zero):
    replica (known pixels bit-exact, holes within ±2 on ≥ 99.9 %), behind
    ``InpaintService``, img/s of one and two replicas in turns. One card
    cannot time NCCL across cards: no rate of this phase is one;
-11. one JSON line of per-kernel numbers (with the service's under
-   ``"service"``, phase 9's under ``"file_data"`` and phase 10's under
-   ``"data_parallel"``), then the result line.
+11. AOT serving artifacts (``io/aot.py``, ``torch.export``): the pinned
+   generator under serve_v4_8's model config (bf16) exported at 1×256²,
+   64×256² and 1×512² under ``auto`` and at 64×256² under ``pallas``,
+   ``partialconv256`` (seeded) at 64×256² under ``pallas`` and the pinned
+   generator at 1×2048² (the patch route), with seconds and bytes per
+   program; each bucket through a fresh ``AotInpainter`` against the live
+   ``Inpainter`` (known pixels bit-exact, hole pixels within ±2 on
+   ≥ 99.9 %, the identical share printed) and the kernels launched per
+   forward through each program equal to the live forward's (fused
+   attention and fold, the gated convs under ``pallas``, the partial
+   epilogue, the patch forward at 2048², each > 0); start-up (construction
+   to the end of the warm-up of the three serve_v4_8 buckets), artifact
+   and live, each in a fresh process; img/s at 64×256² (over ≥ 2.5 s) and
+   the 1×256² latency (over 100 requests), artifact against live, in
+   turns; ``InpaintService`` over an artifact (32 mixed 256²/512² requests
+   from concurrent clients, fewer dispatches); a ``cpu`` artifact and a
+   stale kernel build refused on the card;
+12. one JSON line of per-kernel numbers (with the service's under
+   ``"service"``, phase 9's under ``"file_data"``, phase 10's under
+   ``"data_parallel"`` and phase 11's under ``"aot"``), then the result
+   line.
 
 Phase 2 also holds the three patch-attention kernels (forward, dQ, dK/dV)
 against their plain versions at the full widths (d 1728, dv 3072) at L
@@ -3630,6 +3648,401 @@ def data_parallel(torch, rng, smi):
     return res
 
 
+# phase 11: the serve_v4_8 buckets whose start-up the artifact and the live
+# Inpainter are held to, each in a fresh process (the 1-image and the full
+# bucket at 256², one image at 512²); the patch route's bucket
+AOT_START_BUCKETS = ((1, 256), (64, 256), (1, 512))
+AOT_PATCH_BUCKET = (1, 2048)
+# kernels counted per forward through an exported program, by case
+AOT_KERNELS = ("contextual_attention_fused", "fold_taps", "gated_conv_direct",
+               "gated_matmul", "partial_epilogue", "patch_attention_fwd")
+# phase 11's rates, artifact against live in turns: img/s at 64×256² over a
+# window of at least this many seconds, and the 1×256² latency over this
+# many requests
+AOT_RATE_WINDOW_S = 2.5
+AOT_LATENCY_REQUESTS = 100
+
+
+def _aot_start(kind: str, path: str) -> None:
+    """Phase 11 (d), in a fresh process: the seconds from construction to
+    the end of the warm-up over AOT_START_BUCKETS of an AotInpainter on the
+    artifact at ``path`` (``kind`` "aot", with the share spent in
+    ``torch.export.load``) or of the live Inpainter of the same npz and
+    config ("live"); prints one JSON line."""
+    import torch
+
+    from gan_inpainting_torch.ops.kernels import build
+
+    build.build_all()                 # built by the parent: loads them
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    load_s = 0.0
+    if kind == "aot":
+        from gan_inpainting_torch.io.aot import AotInpainter
+
+        inp = AotInpainter(path)
+        t1 = time.perf_counter()
+        for b, s in inp.buckets:           # torch.export.load of each
+            inp._load(b, s)
+        load_s = time.perf_counter() - t1
+        inp.warmup()
+    else:
+        from gan_inpainting_torch.infer.inpaint import Inpainter
+
+        batches, sizes = ({str(x[i]) for x in AOT_START_BUCKETS}
+                          for i in (0, 1))
+        inp = Inpainter.from_npz(NPZ, overrides=SERVE_OVERRIDES[:1] + [
+            f"infer.batch_buckets={','.join(sorted(batches, key=int))}",
+            f"infer.size_buckets={','.join(sorted(sizes, key=int))}"],
+            device="cuda")
+        for b, s in AOT_START_BUCKETS:       # what AotInpainter.warmup runs
+            inp.inpaint_batch(np.zeros((b, s, s, 3), np.uint8),
+                              np.zeros((b, s, s, 1), np.float32))
+    torch.cuda.synchronize()
+    print(json.dumps({"kind": kind, "start_s": time.perf_counter() - t0,
+                      "load_s": load_s}))
+
+
+def _aot_rates(inpainters, rng):
+    """Phase 11 (d): img/s of ``inpaint_batch`` at 64×256² over a window of
+    AOT_RATE_WINDOW_S and the 1×256² latency over AOT_LATENCY_REQUESTS
+    requests (median and p90), through each of ``inpainters`` (name →
+    inpainter, warmed up), in turns a b b a."""
+    bb, sb = AOT_START_BUCKETS[1]
+    imgs = _smooth_images(rng, bb, sb, sb)
+    masks = _stroke_masks(rng, bb, sb, sb)
+    a, b = inpainters
+    turns = {a: [], b: []}
+    for kind in (a, b, b, a):
+        inp = inpainters[kind]
+        inp.inpaint_batch(imgs, masks)
+        n, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < AOT_RATE_WINDOW_S:
+            inp.inpaint_batch(imgs, masks)    # returns on the host: synced
+            n += 1
+        img_s = n * bb / (time.perf_counter() - t0)
+        lat = []
+        for i in range(AOT_LATENCY_REQUESTS):
+            j = i % bb
+            t0 = time.perf_counter()
+            inp.inpaint_batch(imgs[j:j + 1], masks[j:j + 1])
+            lat.append((time.perf_counter() - t0) * 1e3)
+        turns[kind].append({
+            "img_s_64x256": img_s, "batches": n,
+            "latency_1x256_ms": {"p50": float(np.percentile(lat, 50)),
+                                 "p90": float(np.percentile(lat, 90))}})
+    return turns
+
+
+def _aot_forward_turns(torch, aot, live, imgs, masks, reps=3):
+    """Device ms of one forward through the artifact's program and
+    through the live Inpainter's, CUDA events, in turns a b b a."""
+    dev_img = torch.from_numpy(imgs).cuda()
+    dev_msk = torch.from_numpy(masks[..., None]).cuda()
+    s = imgs.shape[1]
+    bucket = aot._pick_bucket(imgs.shape[0], s)
+    program, packed = aot._load(*bucket), aot.packed[bucket]
+    fwd = live._forward(live._cfg_for_size(s).model.fuse_upsample)
+    runs = {"artifact": lambda: program(aot.params, packed, dev_img,
+                                        dev_msk),
+            "live": lambda: fwd(dev_img, dev_msk)}
+    turns = {"artifact": [], "live": []}
+    with torch.inference_mode():
+        for kind in ("artifact", "live", "live", "artifact"):
+            turns[kind].append(_time_ms(torch, runs[kind], reps))
+    return turns
+
+
+def _pack_ms(torch, live, size):
+    """ms of pack_weights over the weights of every gated conv that the
+    kernels take in a forward at ``size``: what a program would pack per
+    forward if the packing were traced into it (the artifact takes the
+    packed weights as inputs instead, packed once at load, as the live
+    path keeps packed copies)."""
+    from gan_inpainting_torch.ops.kernels.gated_matmul import (
+        pack_weights,
+        plan,
+    )
+
+    weights = []
+
+    def hook(mod, args, _out):
+        if (mod.conv_kind == "gated" and not mod.pre_upsample
+                and not mod.s2d):
+            weights.append((mod.weight, plan(args[0].shape[-1],
+                                             mod.weight.shape[0] // 2,
+                                             torch.bfloat16)))
+
+    gen = live._forward(live._cfg_for_size(size).model.fuse_upsample) \
+        .generator
+    from gan_inpainting_torch.models.layers import InpaintConv
+
+    hooks = [m.register_forward_hook(hook) for m in gen.modules()
+             if isinstance(m, InpaintConv)]
+    live.inpaint_batch(np.zeros((1, size, size, 3), np.uint8),
+                       np.zeros((1, size, size), np.float32))
+    for h in hooks:
+        h.remove()
+    _require(len(weights) == DIRECT_FUSED + MATMUL_PER_FWD,
+             f"phase 11: {len(weights)} kernel-routed gated convs")
+    return _time_ms(torch, lambda: [pack_weights(w.to(torch.bfloat16), p)
+                                    for w, p in weights], 5)
+
+
+class _DispatchSizes:
+    """An inpainter as InpaintService sees it, recording the batch and
+    size of every dispatch it is handed."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.dispatches = []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def inpaint_batch(self, images, masks):
+        self.dispatches.append(images.shape[:2])
+        return self.inner.inpaint_batch(images, masks)
+
+
+def aot_artifacts(torch, rng, smi):
+    """Phase 11 (below), its artifacts in a temporary directory that is
+    removed however the phase ends."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_aot_")
+    t0 = time.perf_counter()
+    try:
+        out = _aot_artifacts(torch, rng, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[11] phase 11 took {out['phase_s']:.1f} s (by part "
+          f"{ {k: round(v, 1) for k, v in out['part_s'].items()} })")
+    return out
+
+
+def _aot_artifacts(torch, rng, smi, tmp):
+    """Phase 11: AOT serving artifacts (io/aot.py) on the card. (a) export
+    the pinned generator under serve_v4_8's model config (bf16) at 1×256²,
+    64×256² and 1×512² under ``auto`` and 64×256² under ``pallas``,
+    ``partialconv256`` (seeded) at 64×256² under ``pallas`` and the pinned
+    generator at 1×2048² (the patch route); (b) each bucket through a fresh
+    AotInpainter against the live Inpainter; (c) the kernels launched per
+    forward through each program against the live forward's; (d) start-up,
+    artifact against live, each in a fresh process, and img/s and latency
+    in turns; (e) InpaintService over an AotInpainter, 32 mixed requests
+    from concurrent clients; (f) mismatches."""
+    import os
+    import threading
+
+    from gan_inpainting_torch.configs.base import apply_overrides, get_config
+    from gan_inpainting_torch.infer.inpaint import Inpainter
+    from gan_inpainting_torch.infer.service import InpaintService
+    from gan_inpainting_torch.io.aot import AotInpainter, export_serving
+    from gan_inpainting_torch.models.generator import build_generator
+    from gan_inpainting_torch.ops import dispatch
+
+    out = {"cases": {}, "part_s": {}}
+    clock = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        out["part_s"][name] = now - clock[0]
+        clock[0] = now
+
+    full = AOT_START_BUCKETS[1]
+    pinned = Inpainter.from_npz(NPZ, overrides=SERVE_OVERRIDES,
+                                device="cuda")
+
+    def with_backend(cfg, backend, buckets):
+        sizes = ",".join(str(s) for s in sorted({s for _, s in buckets}))
+        return apply_overrides(cfg, [f"model.kernel_backend={backend}",
+                                     f"infer.size_buckets={sizes}"])
+
+    pcfg = with_backend(get_config("partialconv256"), "pallas", [full])
+    pstate = build_generator(pcfg.model, device="cuda", seed=0).state_dict()
+    cases = {
+        "auto": list(AOT_START_BUCKETS), "pallas": [full],
+        "partialconv256": [full], "patch_2048": [AOT_PATCH_BUCKET]}
+    cases = {name: (pcfg if name == "partialconv256" else with_backend(
+        pinned.cfg, "pallas" if name == "pallas" else "auto", buckets),
+        pstate if name == "partialconv256" else pinned.state_dict, buckets)
+        for name, buckets in cases.items()}
+    # kernels that must launch per forward through each case's programs
+    expect = {"auto": ("contextual_attention_fused", "fold_taps"),
+              "pallas": ("contextual_attention_fused", "fold_taps",
+                         "gated_conv_direct", "gated_matmul"),
+              "partialconv256": ("partial_epilogue",),
+              "patch_2048": ("patch_attention_fwd",)}
+    part("setup")
+    for name, (cfg, state, buckets) in cases.items():
+        # ---- (a) export ----------------------------------------------------
+        path = os.path.join(tmp, name)
+        manifest = export_serving(cfg, state, path, buckets=buckets,
+                                  device="cuda")
+        sizes = {f: os.path.getsize(os.path.join(path, f))
+                 for f in sorted(os.listdir(path))}
+        secs = {k: round(v, 2) for k, v in manifest["export_seconds"].items()}
+        print(f"[11] {name}: exported {manifest['buckets']} (formulation "
+              f"{manifest['formulation']}; ops {manifest['ops']}; kernel "
+              f"builds {manifest['kernels']}) in seconds {secs}; bytes "
+              f"{sizes}")
+        # ---- (b) parity, (c) launches --------------------------------------
+        aot = AotInpainter(path)
+        live = Inpainter(cfg, state, device="cuda")
+        res = {"export_s": manifest["export_seconds"], "bytes": sizes,
+               "ops": manifest["ops"], "kernels": manifest["kernels"],
+               "buckets": {}}
+        for b, s in buckets:
+            imgs = _smooth_images(rng, b, s, s)
+            masks = _stroke_masks(rng, b, s, s)
+            counts = {}
+            outs = {}
+            # each kind's first run of the bucket (live: cuDNN's plans
+            # tuned; artifact: its program loaded), counted
+            for kind, inp in (("live", live), ("aot", aot)):
+                dispatch.reset_launches()
+                outs[kind] = inp.inpaint_batch(imgs, masks)
+                torch.cuda.synchronize()
+                counts[kind] = {k: dispatch.launches.get(k, 0)
+                                for k in AOT_KERNELS}
+            what = f"phase 11 {name} {b}x{s}²"
+            _known_exact(outs["aot"], imgs, masks, f"{what} artifact")
+            agree = _hole_agreement(outs["aot"], outs["live"], masks)
+            same = float(np.mean(outs["aot"] == outs["live"]))
+            _require(agree[f"within_{BF16_SERVE_LEVELS}"] >= BF16_SERVE_FRAC,
+                     f"{what}: artifact vs live, hole pixels {agree}")
+            _require(counts["aot"] == counts["live"]
+                     and all(counts["aot"][k] > 0 for k in expect[name]),
+                     f"{what}: launches per forward through the artifact "
+                     f"{counts['aot']}, live {counts['live']}")
+            res["buckets"][f"{b}x{s}"] = {
+                "hole_agreement": agree, "identical_share": same,
+                "launches_per_forward": counts["aot"]}
+            print(f"[11] {what}: known pixels bit-exact; hole pixels vs live "
+                  f"{agree}; identical share {same:.6f}; launches per "
+                  f"forward through the artifact {counts['aot']} (= live)")
+            if (b, s) == full:
+                res["fwd_ms"] = _aot_forward_turns(torch, aot, live, imgs,
+                                                   masks)
+                print(f"[11] {what}: device forward ms in turns (artifact, "
+                      f"live, live, artifact) {res['fwd_ms']} | {smi}")
+        if name == "pallas":
+            res["pack_ms"] = _pack_ms(torch, live, full[1])
+            n_packed = len(manifest["packed"][f"{full[0]}x{full[1]}"])
+            _require(n_packed == DIRECT_FUSED + MATMUL_PER_FWD,
+                     f"phase 11: {n_packed} packed-weight inputs")
+            print(f"[11] pallas: {n_packed} packed-weight inputs, packed "
+                  f"once at load; packing them per forward would take "
+                  f"{res['pack_ms']:.3f} ms | {smi}")
+        out["cases"][name] = res
+        if name == "auto":
+            # kept for (d)'s rates and (e)'s service, its programs loaded
+            auto = {"artifact": aot, "live": live}
+        del aot, live
+        torch.cuda.empty_cache()
+        part(f"{name} (a-c)")
+
+    # ---- (d) start-up in fresh processes, then rates in turns --------------
+    start = {}
+    for kind in ("aot", "live"):
+        proc = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke as cs; "
+             f"cs._aot_start({kind!r}, {os.path.join(tmp, 'auto')!r})"],
+            capture_output=True, text=True, timeout=600)
+        _require(proc.returncode == 0,
+                 f"phase 11 start-up ({kind}): {proc.stderr[-2000:]}")
+        start[kind] = json.loads(proc.stdout.strip().splitlines()[-1])
+    part("start-up")
+    rates = _aot_rates(auto, rng)
+    out["start"] = start
+    out["rates"] = rates
+    print(f"[11] start-up over {list(AOT_START_BUCKETS)} (construction to "
+          f"the end of the warm-up, one fresh process each): artifact "
+          f"{start['aot']['start_s']:.2f} s, of which loading its programs "
+          f"{start['aot']['load_s']:.2f} s; live "
+          f"{start['live']['start_s']:.2f} s | {smi}")
+    print(f"[11] rates in turns (artifact, live, live, artifact; img/s at "
+          f"64x256² over ≥ {AOT_RATE_WINDOW_S} s, 1x256² latency over "
+          f"{AOT_LATENCY_REQUESTS} requests): {rates} | {smi}")
+    part("rates")
+
+    # ---- (e) the service over an artifact, concurrent clients ------------
+    recording = _DispatchSizes(auto["artifact"])
+    service = InpaintService(recording, max_wait_ms=5.0)
+    service.ready(600)
+    recording.dispatches.clear()
+    s_small, s_large = full[1], AOT_START_BUCKETS[2][1]
+    requests = [(_smooth_images(rng, 1, s, s)[0], _stroke_masks(rng, 1, s,
+                                                                s)[0])
+                for s in [s_small] * 28 + [s_large] * 4]
+    order = rng.permutation(len(requests))          # mixed arrivals
+    results = [None] * len(requests)
+    gate = threading.Barrier(len(requests))
+
+    def client(i):
+        gate.wait()
+        results[i] = service.inpaint(*requests[i])
+
+    threads = [threading.Thread(target=client, args=(int(i),))
+               for i in order]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    stats = service.stats
+    service.close()
+    _require(all(r is not None for r in results),
+             f"phase 11 service: {sum(r is None for r in results)} requests "
+             f"unanswered")
+    for (img, m), got in zip(requests, results):
+        _known_exact(got[None], img[None], m[None], "phase 11 service")
+    n_req = len(requests)
+    _require(stats["requests"] == n_req and stats["dispatches"] < n_req,
+             f"phase 11 service: {stats} for {n_req} requests")
+    groups = {s: sorted(int(b) for b, sb in recording.dispatches if sb == s)
+              for s in (s_small, s_large)}
+    out["service"] = {"requests": n_req, "dispatches": stats["dispatches"],
+                      "dispatch_batches": groups}
+    print(f"[11] InpaintService over the artifact: 28 256² and 4 512² "
+          f"requests from concurrent clients in {stats['dispatches']} "
+          f"dispatches (requests per dispatch by size {groups}; the "
+          f"artifact's 512² bucket holds one image, a larger group is served "
+          f"in chunks), known pixels bit-exact")
+    del auto, recording
+    torch.cuda.empty_cache()
+    part("service")
+
+    # ---- (f) mismatches raise --------------------------------------------
+    cpu_path = os.path.join(tmp, "cpu")
+    export_serving(cases["auto"][0], pinned.state_dict, cpu_path,
+                   buckets=AOT_START_BUCKETS[:1], device="cpu")
+    raised = []
+    try:
+        AotInpainter(cpu_path)
+    except ValueError as e:
+        raised.append(str(e))
+    manifest_path = os.path.join(tmp, "auto", "manifest.json")
+    with open(manifest_path) as f:
+        man = json.load(f)
+    man["kernels"] = {k: "0" * 16 for k in man["kernels"]}
+    with open(manifest_path, "w") as f:
+        json.dump(man, f)
+    try:
+        AotInpainter(os.path.join(tmp, "auto"))
+    except ValueError as e:
+        raised.append(str(e))
+    _require(len(raised) == 2 and "exported for 'cpu'" in raised[0]
+             and "re-export with this build" in raised[1],
+             f"phase 11: mismatched artifacts loaded: {raised}")
+    print(f"[11] a cpu artifact on the card raises ({raised[0][-60:]!r}); "
+          f"a stale kernel build raises ({raised[1][-40:]!r})")
+    part("mismatch")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3763,6 +4176,16 @@ def main() -> int:
     # the sample grid), counted in the rank's own process
     path_f = {f"path_f_rank{r}": launches
               for r, launches in enumerate(dp["b"]["launches"])}
+    torch.cuda.empty_cache()
+    aot = aot_artifacts(torch, rng, smi)
+
+    def through_aot(kernel):
+        """Launches per forward of ``kernel`` through each exported
+        bucket of phase 11 where it launched."""
+        return {f"{case}@{bucket}": r["launches_per_forward"][kernel]
+                for case, c in aot["cases"].items()
+                for bucket, r in c["buckets"].items()
+                if r["launches_per_forward"].get(kernel)}
 
     def by_path(name):
         return {k: v.get(name, 0) for k, v in path_f.items()}
@@ -3784,6 +4207,7 @@ def main() -> int:
             at_256["contextual_attention_fused"], attn_src, f"{tpu_fa}:136",
             launches_train=l256["contextual_attention_fused"],
             launches_service=svc[256]["contextual_attention_fused"],
+            launches_aot=through_aot("contextual_attention_fused"),
             train_with_lse_ms=bwd256["forward_with_lse_ms"]),
         row("contextual_attention_fused@512", "attention", res512,
             at_512["contextual_attention_fused"], attn_src, f"{tpu_fa}:52",
@@ -3791,19 +4215,22 @@ def main() -> int:
             launches_service=svc[512]["contextual_attention_fused"],
             launches_file_train=fl["contextual_attention_fused"],
             launches_by_path=by_path("contextual_attention_fused"),
+            launches_aot=through_aot("contextual_attention_fused"),
             train_with_lse_ms=bwd512["forward_with_lse_ms"]),
         # the fold at B 8 (the 256² map) with the 64x256² serve bucket
         # under "at_64x256", and at the 8x512² train map
         row("fold_taps@256", "b8_256", fold, at_256["fold_taps"], fold_src,
             "gan_inpainting_tpu/ops/pallas/fold.py:32",
             launches_train=l256["fold_taps"], at_64x256=fold["b64_256"],
-            launches_service=svc[256]["fold_taps"]),
+            launches_service=svc[256]["fold_taps"],
+            launches_aot=through_aot("fold_taps")),
         row("fold_taps@512train", "b8_512train", fold, at_512["fold_taps"],
             fold_src, "gan_inpainting_tpu/ops/pallas/fold.py:32",
             launches_train=l512["fold_taps"],
             launches_service=svc[512]["fold_taps"],
             launches_file_train=fl["fold_taps"],
-            launches_by_path=by_path("fold_taps")),
+            launches_by_path=by_path("fold_taps"),
+            launches_aot=through_aot("fold_taps")),
         # the fused backward: rows 4 (δ, the score tiles and the dQ
         # products; "replaces" _bwd_dq_kernel) and 5 (the dK/dV products),
         # at the 256² train shape with the 512² one under "at_512train";
@@ -3833,18 +4260,21 @@ def main() -> int:
         row("gated_conv_direct@192x2x192_3x3_64x64²", "direct_d1", conv,
             path_a["gated_conv_direct"], conv_src,
             "gan_inpainting_tpu/ops/pallas/direct_conv.py:48",
+            launches_aot=through_aot("gated_conv_direct"),
             also={k: conv[k] for k in (
                 "direct_d16", "direct_stem", "direct_f96", "direct_f24",
                 "direct_c384", "direct_relu")}),
         row("gated_matmul@96x2x192_3x3_s2_64x128²", "matmul_s2", conv,
             path_a["gated_matmul"], conv_src,
             "gan_inpainting_tpu/ops/pallas/fused_matmul.py:76",
+            launches_aot=through_aot("gated_matmul"),
             also={"matmul_c48": conv["matmul_c48"]}),
         row("partial_epilogue@C48_64x256²", "partial_c48", conv,
             path_b["serve_launches"]["partial_epilogue"],
             "gan_inpainting_torch/csrc/partial_epilogue.cu",
             "gan_inpainting_tpu/ops/pallas/fused_matmul.py:207",
             launches_train=path_b["train_launches"]["partial_epilogue"],
+            launches_aot=through_aot("partial_epilogue"),
             also={"partial_c192": conv["partial_c192"]}),
     ]
     # ms, bound, plain and library at B 2, L 16 384 (the dense plain
@@ -3864,7 +4294,7 @@ def main() -> int:
         kernels.append(row(
             f"{name}@B2_L16384", kname, patch, sum(by_path.values()),
             attn_src if kname == "fwd" else bwd_wgmma_src, f"{tpu_pa}:{line}",
-            launches_by_path=by_path))
+            launches_by_path=by_path, launches_aot=through_aot(name)))
     print(json.dumps({"kernels": kernels, "card": smi, "large_map": {
         **large,
         "routes": routes,
@@ -3877,7 +4307,8 @@ def main() -> int:
         "partialconv256_16x256_ms_per_step": path_b["train_ms"]},
         "serve_64x256": {"serve_v4_8": rates_a,
                          "partialconv256": path_b["rates"]},
-        "service": service, "file_data": files, "data_parallel": dp}))
+        "service": service, "file_data": files, "data_parallel": dp,
+        "aot": aot}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

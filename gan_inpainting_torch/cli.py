@@ -6,8 +6,10 @@ Subcommands: ``configs``, ``train``, ``eval``, ``infer``, ``export``,
 flags. Every command but ``configs`` runs on the CUDA card unless
 ``--device`` names another device, and raises when there is no card and
 none is named (``export`` only moves weights between files, but checks
-the same). ``--aot`` (AOT-compiled serving artifacts) and the ``bench``
-command are not ported yet (ROADMAP Queue 1).
+the same). ``export --aot`` writes an AOT serving artifact (io/aot.py:
+one ``torch.export`` program per bucket beside the weights), and ``infer
+--aot DIR`` / ``serve --aot DIR`` serve from one. The ``bench`` command is
+not ported yet (ROADMAP Queue 1).
 
 Cards: ``torchrun --nproc-per-node N -m gan_inpainting_torch train ...``
 trains over N cards, one rank each (``eval`` under ``torchrun`` reduces
@@ -30,10 +32,6 @@ from gan_inpainting_torch.configs.base import (
     list_configs,
 )
 
-_AOT_TODO = ("AOT serving artifacts are not ported yet: ROADMAP Queue 1, "
-             "io/aot.py")
-
-
 def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--config", default="celeba128_center",
                    choices=list_configs())
@@ -53,8 +51,8 @@ def _add_model_source(p: argparse.ArgumentParser, aot: bool = True):
                    "(its embedded config wins; overrides still apply)")
     if aot:
         p.add_argument("--aot", default=None, metavar="DIR",
-                       help="AOT artifact directory (not ported yet: "
-                       "raises)")
+                       help="AOT artifact directory (export --aot): "
+                       "exported programs, no model code or tracing")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -86,15 +84,22 @@ def _parser() -> argparse.ArgumentParser:
     _add_model_source(p_inf)
 
     p_exp = sub.add_parser(
-        "export", help="write the generator to a portable .npz artifact")
+        "export", help="write the generator to a portable .npz artifact, "
+        "or (--aot) an AOT serving artifact directory")
     _add_common(p_exp)
-    p_exp.add_argument("--output", required=True, help="output .npz path")
+    p_exp.add_argument("--output", required=True,
+                       help="output .npz path (or directory with --aot)")
     p_exp.add_argument("--best", action="store_true",
                        help="export the best-PSNR retention checkpoint")
     p_exp.add_argument("--raw", action="store_true",
                        help="export raw params even when EMA is tracked")
     p_exp.add_argument("--aot", action="store_true",
-                       help="AOT serving artifact (not ported yet: raises)")
+                       help="AOT artifact: a torch.export program per serve "
+                       "bucket + params (io/aot.py), for --device")
+    p_exp.add_argument("--aot-buckets", default=None,
+                       help="comma-separated BxS bucket list, e.g. "
+                       "1x256,8x256 (default: infer.batch_buckets at the "
+                       "config's image size)")
 
     p_msk = sub.add_parser(
         "mask", help="write random mask PNGs (the config's mask.* family) "
@@ -148,7 +153,9 @@ def _inpainter(args, cfg, device):
     from gan_inpainting_torch.infer.inpaint import Inpainter
 
     if getattr(args, "aot", None):
-        raise NotImplementedError(_AOT_TODO)
+        from gan_inpainting_torch.io.aot import AotInpainter
+
+        return AotInpainter(args.aot, device=device)
     if args.weights:
         return Inpainter.from_npz(args.weights, overrides=args.overrides,
                                   device=device)
@@ -257,7 +264,20 @@ def main(argv=None) -> int:
 
     if args.cmd == "export":
         if args.aot:
-            raise NotImplementedError(_AOT_TODO)
+            from gan_inpainting_torch.infer.inpaint import Inpainter
+            from gan_inpainting_torch.io.aot import export_serving
+
+            inp = Inpainter.from_checkpoint(cfg, use_ema=not args.raw,
+                                            best=args.best, device=device)
+            buckets = None
+            if args.aot_buckets:
+                buckets = [tuple(int(v) for v in spec.split("x"))
+                           for spec in args.aot_buckets.split(",")]
+            manifest = export_serving(inp.cfg, inp.state_dict, args.output,
+                                      buckets=buckets, device=device)
+            print(f"wrote AOT artifact ({len(manifest['buckets'])} buckets, "
+                  f"platform {manifest['platform']}) to {args.output}")
+            return 0
         from gan_inpainting_torch.io.export import export_from_checkpoint
 
         export_from_checkpoint(cfg, args.output, use_ema=not args.raw,

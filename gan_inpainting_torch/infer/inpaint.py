@@ -44,27 +44,47 @@ def _bucket(value: int, buckets) -> int:
                      f"configure a larger bucket in InferConfig")
 
 
-def make_forward_fn(cfg: Config, state_dict,
-                    device: str | torch.device | None = None):
-    """The serve forward ``(images_u8, masks) → uint8`` on ``device``.
+def serve_forward(generator, images_u8: torch.Tensor,
+                  masks: torch.Tensor) -> torch.Tensor:
+    """The serve body, shared by the live forward and the AOT programs
+    (io/aot.py): normalize → ``generator(masked, masks)`` → composite on
+    the raw uint8 input → uint8.
 
     images_u8: (B, H, W, 3) uint8 tensor; masks: (B, H, W, 1) float32,
-    1 = hole; both on ``device``.
+    1 = hole; both on the generator's device.
     """
+    image = normalize(images_u8)
+    masked = image * (1.0 - masks)
+    fine = generator(masked, masks).fine.float()
+    # composite on raw uint8: known pixels bit-exact
+    return torch.where(masks <= 0.0, images_u8, denormalize(fine))
+
+
+def make_forward_fn(cfg: Config, state_dict,
+                    device: str | torch.device | None = None):
+    """The serve forward ``(images_u8, masks) → uint8`` on ``device``
+    (:func:`serve_forward` under ``inference_mode``)."""
     gen = build_generator(cfg.model, device=device, seed=None)
     gen.load_state_dict(state_dict)
     gen.eval()
 
     @torch.inference_mode()
     def fwd(images_u8: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-        image = normalize(images_u8)
-        masked = image * (1.0 - masks)
-        fine = gen(masked, masks).fine.float()
-        # composite on raw uint8: known pixels bit-exact
-        return torch.where(masks <= 0.0, images_u8, denormalize(fine))
+        return serve_forward(gen, images_u8, masks)
 
     fwd.generator = gen      # for profiling tools
     return fwd
+
+
+def serve_config(cfg: Config, size: int) -> Config:
+    """The formulation a size bucket is served with: buckets above
+    ``infer.fuse_upsample_max_size`` use the unfused decoder. Same weights
+    and math either way."""
+    if (cfg.model.fuse_upsample
+            and size > cfg.infer.fuse_upsample_max_size):
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, fuse_upsample=False))
+    return cfg
 
 
 def device_scope(device: torch.device):
@@ -197,16 +217,8 @@ class Inpainter:
 
     # ------------------------------------------------------------------
     def _cfg_for_size(self, size: int) -> Config:
-        """Size-dependent formulation: buckets above
-        ``infer.fuse_upsample_max_size`` use the unfused decoder. Same
-        weights and math either way."""
-        cfg = self.cfg
-        if (cfg.model.fuse_upsample
-                and size > cfg.infer.fuse_upsample_max_size):
-            cfg = dataclasses.replace(
-                cfg, model=dataclasses.replace(cfg.model,
-                                               fuse_upsample=False))
-        return cfg
+        """The formulation of a size bucket (:func:`serve_config`)."""
+        return serve_config(self.cfg, size)
 
     def _build_forward(self, fuse_upsample: bool, replica: int):
         cfg = dataclasses.replace(

@@ -12,7 +12,7 @@ refinement branch), NHWC.
    overlap counts.
 
 Under the ``pallas`` backend (what ``auto`` resolves to for this op,
-ops/dispatch.py) on a CUDA tensor the op follows the JAX package's routing
+ops/dispatch.py) the op follows the JAX package's routing
 (gan_inpainting_tpu/ops/contextual_attention.py:154-181) with the card's
 own limits:
 
@@ -31,9 +31,13 @@ own limits:
   (ops/kernels/patch_attention.py) attend, the plain fold ÷ counts folds,
   and autograd differentiates front end and fold around the kernels.
 
-On a CPU tensor, and under the ``xla`` backend on any device, it runs the
-plain composition below, which materializes the patches and the (Lq, Lk)
-score matrix and is differentiated by autograd.
+Without a gradient the routes are the same on a CPU tensor: the kernels'
+ops take their plain versions there (ops/kernels/library.py), so a CPU
+export holds the ops the card runs, with the plain composition's numbers.
+Under the ``xla`` backend on any device, and where a gradient is wanted
+of a CPU tensor, it runs the plain composition below, which materializes
+the patches and the (Lq, Lk) score matrix and is differentiated by
+autograd.
 """
 
 from __future__ import annotations
@@ -204,13 +208,14 @@ def contextual_attention(f, b, hole_mask, *, ksize: int = 3, rate: int = 2,
       (B, H, W, C) attended features, in f's dtype.
     """
     backend = resolve_backend(backend, op="contextual_attention")
-    if backend == "xla" or not (interpreting() or use_kernel(b)):
+    backward = torch.is_grad_enabled() and b.requires_grad
+    if backend == "xla" or (backward and not (interpreting()
+                                              or use_kernel(b))):
         return contextual_attention_plain(f, b, hole_mask, ksize=ksize,
                                           rate=rate,
                                           softmax_scale=softmax_scale)
     from gan_inpainting_torch.ops.kernels.fused_attention import fused_route
 
-    backward = torch.is_grad_enabled() and b.requires_grad
     if f is not b or not fused_route(b.shape, ksize, rate, b.dtype,
                                      backward=backward):
         return _patch_route(f, b, hole_mask, ksize, rate,

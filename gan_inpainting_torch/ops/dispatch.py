@@ -1,9 +1,14 @@
 """Kernel dispatch: backend names, tensor device, launch counts.
 
-Every op that owns a hand-written CUDA kernel has one wrapper that picks by
-the device of the tensor it is given: a CUDA tensor launches the kernel (or
-the wrapper raises), a CPU tensor takes the op's plain PyTorch version.
-There is no fallback from a kernel that failed to build or launch.
+Every op that owns a hand-written CUDA kernel is a ``torch.library``
+operator (ops/kernels/library.py) behind one wrapper, and PyTorch's
+dispatcher picks by the device of the tensor it is given: a CUDA tensor
+launches the kernel (or the op raises), a CPU tensor takes the op's plain
+PyTorch version. There is no fallback from a kernel that failed to build
+or launch. Where a gradient is wanted of a CPU tensor, the wrapper runs
+the plain version itself, under autograd: the ops have no autograd
+formula of their own (the card's gradients go through the wrappers'
+autograd Functions).
 
 Above the wrappers sits the config's ``model.kernel_backend`` switch, with
 the JAX package's three values kept letter for letter so that exported
@@ -15,16 +20,18 @@ configs load and mean the same thing (:func:`resolve_backend`):
   passes, the dense plain attention;
 * ``auto``   — per op, what :data:`AUTO_CUDA` says.
 
-``launches`` counts kernel launches per kernel name. Each wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+``launches`` counts kernel launches per kernel name. The CUDA
+implementation of each op adds one where it launches its kernel and
+nowhere else (the backward kernels' launch functions likewise), so a run
+can show that its main path went through the kernels, and a program
+exported with ``torch.export`` counts at run time, not at export.
 
 ``interpret_kernels()`` is the counterpart of Pallas interpret mode: inside
-the block no kernel launches, and every wrapper that would launch one takes
+the block no kernel launches, and every op that would launch one takes
 that kernel's mirror instead (its tiling and order of sums, in PyTorch),
-on any device. Wrappers read the one global flag through
-:func:`interpreting`; a kernel without a mirror (the partial-conv epilogue)
-takes its plain version. Routes (fused or patch attention, the backends)
+on any device. The ops' implementations read the one global flag through
+:func:`interpreting` at call time; a kernel without a mirror (the
+partial-conv epilogue) takes its plain version. Routes (fused or patch attention, the backends)
 are chosen as outside the block.
 
 ``section(name)`` marks a named stretch of work (the train step's phases,
@@ -137,6 +144,11 @@ def use_kernel(x: torch.Tensor) -> bool:
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no implementation for device {x.device}")
     return x.device.type == "cuda" and not _interpret
+
+
+def wants_grad(*tensors: torch.Tensor) -> bool:
+    """True where autograd records a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

@@ -53,6 +53,14 @@ def _target(name: str, nvcc: str) -> Path:
     return BUILD_DIR / f"lib{name}_{key}.so"
 
 
+def build_hash(name: str) -> str:
+    """The hash in the file name of ``csrc/<name>.cu``'s library: of its
+    source, every header, the flags and the nvcc that builds it. An
+    exported program calls the kernels by op name, so its artifact pins
+    these (io/aot.py)."""
+    return _target(name, nvcc_path()).stem.rsplit("_", 1)[1]
+
+
 def _start(name: str, nvcc: str, out: Path) -> subprocess.Popen:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),

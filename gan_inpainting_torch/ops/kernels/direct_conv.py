@@ -21,29 +21,37 @@ variants and the weight packing are in the source note of
 ``csrc/gated_conv.cu``; the plan, the packing, the packed-weight cache and
 the launch are shared with ops/kernels/gated_matmul.py.
 
-On a CPU tensor the wrapper takes the plain version (conv2d +
-``gated_epilogue``); inside ``interpret_kernels`` the kernel's mirror
-(``gated_matmul.forward_mirror``). The gradient recomputes through the
-plain composition, as the JAX kernel's custom VJP does.
+The wrapper calls the op ``gan_inpainting::gated_conv_direct``
+(ops/kernels/library.py) with the weights packed as the kernel reads them
+(``gated_matmul.kernel_weights``); its CUDA implementation launches and
+counts. Its CPU implementation is the plain version (conv2d +
+``gated_epilogue``); inside ``interpret_kernels`` both take the kernel's
+mirror (``gated_matmul.forward_mirror``). The gradient recomputes through
+the plain composition, as the JAX kernel's custom VJP does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gan_inpainting_torch.ops.dispatch import interpreting, use_kernel
+from gan_inpainting_torch.ops.dispatch import (
+    interpreting,
+    use_kernel,
+    wants_grad,
+)
 from gan_inpainting_torch.ops.gated_conv import gated_conv_plain
+from gan_inpainting_torch.ops.kernels import library
 from gan_inpainting_torch.ops.kernels.gated_matmul import (
+    SOURCE,
     GatedPlan,
     _check,
-    _check_cuda,
     _GatedConv,
     conv_geom,
-    forward_mirror,
+    gated_cpu,
+    gated_cuda,
+    gated_fake,
+    kernel_weights,
     launch_gated,
-    packed_weights,
-    pad_channels,
-    plan,
 )
 
 KERNEL = "gated_conv_direct"
@@ -68,12 +76,22 @@ def launch_direct(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
     return launch_gated(x, wp, bias, features, g, p, activation, KERNEL)
 
 
-def _forward_direct(x, weight, bias, dilation, activation):
-    f = weight.shape[0] // 2
-    p = plan(x.shape[3], f, x.dtype)
-    return launch_direct(pad_channels(x, p.cin_pad),
-                         packed_weights(weight, p, x.dtype), bias, f,
-                         weight.shape[2], dilation, p, activation)
+def _direct_cpu(x, weight, packed, bias, dilation, activation):
+    return gated_cpu(x, weight, packed, bias, 1, dilation, activation)
+
+
+def _direct_cuda(x, weight, packed, bias, dilation, activation):
+    return gated_cuda(x, weight, packed, bias, 1, dilation, activation,
+                      KERNEL)
+
+
+def _direct_fake(x, weight, packed, bias, dilation, activation):
+    return gated_fake(x, weight, packed, bias, 1, dilation, activation)
+
+
+_op = library.implement("gated_conv_direct", source=SOURCE,
+                        cpu=_direct_cpu, cuda=_direct_cuda,
+                        fake=_direct_fake)
 
 
 def gated_conv_direct(x: torch.Tensor, weight: torch.Tensor,
@@ -82,24 +100,26 @@ def gated_conv_direct(x: torch.Tensor, weight: torch.Tensor,
                       activation: str = "elu") -> torch.Tensor:
     """x: (B, H, W, Cin), weight: (2F, Cin, k, k) in x's dtype (or float32
     master weights), bias: (2F,) → (B, H, W, F). Stride must be 1 and k
-    odd: check :func:`direct_conv_supported` first. Kernel on a CUDA
-    tensor, plain on the CPU."""
+    odd: check :func:`direct_conv_supported` first. The op
+    ``gan_inpainting::gated_conv_direct``: kernel on a CUDA tensor, plain
+    on the CPU; where a gradient is wanted, ``_GatedConv`` around it (on
+    the CPU outside ``interpret_kernels``: the plain composition under
+    autograd)."""
     _check(x, weight, bias, activation)
     if not direct_conv_supported(x.shape, weight.shape[2], stride, dilation,
                                  weight.shape[0] // 2):
         raise ValueError(
             f"gated_conv_direct takes stride 1 and an odd window, got "
             f"stride={stride} k={weight.shape[2]} x={tuple(x.shape)}")
+
+    def fwd():
+        return _op(x, weight, kernel_weights(weight, x), bias, dilation,
+                   activation)
+
+    if not wants_grad(x, weight, bias):
+        return fwd()
     if not (interpreting() or use_kernel(x)):
         return gated_conv_plain(x, weight, bias, stride=1, dilation=dilation,
                                 activation=activation)
-    _check_cuda(x, weight, bias)
     x = x.contiguous()
-    bias32 = bias.float().contiguous()
-    if interpreting():
-        def fwd():
-            return forward_mirror(x, weight, bias32, 1, dilation, activation)
-    else:
-        def fwd():
-            return _forward_direct(x, weight, bias32, dilation, activation)
     return _GatedConv.apply(x, weight, bias, 1, dilation, activation, fwd)

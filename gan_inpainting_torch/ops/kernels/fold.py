@@ -1,8 +1,10 @@
 """Overlap-add fold of the fused attention kernel's tap-major output.
 
 ``fold_taps`` replaces the Pallas kernel ``_fold_kernel``
-(gan_inpainting_tpu/ops/pallas/fold.py:32). On a CUDA tensor it launches
-``gi_fold_taps`` of ``csrc/fold.cu``: one block per output row, one
+(gan_inpainting_tpu/ops/pallas/fold.py:32). It calls the op
+``gan_inpainting::fold_taps`` (ops/kernels/library.py), whose CUDA
+implementation launches ``gi_fold_taps`` of ``csrc/fold.cu`` and counts the
+launch: one block per output row, one
 16-byte vector of one output pixel per thread (8 bytes or less only where
 C or the pointers' alignment leave no wider vector, :func:`fold_vector`),
 its at most four source taps found in closed form (:func:`fold_pairs`: two
@@ -10,8 +12,8 @@ its at most four source taps found in closed form (:func:`fold_pairs`: two
 loads issued before the float32 sum, times the exact reciprocal overlap
 count (1, ½ or ¼, :func:`fold_inv`) computed in the kernel. It reads every
 tap element once and writes every output element once, so on an H100 it is
-bounded by bytes: (16 + 4)·Lq·C elements per image at rate 2. On a CPU
-tensor it takes :func:`fold_taps_plain`, the patch-major fold of
+bounded by bytes: (16 + 4)·Lq·C elements per image at rate 2. The op's
+CPU implementation is :func:`fold_taps_plain`, the patch-major fold of
 ops/patches.py divided by the counts; :func:`fold_taps_mirror` is the
 kernel's gather written in PyTorch, which the CPU tests hold against both.
 The JAX package sends cell grids above 2048 cells to an XLA fold instead;
@@ -30,8 +32,10 @@ from gan_inpainting_torch.ops.dispatch import (
     count_launch,
     interpreting,
     use_kernel,
+    wants_grad,
 )
 from gan_inpainting_torch.ops.kernels import build
+from gan_inpainting_torch.ops.kernels import library as ops_library
 from gan_inpainting_torch.ops.patches import fold_patches
 
 KERNEL = "fold_taps"
@@ -148,15 +152,19 @@ def fold_vector(c: int, dtype: torch.dtype, *ptrs: int) -> int:
     return 1
 
 
-def fold_taps(taps: torch.Tensor, hs: int, ws: int,
-              rate: int) -> torch.Tensor:
-    """Overlap-add (B, 4r², hs·ws, C) tap-major patches (window 2r, stride
-    r, SAME) into (B, r·hs, r·ws, C), divided by the overlap counts."""
-    _check(taps, hs, ws, rate)
+def _fold_cpu(taps, hs, ws, rate):
+    """The op on the CPU: the plain fold (the mirror inside
+    ``interpret_kernels``)."""
     if interpreting():
         return fold_taps_mirror(taps, hs, ws, rate)
-    if not use_kernel(taps):
-        return fold_taps_plain(taps, hs, ws, rate)
+    return fold_taps_plain(taps, hs, ws, rate)
+
+
+def _fold_cuda(taps, hs, ws, rate):
+    """The op on the card: one launch of ``gi_fold_taps`` (the mirror
+    inside ``interpret_kernels``)."""
+    if interpreting():
+        return fold_taps_mirror(taps, hs, ws, rate)
     if taps.dtype not in _DTYPES:
         raise TypeError(f"fold_taps kernel takes {_DTYPES}, got {taps.dtype}")
     if not taps.is_contiguous():
@@ -177,3 +185,24 @@ def fold_taps(taps: torch.Tensor, hs: int, ws: int,
     count_launch(KERNEL)
     build.check(lib, err, KERNEL)
     return out
+
+
+def _fold_fake(taps, hs, ws, rate):
+    return taps.new_empty((taps.shape[0], rate * hs, rate * ws,
+                           taps.shape[-1]))
+
+
+_op = ops_library.implement("fold_taps", source="fold", cpu=_fold_cpu,
+                            cuda=_fold_cuda, fake=_fold_fake)
+
+
+def fold_taps(taps: torch.Tensor, hs: int, ws: int,
+              rate: int) -> torch.Tensor:
+    """Overlap-add (B, 4r², hs·ws, C) tap-major patches (window 2r, stride
+    r, SAME) into (B, r·hs, r·ws, C), divided by the overlap counts: the
+    op ``gan_inpainting::fold_taps``. Where a gradient is wanted and no
+    kernel would launch, its CPU implementation runs under autograd."""
+    _check(taps, hs, ws, rate)
+    if wants_grad(taps) and not use_kernel(taps):
+        return _fold_cpu(taps, hs, ws, rate)
+    return _op(taps, hs, ws, rate)

@@ -27,8 +27,11 @@ query with no valid key: the residual the backward kernels
 (ops/kernels/fused_attention_bwd.py) rebuild the weights from. Serving
 does not ask for it.
 
-On a CPU tensor the wrapper takes :func:`fused_attention_taps_plain`, an
-independent derivation from the materialized patch formulation
+The wrapper calls the op ``gan_inpainting::fused_attention_taps``
+(ops/kernels/library.py): its CUDA implementation runs the prep and the
+launch, and adds one to the launch count where it launches; its CPU
+implementation is :func:`fused_attention_taps_plain`, an independent
+derivation from the materialized patch formulation
 (ops/contextual_attention.py), not from the parity trick.
 """
 
@@ -43,8 +46,10 @@ from gan_inpainting_torch.ops.dispatch import (
     count_launch,
     interpreting,
     use_kernel,
+    wants_grad,
 )
-from gan_inpainting_torch.ops.kernels import build
+from gan_inpainting_torch.ops.kernels import build, library
+from gan_inpainting_torch.ops.kernels.library import empty_lse
 from gan_inpainting_torch.ops.kernels.patch_attention import wgmma_cluster
 
 KERNEL = "contextual_attention_fused"
@@ -360,26 +365,7 @@ def _launch(maps: torch.Tensor, bias: torch.Tensor, rnorm: torch.Tensor,
     return (out, lse) if want_lse else out
 
 
-def fused_attention_taps(b_feat: torch.Tensor, hole_mask: torch.Tensor, *,
-                         ksize: int = 3, rate: int = 2,
-                         softmax_scale: float = 10.0,
-                         want_lse: bool = False):
-    """Contextual attention with queries = keys = ``b_feat`` (B, H, W, C),
-    hole mask (B, H, W, 1) → tap-major output patches (B, 4r², Lq, C),
-    Lq = (H/r)·(W/r). Fold them with ops/kernels/fold.py ``fold_taps``.
-    ``want_lse`` (training) also returns the (B, Lq) float32 log-sum-exp
-    the backward kernels rebuild the weights from."""
-    bsz, h, w, c = b_feat.shape
-    if h % rate or w % rate:
-        raise ValueError(f"spatial dims {(h, w)} must divide rate={rate}")
-    if tuple(hole_mask.shape) != (bsz, h, w, 1):
-        raise ValueError(f"hole_mask {tuple(hole_mask.shape)} must be "
-                         f"{(bsz, h, w, 1)}")
-    if not (interpreting() or use_kernel(b_feat)):
-        return fused_attention_taps_plain(b_feat, hole_mask, ksize=ksize,
-                                          rate=rate,
-                                          softmax_scale=softmax_scale,
-                                          want_lse=want_lse)
+def _check_taps(b_feat, hole_mask, ksize):
     if ksize != 3:
         raise ValueError("the fused kernel builds 3x3 Q/K taps from a "
                          f"one-cell halo; got ksize={ksize}")
@@ -388,15 +374,81 @@ def fused_attention_taps(b_feat: torch.Tensor, hole_mask: torch.Tensor, *,
                         f"{b_feat.dtype}")
     if hole_mask.device != b_feat.device:
         raise ValueError("hole_mask and b_feat must be on one device")
+
+
+def _taps_mirror(b_feat, hole_mask, ksize, rate, softmax_scale, want_lse):
+    """The kernel's mirror at the cluster its plan picks."""
+    _check_taps(b_feat, hole_mask, ksize)
     maps, bias, rnorm, (hs, ws) = _prepare(b_feat, hole_mask, ksize, rate)
+    cluster = plan(hs, ws, b_feat.shape[-1], b_feat.dtype, rate)[2]
+    taps, lse = fused_attention_mirror(maps, bias, rnorm, hs, ws, rate,
+                                       softmax_scale, cluster=cluster)
+    return taps, (lse if want_lse else empty_lse(taps))
+
+
+def _taps_cpu(b_feat, hole_mask, ksize, rate, softmax_scale, want_lse):
+    """The op on the CPU: the plain version (the mirror inside
+    ``interpret_kernels``)."""
     if interpreting():
-        # the kernel's mirror at the cluster its plan picks
-        cluster = plan(hs, ws, b_feat.shape[-1], b_feat.dtype, rate)[2]
-        taps, lse = fused_attention_mirror(maps, bias, rnorm, hs, ws, rate,
-                                           softmax_scale, cluster=cluster)
-        return (taps, lse) if want_lse else taps
-    return _launch(maps, bias, rnorm, hs, ws, rate, softmax_scale,
-                   want_lse=want_lse)
+        return _taps_mirror(b_feat, hole_mask, ksize, rate, softmax_scale,
+                            want_lse)
+    out = fused_attention_taps_plain(b_feat, hole_mask, ksize=ksize,
+                                     rate=rate, softmax_scale=softmax_scale,
+                                     want_lse=want_lse)
+    return out if want_lse else (out, empty_lse(out))
+
+
+def _taps_cuda(b_feat, hole_mask, ksize, rate, softmax_scale, want_lse):
+    """The op on the card: host prep and one launch (the mirror inside
+    ``interpret_kernels``)."""
+    if interpreting():
+        return _taps_mirror(b_feat, hole_mask, ksize, rate, softmax_scale,
+                            want_lse)
+    _check_taps(b_feat, hole_mask, ksize)
+    maps, bias, rnorm, (hs, ws) = _prepare(b_feat, hole_mask, ksize, rate)
+    out = _launch(maps, bias, rnorm, hs, ws, rate, softmax_scale,
+                  want_lse=want_lse)
+    return out if want_lse else (out, empty_lse(out))
+
+
+def _taps_fake(b_feat, hole_mask, ksize, rate, softmax_scale, want_lse):
+    bsz, h, w, c = b_feat.shape
+    lq = (h // rate) * (w // rate)
+    taps = b_feat.new_empty((bsz, 4 * rate * rate, lq, c))
+    lse = (b_feat.new_empty((bsz, lq), dtype=torch.float32) if want_lse
+           else empty_lse(b_feat))
+    return taps, lse
+
+
+_op = library.implement("fused_attention_taps",
+                        source="contextual_attention", cpu=_taps_cpu,
+                        cuda=_taps_cuda, fake=_taps_fake)
+
+
+def fused_attention_taps(b_feat: torch.Tensor, hole_mask: torch.Tensor, *,
+                         ksize: int = 3, rate: int = 2,
+                         softmax_scale: float = 10.0,
+                         want_lse: bool = False):
+    """Contextual attention with queries = keys = ``b_feat`` (B, H, W, C),
+    hole mask (B, H, W, 1) → tap-major output patches (B, 4r², Lq, C),
+    Lq = (H/r)·(W/r). Fold them with ops/kernels/fold.py ``fold_taps``.
+    ``want_lse`` (training) also returns the (B, Lq) float32 log-sum-exp
+    the backward kernels rebuild the weights from. The op
+    ``gan_inpainting::fused_attention_taps``; where a gradient is wanted
+    and no kernel would launch, its CPU implementation runs under
+    autograd."""
+    bsz, h, w, c = b_feat.shape
+    if h % rate or w % rate:
+        raise ValueError(f"spatial dims {(h, w)} must divide rate={rate}")
+    if tuple(hole_mask.shape) != (bsz, h, w, 1):
+        raise ValueError(f"hole_mask {tuple(hole_mask.shape)} must be "
+                         f"{(bsz, h, w, 1)}")
+    args = (ksize, rate, float(softmax_scale), want_lse)
+    if wants_grad(b_feat) and not use_kernel(b_feat):
+        taps, lse = _taps_cpu(b_feat, hole_mask, *args)
+    else:
+        taps, lse = _op(b_feat, hole_mask, *args)
+    return (taps, lse) if want_lse else taps
 
 
 class _FusedPatchAttention(torch.autograd.Function):

@@ -23,7 +23,11 @@ until the tensor changes. :func:`gated_conv_mirror` repeats the kernel's
 index algebra (the walk over tiles, box rows, tap rows, packed rows and
 column blocks) in PyTorch for the CPU tests.
 
-On a CPU tensor the wrapper takes the plain version
+The wrapper calls the op ``gan_inpainting::gated_conv_matmul``
+(ops/kernels/library.py) with the weights packed as the kernel reads them
+(:func:`kernel_weights`); its CUDA implementation (:func:`gated_cuda`,
+shared with ``gated_conv_direct``) launches and counts, its CPU
+implementation is the plain version
 (:func:`gan_inpainting_torch.ops.gated_conv.gated_conv_plain`: conv2d +
 ``gated_epilogue``). The gradient, as in the JAX package, recomputes
 through that plain composition: no backward kernel.
@@ -31,6 +35,7 @@ through that plain composition: no backward kernel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 import weakref
@@ -43,12 +48,13 @@ from gan_inpainting_torch.ops.dispatch import (
     count_launch,
     interpreting,
     use_kernel,
+    wants_grad,
 )
 from gan_inpainting_torch.ops.gated_conv import (
     gated_conv_plain,
     gated_epilogue,
 )
-from gan_inpainting_torch.ops.kernels import build
+from gan_inpainting_torch.ops.kernels import build, library
 from gan_inpainting_torch.ops.patches import same_pads
 
 KERNEL = "gated_matmul"
@@ -389,12 +395,88 @@ def forward_mirror(x, weight, bias, stride, dilation, activation):
     return out.to(x.device, x.dtype)
 
 
-def _forward_matmul(x, weight, bias, stride, dilation, activation):
+def packed_shape(weight_shape, p: GatedPlan) -> tuple[int, ...]:
+    """The shape :func:`pack_weights` gives a (2F, Cin, k, k) weight."""
+    kh, kw = weight_shape[2:]
+    k_pad = _rup(kh * kw * p.kpt, SLAB)
+    if p.kind == "fma":
+        return (k_pad, 2, p.n_col * p.block_f)
+    return (k_pad // SLAB, p.n_col * 2 * p.block_f, SLAB)
+
+
+_given = threading.local()
+
+
+@contextlib.contextmanager
+def given_packed(packed: dict):
+    """Inside the block, :func:`kernel_weights` hands each weight that
+    ``packed`` holds (keyed by ``id`` of the weight tensor) the packed copy
+    found there: the packed weights an exported program takes as inputs
+    (io/aot.py), packed once when the program is loaded."""
+    prev = getattr(_given, "packed", None)
+    _given.packed = packed
+    try:
+        yield
+    finally:
+        _given.packed = prev
+
+
+def kernel_weights(weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The packed weights the ops take for map ``x``: the copy
+    :func:`given_packed` holds for ``weight`` (an exported program's
+    input), else :func:`packed_weights` (one packed copy per parameter
+    version)."""
+    given = getattr(_given, "packed", None)
+    if given and id(weight) in given:
+        return given[id(weight)]
+    return packed_weights(weight, plan(x.shape[3], weight.shape[0] // 2,
+                                       x.dtype), x.dtype)
+
+
+def gated_cpu(x, weight, packed, bias, stride, dilation, activation):
+    """The ops on the CPU: the plain composition (the kernel's mirror
+    inside ``interpret_kernels``); ``packed`` is not read."""
+    if interpreting():
+        _check_cuda(x, weight, bias)
+        return forward_mirror(x.contiguous(), weight, bias.float(), stride,
+                              dilation, activation)
+    return gated_conv_plain(x, weight, bias, stride=stride,
+                            dilation=dilation, activation=activation)
+
+
+def gated_cuda(x, weight, packed, bias, stride, dilation, activation,
+               counter):
+    """The ops on the card: one launch of ``gi_gated_conv`` on the map and
+    the packed weights, counted as ``counter`` (the mirror inside
+    ``interpret_kernels``)."""
+    _check_cuda(x, weight, bias)
+    x, bias32 = x.contiguous(), bias.float().contiguous()
+    if interpreting():
+        return forward_mirror(x, weight, bias32, stride, dilation,
+                              activation)
     f = weight.shape[0] // 2
     p = plan(x.shape[3], f, x.dtype)
-    return launch_strided(pad_channels(x, p.cin_pad),
-                          packed_weights(weight, p, x.dtype), bias, f,
-                          weight.shape[2], stride, dilation, p, activation)
+    if (packed.dtype != x.dtype or packed.device != x.device
+            or not packed.is_contiguous()
+            or tuple(packed.shape) != packed_shape(weight.shape, p)):
+        raise ValueError(
+            f"packed weights {tuple(packed.shape)} {packed.dtype} are not "
+            f"pack_weights' layout {packed_shape(weight.shape, p)} "
+            f"{x.dtype} for this map")
+    g = conv_geom(x.shape[1], x.shape[2], weight.shape[2], stride, dilation)
+    return launch_gated(pad_channels(x, p.cin_pad), packed, bias32, f, g, p,
+                        activation, counter)
+
+
+def gated_fake(x, weight, packed, bias, stride, dilation, activation):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, -(-h // stride), -(-w // stride),
+                        weight.shape[0] // 2))
+
+
+_op = library.implement(
+    "gated_conv_matmul", source=SOURCE, cpu=gated_cpu,
+    cuda=lambda *a: gated_cuda(*a, counter=KERNEL), fake=gated_fake)
 
 
 def gated_conv_matmul(x: torch.Tensor, weight: torch.Tensor,
@@ -402,16 +484,22 @@ def gated_conv_matmul(x: torch.Tensor, weight: torch.Tensor,
                       dilation: int = 1,
                       activation: str = "elu") -> torch.Tensor:
     """x: (B, H, W, Cin), weight: (2F, Cin, k, k) in x's dtype (or float32
-    master weights), bias: (2F,) → (B, Ho, Wo, F), TF-SAME. Kernel on a
-    CUDA tensor, plain on the CPU."""
+    master weights), bias: (2F,) → (B, Ho, Wo, F), TF-SAME: the op
+    ``gan_inpainting::gated_conv_matmul``, kernel on a CUDA tensor, plain
+    on the CPU. Where a gradient is wanted, :class:`_GatedConv` around the
+    op (on the CPU outside ``interpret_kernels``: the plain composition
+    under autograd)."""
     _check(x, weight, bias, activation)
+
+    def fwd():
+        return _op(x, weight, kernel_weights(weight, x), bias, stride,
+                   dilation, activation)
+
+    if not wants_grad(x, weight, bias):
+        return fwd()
     if not (interpreting() or use_kernel(x)):
         return gated_conv_plain(x, weight, bias, stride=stride,
                                 dilation=dilation, activation=activation)
-    _check_cuda(x, weight, bias)
     x = x.contiguous()
-    bias32 = bias.float().contiguous()
-    fwd = forward_mirror if interpreting() else _forward_matmul
     return _GatedConv.apply(x, weight, bias, stride, dilation, activation,
-                            lambda: fwd(x, weight, bias32, stride, dilation,
-                                        activation))
+                            fwd)

@@ -9,14 +9,16 @@ feature conv, with ``count`` = valid pixels under its window:
     y         = raw · scale + b   where count > 0, else exactly 0
     valid_out = count > 0         (in raw's dtype, exactly 0 or 1)
 
-On a CUDA tensor it launches ``csrc/partial_epilogue.cu``: one pass over
+It is the op ``gan_inpainting::partial_epilogue`` (ops/kernels/
+library.py), whose CUDA implementation launches ``csrc/partial_epilogue.cu``
+and counts the launch: one pass over
 ``raw`` with 16-byte loads along the channels, float32 arithmetic, both
 outputs written from that pass. On an H100 it is bounded by bytes
 (2·M·C·itemsize + 8·M: raw in, y out, one count in and one valid out per
 pixel); the plain version below makes five or six passes. The activation is
 not fused: the layer applies it afterwards, as in the JAX package.
 
-On a CPU tensor the wrapper takes :func:`partial_conv_epilogue_plain`.
+The op's CPU implementation is :func:`partial_conv_epilogue_plain`.
 The gradient is that of the plain epilogue, written out: ``d raw = g ·
 scale`` where ``count > 0``, ``d bias`` = the sum of ``g`` over those
 pixels, nothing for the counts.
@@ -28,8 +30,13 @@ import ctypes
 
 import torch
 
-from gan_inpainting_torch.ops.dispatch import count_launch, use_kernel
-from gan_inpainting_torch.ops.kernels import build
+from gan_inpainting_torch.ops.dispatch import (
+    count_launch,
+    interpreting,
+    use_kernel,
+    wants_grad,
+)
+from gan_inpainting_torch.ops.kernels import build, library
 
 KERNEL = "partial_epilogue"
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -86,13 +93,41 @@ def _launch(raw: torch.Tensor, counts: torch.Tensor, bias: torch.Tensor,
     return y, valid
 
 
+def _epilogue_cpu(raw, counts, bias, window):
+    """The op on the CPU: the plain version."""
+    return partial_conv_epilogue_plain(raw, counts, bias, window)
+
+
+def _epilogue_cuda(raw, counts, bias, window):
+    """The op on the card: one launch (the plain version inside
+    ``interpret_kernels``: the kernel has no mirror)."""
+    if interpreting():
+        return partial_conv_epilogue_plain(raw, counts, bias, window)
+    if raw.dtype not in _DTYPES:
+        raise TypeError(f"partial epilogue kernel takes {_DTYPES}, got "
+                        f"{raw.dtype}")
+    if counts.device != raw.device or bias.device != raw.device:
+        raise ValueError("raw, counts and bias must be on one device")
+    return _launch(raw.contiguous(), counts.float().contiguous(),
+                   bias.float().contiguous(), window)
+
+
+def _epilogue_fake(raw, counts, bias, window):
+    return raw.new_empty(raw.shape), raw.new_empty(raw.shape[:3] + (1,))
+
+
+_op = library.implement("partial_epilogue", source="partial_epilogue",
+                        cpu=_epilogue_cpu, cuda=_epilogue_cuda,
+                        fake=_epilogue_fake)
+
+
 class _PartialEpilogue(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, raw, counts, bias, window):
         ctx.save_for_backward(counts)
         ctx.window, ctx.bias_dtype = window, bias.dtype
-        y, valid = _launch(raw, counts, bias.float().contiguous(), window)
+        y, valid = _op(raw, counts, bias, window)
         ctx.mark_non_differentiable(valid)
         return y, valid
 
@@ -106,20 +141,20 @@ class _PartialEpilogue(torch.autograd.Function):
 
 def partial_conv_epilogue(raw: torch.Tensor, counts: torch.Tensor,
                           bias: torch.Tensor, window: int):
-    """(y, valid_out) as :func:`partial_conv_epilogue_plain`: the kernel on
-    a CUDA tensor, the plain version on a CPU tensor and inside
-    ``interpret_kernels`` (the kernel has no mirror)."""
+    """(y, valid_out) as :func:`partial_conv_epilogue_plain`: the op
+    ``gan_inpainting::partial_epilogue``, the kernel on a CUDA tensor, the
+    plain version on a CPU tensor and inside ``interpret_kernels`` (the
+    kernel has no mirror). Where a gradient is wanted,
+    :class:`_PartialEpilogue` around the op, or where no kernel would
+    launch the plain version under autograd."""
     if raw.dim() != 4 or counts.shape != raw.shape[:3] + (1,) \
             or bias.shape != raw.shape[3:]:
         raise ValueError(f"raw {tuple(raw.shape)}, counts "
                          f"{tuple(counts.shape)}, bias {tuple(bias.shape)}: "
                          "want (B, Ho, Wo, C), (B, Ho, Wo, 1), (C,)")
+    if not wants_grad(raw, bias):
+        return _op(raw, counts, bias, window)
     if not use_kernel(raw):
         return partial_conv_epilogue_plain(raw, counts, bias, window)
-    if raw.dtype not in _DTYPES:
-        raise TypeError(f"partial epilogue kernel takes {_DTYPES}, got "
-                        f"{raw.dtype}")
-    if counts.device != raw.device or bias.device != raw.device:
-        raise ValueError("raw, counts and bias must be on one device")
     return _PartialEpilogue.apply(raw.contiguous(),
                                   counts.float().contiguous(), bias, window)

@@ -36,7 +36,11 @@ with; and :func:`patch_attention_mirror`, the kernels' tiling in PyTorch
 (column tiles, running max and sum, per-rank slices of d and dv summed in
 rank order, weights rounded as the kernels round them), which the CPU tests
 hold against the plain versions and the JAX Pallas forward. On a CUDA
-tensor the wrappers launch the kernels or raise.
+tensor the wrappers launch the kernels or raise. The forward is the op
+``gan_inpainting::patch_attention`` (ops/kernels/library.py), whose CUDA
+implementation launches and counts; the backward kernels are launched by
+:func:`patch_attention_bwd` directly (no serving path reaches them, and
+they are not exported).
 """
 
 from __future__ import annotations
@@ -50,8 +54,10 @@ from gan_inpainting_torch.ops.dispatch import (
     count_launch,
     interpreting,
     use_kernel,
+    wants_grad,
 )
-from gan_inpainting_torch.ops.kernels import build
+from gan_inpainting_torch.ops.kernels import build, library
+from gan_inpainting_torch.ops.kernels.library import empty_lse
 
 KERNEL_FWD = "patch_attention_fwd"
 KERNEL_DQ = "patch_attention_bwd_dq"
@@ -550,24 +556,61 @@ def launch_dkv(q, k, key_valid, v, g, lse, delta, softmax_scale: float, *,
 # ---------------------------------------------------------------------------
 
 
+def _fwd_mirror(q, k, key_valid, v, softmax_scale, want_lse):
+    _check(q, k, key_valid, v)
+    out, lse = patch_attention_mirror(
+        q, k, key_valid, v, softmax_scale=softmax_scale,
+        **_mirror_tiles("fwd", q.shape[-1], v.shape[-1], q.dtype))
+    return out, (lse if want_lse else empty_lse(out))
+
+
+def _fwd_cpu(q, k, key_valid, v, softmax_scale, want_lse):
+    """The op on the CPU: dense attention (the mirror inside
+    ``interpret_kernels``)."""
+    if interpreting():
+        return _fwd_mirror(q, k, key_valid, v, softmax_scale, want_lse)
+    out = patch_attention_plain(q, k, key_valid, v,
+                                softmax_scale=softmax_scale,
+                                want_lse=want_lse)
+    return out if want_lse else (out, empty_lse(out))
+
+
+def _fwd_cuda(q, k, key_valid, v, softmax_scale, want_lse):
+    """The op on the card: one launch of the forward kernel (the mirror
+    inside ``interpret_kernels``)."""
+    if interpreting():
+        return _fwd_mirror(q, k, key_valid, v, softmax_scale, want_lse)
+    out = launch_fwd(q.contiguous(), k.contiguous(), key_valid.contiguous(),
+                     v.contiguous(), softmax_scale, want_lse=want_lse)
+    return out if want_lse else (out, empty_lse(out))
+
+
+def _fwd_fake(q, k, key_valid, v, softmax_scale, want_lse):
+    bsz, lq, _ = q.shape
+    out = v.new_empty((bsz, lq, v.shape[-1]))
+    lse = (q.new_empty((bsz, lq), dtype=torch.float32) if want_lse
+           else empty_lse(q))
+    return out, lse
+
+
+_op = library.implement("patch_attention", source="patch_attention",
+                        cpu=_fwd_cpu, cuda=_fwd_cuda, fake=_fwd_fake)
+
+
 def patch_attention(q, k, key_valid, v, *, softmax_scale: float,
                     want_lse: bool = False):
     """Patch attention: q (B, Lq, d), k (B, Lk, d) normalized keys,
     key_valid (B, Lk) bool, v (B, Lk, dv) → (B, Lq, dv) in v's dtype; rows
     with no valid key are exactly 0. ``want_lse`` also returns the (B, Lq)
-    float32 log-sum-exp the backward rebuilds p from."""
-    if interpreting():
-        _check(q, k, key_valid, v)
-        out, lse = patch_attention_mirror(
-            q, k, key_valid, v, softmax_scale=softmax_scale,
-            **_mirror_tiles("fwd", q.shape[-1], v.shape[-1], q.dtype))
-        return (out, lse) if want_lse else out
-    if not use_kernel(q):
-        return patch_attention_plain(q, k, key_valid, v,
-                                     softmax_scale=softmax_scale,
-                                     want_lse=want_lse)
-    return launch_fwd(q.contiguous(), k.contiguous(), key_valid.contiguous(),
-                      v.contiguous(), softmax_scale, want_lse=want_lse)
+    float32 log-sum-exp the backward rebuilds p from. The op
+    ``gan_inpainting::patch_attention``; where a gradient is wanted and no
+    kernel would launch, its CPU implementation runs under autograd."""
+    args = (float(softmax_scale), want_lse)
+    if wants_grad(q, k, v) and not use_kernel(q):
+        out, lse = _fwd_cpu(q, k, key_valid, v, *args)
+    else:
+        out, lse = _op(q, k, key_valid, v, *args)
+    return (out, lse) if want_lse else out
 
 
 def patch_attention_bwd(q, k, key_valid, v, out, lse, g, *,

@@ -14,8 +14,8 @@ axis only:
   JAX package's device prefix does.
 
 ``model`` or ``spatial`` above 1 raises ``NotImplementedError`` in both
-places: the spatial axis (row-sharded attention and conv halos) and the
-model axis (channel sharding) are ROADMAP Queue 1 items 2 and 3.
+places: the model axis (channel sharding) and the spatial axis
+(row-sharded attention and conv halos) are ROADMAP Queue 1 items 1 and 2.
 """
 
 from __future__ import annotations
@@ -23,8 +23,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
-_ROADMAP = {"spatial": "ROADMAP Queue 1 item 2, the spatial axis",
-            "model": "ROADMAP Queue 1 item 3, the model axis"}
+_ROADMAP = {"model": "ROADMAP Queue 1 item 1, the model axis",
+            "spatial": "ROADMAP Queue 1 item 2, the spatial axis"}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,11 +2,15 @@
 
     python -m gan_inpainting_torch.tools.bench_serve [--size 512]
         [--batches 1,8,64] [--reps 5] [--turns 2]
-        [--fused-max-cells 2048,4096]
+        [--fused-max-cells 2048,4096] [--backend auto,pallas]
+        [--config partialconv256]
 
 Serves the pinned tex256_attn generator (bf16, as ``chip_smoke.py`` [3]
-serves it) at one size bucket and each batch bucket, on random uint8
-images with a rectangular hole, and prints one JSON line per batch: the ms
+serves it) — or, with ``--config``, that config's generator from a seeded
+initialization — under each ``model.kernel_backend`` value of
+``--backend`` at one size bucket and each batch bucket, on random uint8
+images with a rectangular hole, and prints one JSON line per backend and
+batch: the ms
 of ``inpaint_batch`` (host uint8 in and out) and of the device forward
 alone (CUDA events), per turn; the contextual-attention kernels launched
 by one forward (which route the map took); and the card's name and power
@@ -99,6 +103,11 @@ def main(argv=None) -> None:
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--fused-max-cells", default=None,
                     help="two comma-separated values taken in turns a b b a")
+    ap.add_argument("--backend", default="auto",
+                    help="comma-separated model.kernel_backend values")
+    ap.add_argument("--config", default=None,
+                    help="serve this config's generator from seed 0 instead "
+                    "of the pinned npz")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_serve needs a CUDA device")
@@ -116,12 +125,28 @@ def main(argv=None) -> None:
         order = [a, b, b, a] * (args.turns // 2) or [a, b]
     else:
         order = [None] * args.turns
-    inp = Inpainter.from_npz(NPZ, overrides=OVERRIDES, device="cuda")
-    for b in (int(x) for x in args.batches.split(",")):
-        res = bench(inp, b, args.size, args.reps, order)
-        print(json.dumps(dict(batch=b, size=args.size, reps=args.reps,
-                              card=smi, **res)), flush=True)
-        torch.cuda.empty_cache()
+    for backend in args.backend.split(","):
+        overrides = OVERRIDES + [f"model.kernel_backend={backend}"]
+        if args.config:
+            from gan_inpainting_torch.configs.base import (
+                apply_overrides,
+                get_config,
+            )
+            from gan_inpainting_torch.models.generator import build_generator
+
+            cfg = apply_overrides(get_config(args.config), overrides[1:])
+            params = build_generator(cfg.model, device="cuda",
+                                     seed=0).state_dict()
+            inp = Inpainter(cfg, params, device="cuda")
+        else:
+            inp = Inpainter.from_npz(NPZ, overrides=overrides, device="cuda")
+        for b in (int(x) for x in args.batches.split(",")):
+            res = bench(inp, b, args.size, args.reps, order)
+            print(json.dumps(dict(config=args.config or "tex256_attn",
+                                  backend=backend, batch=b, size=args.size,
+                                  reps=args.reps, card=smi, **res)),
+                  flush=True)
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

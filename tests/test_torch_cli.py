@@ -177,9 +177,12 @@ def test_profile_writes_a_trace(tmp_path, capsys):
     ["serve", "--aot", "artifact"],
     ["export", "--output", "g.npz", "--aot"],
 ], ids=lambda a: a[0])
-def test_aot_raises(argv):
-    with pytest.raises(NotImplementedError, match="Queue 1, io/aot.py"):
-        main(argv + ["--device", "cpu"])
+def test_aot_raises(argv, tmp_path):
+    """``--aot`` with no artifact there, and ``export --aot`` with no
+    checkpoint to export, raise FileNotFoundError."""
+    argv = [str(tmp_path / a) if a == "artifact" else a for a in argv]
+    with pytest.raises(FileNotFoundError):
+        main(argv + ["--device", "cpu", f"train.workdir={tmp_path / 'run'}"])
 
 
 def test_serve_answers_over_http(npz, monkeypatch):

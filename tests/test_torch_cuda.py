@@ -1000,3 +1000,56 @@ def test_interpret_kernels_launches_nothing_on_the_card(cuda, dtype):
     for a, b in ((y_i, y_k), (dx_i, dx_k)):
         assert (a - b).abs().max().item() <= frac * max(
             b.abs().max().item(), 1.0)
+
+
+def _op_case(name, device):
+    """Small inputs on the card for one op of ops/kernels/library.py, in
+    the dtypes its kernel takes (bf16 at C 64 for the wgmma variants)."""
+    from gan_inpainting_torch.ops.kernels.gated_matmul import kernel_weights
+
+    gen = torch.Generator(device).manual_seed(0)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(shape, device=device, generator=gen).to(dtype)
+
+    x = torch.relu(t(2, 16, 16, 64, dtype=torch.bfloat16))
+    hole = (torch.rand((2, 16, 16, 1), device=device, generator=gen)
+            < 0.3).float()
+    xc = t(2, 12, 12, 8, dtype=torch.bfloat16)
+    w, b = t(48, 8, 3, 3) * 0.2, t(48)
+    valid = torch.rand((2, 70), device=device, generator=gen) < 0.7
+    return {
+        "fused_attention_taps": (x, hole, 3, 2, 10.0, True),
+        "fold_taps": (t(2, 16, 64, 64, dtype=torch.bfloat16), 8, 8, 2),
+        "gated_conv_direct": (xc, w, kernel_weights(w, xc), b, 2, "elu"),
+        "gated_conv_matmul": (xc, w, kernel_weights(w, xc), b, 2, 1,
+                              "relu"),
+        "partial_epilogue": (t(2, 8, 8, 48), torch.randint(
+            0, 10, (2, 8, 8, 1), device=device,
+            generator=gen).float(), t(48), 3),
+        "patch_attention": (t(2, 64, 72, dtype=torch.bfloat16),
+                            t(2, 70, 72, dtype=torch.bfloat16), valid,
+                            t(2, 70, 96, dtype=torch.bfloat16), 10.0, True),
+    }[name]
+
+
+@pytest.mark.parametrize("name", [
+    "fused_attention_taps", "fold_taps", "gated_conv_direct",
+    "gated_conv_matmul", "partial_epilogue", "patch_attention"])
+def test_kernel_ops_pass_opcheck_on_the_card(cuda, name):
+    """Each serving kernel's torch.library op (ops/kernels/library.py) on
+    the card: schema, the fake implementation against the launch, and the
+    traced dispatch; the launch is counted by the CUDA implementation."""
+    from gan_inpainting_torch.ops.kernels import library
+
+    library.load_all()
+    op = getattr(torch.ops.gan_inpainting, name).default
+    args = _op_case(name, cuda)
+    kernel = {"fused_attention_taps": "contextual_attention_fused",
+              "gated_conv_matmul": "gated_matmul",
+              "patch_attention": "patch_attention_fwd"}.get(name, name)
+    dispatch.reset_launches()
+    op(*args)
+    torch.cuda.synchronize()
+    assert dispatch.launches.get(kernel) == 1
+    torch.library.opcheck(op, args)

@@ -43,7 +43,7 @@ def test_port_imports_no_jax():
                      "ops.kernels.gated_matmul", "losses.perceptual",
                      "tools.profile_serve", "ops.kernels.patch_attention",
                      "parallel.mesh", "parallel.multihost",
-                     "parallel.sharding"):
+                     "parallel.sharding", "io.aot", "ops.kernels.library"):
             assert "gan_inpainting_torch." + name in sys.modules, name
         assert set(build.SOURCES) >= {"gated_conv", "partial_epilogue",
                                       "patch_attention"}
@@ -57,6 +57,11 @@ def test_port_imports_no_jax():
                                             "orbax", "gan_inpainting_tpu"))
         assert not bad, bad
         assert not build._libs, "a kernel was built at import"
+        # every serving op is registered by the imports alone
+        from gan_inpainting_torch.ops.kernels import library
+        assert all(hasattr(torch.ops.gan_inpainting, n)
+                   for n in library.OPS)
+        assert set(library.SOURCES) == set(library.OPS)
         print("clean")
     """)
     assert res.returncode == 0, res.stderr
