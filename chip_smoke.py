@@ -101,7 +101,7 @@ Phases (each prints its lines; any failure exits non-zero):
    rank, 6 steps, an eval): the record (metrics.jsonl with the world size
    and 2 gradient all-reduces per step, a checkpoint, the sample grid) and
    steps/s beside the same train() without torchrun, in this process, in
-   turns (torchrun, alone, torchrun); (b) two
+   turns (torchrun, then alone); (b) two
    gloo ranks sharing cuda:0 (spawned workers calling the port with
    ``device="cuda:0"``): ``places512_deepfill`` at full width, global
    batch 8 (4 per rank), 2 steps on fixed batches in bf16 at 512² and in
@@ -131,10 +131,27 @@ Phases (each prints its lines; any failure exits non-zero):
    turns; ``InpaintService`` over an artifact (32 mixed 256²/512² requests
    from concurrent clients, fewer dispatches); a ``cpu`` artifact and a
    stale kernel build refused on the card;
-12. one JSON line of per-kernel numbers (with the service's under
+12. the mesh's model axis (``train.mesh.model=2 model.tp_shard=true``):
+   (a) ``places512_deepfill`` at full width, bf16, ``auto``, 3 steps over
+   one model group of two gloo ranks sharing cuda:0 (global batch cut
+   from 8 to 2: every gather goes through the host under gloo) — the
+   ranks bit-identical after each step, losses and parameters against
+   one process on the same batches within stated tolerances, step ms,
+   channel gathers and their bytes per step, peak memory per rank (a
+   check, not a rate of NCCL); the peak memory of one 8×512² step with
+   and without ``model.remat_stages``; (b) the pinned generator under
+   serve_v4_8's model config through ``Inpainter(devices=[cuda:0,
+   cuda:0])`` at model=2 against one device at model=1, under ``auto``
+   and ``pallas``, at 8×256² and 1×512² (known pixels bit-exact, hole
+   pixels within ±2 on ≥ 99.9 %, launches per forward of rows 1–3 and
+   6–7 equal to the group's plan, ms per batch of both in turns); (c)
+   the gated-conv kernel at every slice form of (b)'s pallas forwards
+   (F = 12 included) against its plain version, with its time, the plain
+   version's, ``conv2d`` + bias and the bound;
+13. one JSON line of per-kernel numbers (with the service's under
    ``"service"``, phase 9's under ``"file_data"``, phase 10's under
-   ``"data_parallel"`` and phase 11's under ``"aot"``), then the result
-   line.
+   ``"data_parallel"``, phase 11's under ``"aot"`` and phase 12's under
+   ``"model_axis"``), then the result line.
 
 Phase 2 also holds the three patch-attention kernels (forward, dQ, dK/dV)
 against their plain versions at the full widths (d 1728, dv 3072) at L
@@ -3283,9 +3300,10 @@ def _dp_command(torch, workdir, torchrun: bool):
     return out, recs, rates
 
 
-def _dp_identical(torch, state) -> bool:
-    """Whether every rank holds rank 0's state bit for bit: parameters,
-    spectral vectors, both Adams (their step counters too) and the EMA."""
+def _dp_gap(torch, state) -> float:
+    """The largest difference of any rank's state from rank 0's, over
+    parameters, spectral vectors, both Adams (their step counters too)
+    and the EMA: 0.0 where every rank holds it bit for bit."""
     import torch.distributed as dist
 
     from gan_inpainting_torch.parallel.sharding import _state_tensors
@@ -3296,9 +3314,15 @@ def _dp_identical(torch, state) -> bool:
                           (state.g_opt, state.d_opt), state.g_ema.values())])
     ref = mine.clone()
     dist.broadcast(ref, 0)
-    differs = torch.tensor([0.0 if torch.equal(ref, mine) else 1.0])
-    dist.all_reduce(differs)
-    return differs.item() == 0.0
+    gap = torch.tensor([0.0 if torch.equal(ref, mine) else max(
+        (ref - mine).abs().max().item(), 1e-30)])
+    dist.all_reduce(gap, op=dist.ReduceOp.MAX)
+    return gap.item()
+
+
+def _dp_identical(torch, state) -> bool:
+    """Whether every rank holds rank 0's state bit for bit."""
+    return _dp_gap(torch, state) == 0.0
 
 
 def _dp_batches(torch, cfg, n):
@@ -3314,9 +3338,9 @@ def _dp_batches(torch, cfg, n):
             for i in range(n)]
 
 
-def _dp_rank(rank, tmp):
-    """Phase 10 (b), one of two gloo ranks sharing cuda:0: the port's step
-    and train() with device="cuda:0" inside a group this worker sets up."""
+def _gloo_rank(rank, tmp, jobs):
+    """One of two gloo ranks sharing cuda:0: ``jobs(torch, rank, tmp)``
+    inside a group this worker sets up, its result pickled."""
     import os
     import pathlib
     import pickle
@@ -3332,7 +3356,7 @@ def _dp_rank(rank, tmp):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.cuda.set_device(0)
-        pickle.dump(_dp_rank_jobs(torch, rank, tmp),
+        pickle.dump(jobs(torch, rank, tmp),
                     open(tmp / f"rank{rank}.pkl", "wb"))
     except BaseException:
         import traceback
@@ -3341,6 +3365,34 @@ def _dp_rank(rank, tmp):
         raise
     finally:
         dist.destroy_process_group()
+
+
+def _spawn_gloo(torch, tmp, jobs, while_running, timeout=900):
+    """Two gloo ranks running ``jobs``, and ``while_running()`` in this
+    process meanwhile; returns (its result, the ranks' results)."""
+    import multiprocessing
+    import pickle
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_rank, args=(r, str(tmp), jobs))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        mine = while_running()
+    finally:
+        for p in procs:
+            p.join(timeout=timeout)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+    errors = [f.read_text()[-3000:] for f in tmp.glob("error*.txt")]
+    _require(not alive and not errors
+             and all(p.exitcode == 0 for p in procs),
+             f"gloo ranks: alive {alive}, exit codes "
+             f"{[p.exitcode for p in procs]}, {errors}")
+    return mine, [pickle.load(open(tmp / f"rank{r}.pkl", "rb"))
+                  for r in range(2)]
 
 
 def _dp_rank_jobs(torch, rank, tmp):
@@ -3413,7 +3465,8 @@ def _dp_torchrun(torch, tmp, smi):
     turns."""
     turns = {"torchrun": [], "alone": []}
     t_all = time.perf_counter()
-    for i, kind in enumerate(("torchrun", "alone", "torchrun")):
+    # two runs, so that the whole script stays inside its time limit
+    for i, kind in enumerate(("torchrun", "alone")):
         t0 = time.perf_counter()
         out, recs, rates = _dp_command(torch, tmp / f"a{i}",
                                        kind == "torchrun")
@@ -3451,8 +3504,8 @@ def _dp_torchrun(torch, tmp, smi):
     gain, spread = _decide(flat["alone"], flat["torchrun"])
     print(f"[10] (a) steps/s at 8x512², windows of {DP_LOG} steps after "
           f"the first, in turns torchrun, alone (train() in this "
-          f"process), torchrun ({time.perf_counter() - t_all:.1f} s for "
-          f"the three runs): "
+          f"process) ({time.perf_counter() - t_all:.1f} s for the two "
+          f"runs): "
           f"torchrun {[round(r, 3) for r in flat['torchrun']]}, alone "
           f"{[round(r, 3) for r in flat['alone']]}; torchrun "
           f"{'faster' if gain < 0 else 'slower'} by {abs(gain):.3f} "
@@ -3464,9 +3517,6 @@ def _dp_gloo(torch, tmp, smi):
     """Phase 10 (b): two gloo ranks sharing cuda:0 through the port's step
     and train(): bit-identical ranks, float32 parity with one process on
     the whole batch, a resumed run."""
-    import multiprocessing
-    import pickle
-
     from gan_inpainting_torch.configs.base import apply_overrides, get_config
     from gan_inpainting_torch.train.state import create_state
     from gan_inpainting_torch.train.step import make_train_step
@@ -3479,14 +3529,10 @@ def _dp_gloo(torch, tmp, smi):
     cfg = apply_overrides(get_config("places512_deepfill"), DP_F32)
     batches = _dp_batches(torch, cfg, 2)
     torch.save(batches, tmp / "batches_f32.pt")
-    ctx = multiprocessing.get_context("spawn")
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=_dp_rank, args=(r, str(tmp)))
-             for r in range(2)]
-    for p in procs:
-        p.start()
-    try:
-        # the reference, while the ranks start: rank 0 waits for its file
+
+    def reference():
+        # while the ranks start: rank 0 waits for its file
         state = create_state(cfg, device="cuda:0")
         step = make_train_step(cfg)
         one = [{k: float(v) for k, v in step(
@@ -3499,20 +3545,9 @@ def _dp_gloo(torch, tmp, smi):
         (tmp / "f32_ref.part").rename(tmp / "f32_ref.pt")
         del state, step, sd
         torch.cuda.empty_cache()
-        ref_s = time.perf_counter() - t0
-    finally:
-        for p in procs:
-            p.join(timeout=900)
-        alive = [p for p in procs if p.is_alive()]
-        for p in alive:
-            p.kill()
-    errors = [f.read_text()[-3000:] for f in tmp.glob("error*.txt")]
-    _require(not alive and not errors
-             and all(p.exitcode == 0 for p in procs),
-             f"gloo ranks: alive {alive}, exit codes "
-             f"{[p.exitcode for p in procs]}, {errors}")
-    ranks = [pickle.load(open(tmp / f"rank{r}.pkl", "rb"))
-             for r in range(2)]
+        return one, time.perf_counter() - t0
+
+    (one, ref_s), ranks = _spawn_gloo(torch, tmp, _dp_rank_jobs, reference)
     b_s = time.perf_counter() - t0
     r0, r1 = ranks
     for kind in ("f32", "bf16"):
@@ -4043,6 +4078,428 @@ def _aot_artifacts(torch, rng, smi, tmp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the mesh's model axis (model.tp_shard) and model.remat_stages
+# ---------------------------------------------------------------------------
+
+MA_MODEL2 = ["train.mesh.model=2", "model.tp_shard=true"]
+# (a) places512_deepfill at full width over one model group of two gloo
+# ranks on cuda:0, bf16 under auto. The global batch is cut from 8 to 2:
+# under gloo every gather and input-gradient reduce is staged through the
+# host (≈ 0.8 GB of gathers per forward at batch 2)
+MA_STEPS = 3
+MA_TRAIN = TRAIN_512 + ["data.batch_size=2"]
+# (a) the group's steps against one process on the same batches, both
+# bf16: per metric |a − b| ≤ MA_METRIC_TOL · max(|b|, 1) (bf16 activations
+# rounded at other points where a conv's output channels are split); the
+# parameters after MA_STEPS Adam steps no further apart than the steps can
+# move them (2 · steps · the larger lr: where a gradient is near 0 its
+# rounding noise decides the sign of an update), and at least
+# MA_PARAM_FRAC of the entries within MA_PARAM_ATOL
+MA_METRIC_TOL = 2.0 ** -5
+MA_PARAM_ATOL, MA_PARAM_FRAC = 1e-4, 0.99
+# (b) serve_v4_8's model config at the 8×256² and 1×512² buckets
+MA_SERVE = ["model.fuse_upsample=true", "infer.size_buckets=256,512",
+            "infer.batch_buckets=1,8"]
+# the kernels of PERF.md §6 rows 1–3 and 6–7, counted per forward in (b)
+MA_ROWS = ("contextual_attention_fused", "fold_taps", "gated_conv_direct",
+           "gated_matmul")
+
+
+def _ma_cfg(model2: bool):
+    from gan_inpainting_torch.configs.base import apply_overrides, get_config
+
+    return apply_overrides(get_config("places512_deepfill"),
+                           MA_TRAIN + (MA_MODEL2 if model2 else
+                                       ["model.tp_shard=true"]))
+
+
+def _ma_rank_jobs(torch, rank, tmp):
+    """Phase 12 (a), one member: MA_STEPS steps of the model group on the
+    fixed batches, each timed, its collectives counted, the ranks compared
+    bit for bit after each."""
+    from gan_inpainting_torch.data.pipeline import Batch
+    from gan_inpainting_torch.models.generator import sliced_parameters
+    from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.parallel.sharding import counts, reduce_metrics
+    from gan_inpainting_torch.train.state import create_state
+    from gan_inpainting_torch.train.step import make_train_step
+
+    cfg = _ma_cfg(True)
+    batches = torch.load(tmp / "batches.pt", weights_only=False)
+    torch.cuda.reset_peak_memory_stats()
+    state = create_state(cfg, device="cuda:0")
+    step = make_train_step(cfg)
+    gaps, metrics, steps = [_dp_gap(torch, state)], [], []
+    dispatch.reset_launches()
+    for b in batches:
+        before = dict(counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(reduce_metrics(step(state, Batch(
+            *(t.cuda() for t in b)))))
+        torch.cuda.synchronize()
+        steps.append(dict(ms=1e3 * (time.perf_counter() - t0),
+                          **{k: counts[k] - before[k] for k in counts}))
+        gaps.append(_dp_gap(torch, state))
+    out = dict(gaps=gaps, metrics=metrics, steps=steps,
+               launches=dict(dispatch.launches),
+               sharded=len(sliced_parameters(state.generator)) // 2,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if rank == 0:
+        while not (tmp / "ref.pt").exists():     # the parent's
+            time.sleep(0.5)
+        ref = torch.load(tmp / "ref.pt", weights_only=True)
+        sd = state.state_dict()
+        gaps = torch.cat([(sd[p][k].float().cpu() - v).abs().flatten()
+                          for p in ("g_params", "d_params", "g_ema")
+                          for k, v in ref[p].items()])
+        out.update(param_max=gaps.max().item(),
+                   param_frac=(gaps <= MA_PARAM_ATOL).float().mean().item())
+    return out
+
+
+def _ma_train(torch, tmp, smi):
+    """Phase 12 (a): the model group's steps against one process."""
+    from gan_inpainting_torch.train.state import create_state
+    from gan_inpainting_torch.train.step import make_train_step
+
+    one_cfg = _ma_cfg(False)
+    batches = _dp_batches(torch, one_cfg, MA_STEPS)
+    torch.save(batches, tmp / "batches.pt")
+    t0 = time.perf_counter()
+
+    def reference():
+        # one process on the same batches while the ranks start: rank 0
+        # waits for its file
+        state = create_state(one_cfg, device="cuda:0")
+        step = make_train_step(one_cfg)
+        got = [{k: float(v) for k, v in step(
+            state, type(b)(*(t.cuda() for t in b))).items()}
+            for b in batches]
+        sd = state.state_dict()
+        torch.save({p: {k: v.float().cpu() for k, v in sd[p].items()}
+                    for p in ("g_params", "d_params", "g_ema")},
+                   tmp / "ref.part")
+        (tmp / "ref.part").rename(tmp / "ref.pt")
+        del state, step, sd
+        torch.cuda.empty_cache()
+        return got
+
+    one, ranks = _spawn_gloo(torch, tmp, _ma_rank_jobs, reference)
+    wall = time.perf_counter() - t0
+    r0, r1 = ranks
+    _require(not any(r0["gaps"]) and r0["metrics"] == r1["metrics"],
+             f"model group: ranks differ after a step: largest gaps "
+             f"{r0['gaps']}, metrics {r0['metrics']} / {r1['metrics']}")
+    gaps = {k: max(abs(m[k] - w[k]) / max(abs(w[k]), 1.0)
+                   for m, w in zip(r0["metrics"], one))
+            for k in one[0]}
+    lr = max(one_cfg.train.g_lr, one_cfg.train.d_lr)
+    bound = 2 * MA_STEPS * lr
+    missing = [k for k in FILE_PATH_KERNELS
+               if not all(r["launches"].get(k) for r in ranks)]
+    per = r0["steps"]
+    print(f"[12] (a) places512_deepfill full width, bf16, auto, "
+          f"train.mesh.model=2 model.tp_shard=true: one model group of 2 "
+          f"gloo ranks on cuda:0, {MA_STEPS} steps on fixed batches of 2 "
+          f"(global batch cut from 8: every gather goes through the host "
+          f"under gloo); {r0['sharded']} channel-sharded convs; ranks' "
+          f"parameters, spectral vectors, Adam states and EMA bit-identical "
+          f"after each step; against one process on the same batches: "
+          f"metrics max |a−b|/max(|b|,1) {max(gaps.values()):.3e} (tol "
+          f"{MA_METRIC_TOL:.3e}; by metric "
+          f"{ {k: round(v, 5) for k, v in gaps.items()} }), parameters max "
+          f"abs diff {r0['param_max']:.3e} (bound {bound:.1e}), "
+          f"{100 * r0['param_frac']:.4f} % within {MA_PARAM_ATOL} (need "
+          f"{100 * MA_PARAM_FRAC} %); per step ms "
+          f"{[round(s['ms'], 1) for s in per]}, channel gathers "
+          f"{[s['channel_gathers'] for s in per]}, gathered bytes "
+          f"{[s['channel_gather_bytes'] for s in per]} "
+          f"(the zero-filled all_reduce buffers: 2x an all_gather's), "
+          f"input-gradient all-reduces "
+          f"{[s['input_grad_all_reduces'] for s in per]}, model-group "
+          f"gradient reduces {[s['model_grad_reduces'] for s in per]}; "
+          f"peak memory per "
+          f"rank {[round(r['peak_gib'], 2) for r in ranks]} GiB; launches "
+          f"per rank {[{k: r['launches'].get(k, 0) for k in FILE_PATH_KERNELS} for r in ranks]} "
+          f"(gloo stages every collective through the host: a check, not "
+          f"a rate of NCCL); {wall:.1f} s with spawn and cuDNN tuning "
+          f"| {smi}")
+    _require(not missing, f"model group: not launched on every rank: "
+             f"{missing}")
+    _require(max(gaps.values()) <= MA_METRIC_TOL
+             and r0["param_max"] <= bound
+             and r0["param_frac"] >= MA_PARAM_FRAC,
+             "the model group's steps disagree with one process")
+    return dict(metric_gaps=gaps, param_max=r0["param_max"],
+                param_frac=r0["param_frac"], steps=per,
+                sharded_convs=r0["sharded"],
+                peak_gib=[r["peak_gib"] for r in ranks],
+                launches=[r["launches"] for r in ranks], wall_s=wall)
+
+
+def _ma_remat_peak(torch, smi):
+    """Phase 12: the peak memory of one 8×512² places512_deepfill step
+    with and without model.remat_stages, in this process."""
+    from gan_inpainting_torch.configs.base import apply_overrides, get_config
+    from gan_inpainting_torch.train.state import create_state
+    from gan_inpainting_torch.train.step import make_train_step
+
+    base = apply_overrides(get_config("places512_deepfill"), TRAIN_512)
+    batch = _dp_batches(torch, base, 1)[0]
+    batch = type(batch)(*(t.cuda() for t in batch))
+    out = {}
+    for remat in (False, True, False, True):
+        cfg = apply_overrides(base, [f"model.remat_stages={str(remat).lower()}"])
+        state = create_state(cfg, device="cuda")
+        step = make_train_step(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        _require(all(np.isfinite(float(v)) for v in m.values()),
+                 f"remat={remat}: metrics not finite")
+        out.setdefault(remat, []).append(dict(
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            above_state_gib=(torch.cuda.max_memory_allocated() - start)
+            / 2 ** 30, ms=ms))
+        del state, step, m
+        torch.cuda.empty_cache()
+    print(f"[12] one places512_deepfill step at 8x512² bf16 (step 0: R1 "
+          f"included), in turns off, on, off, on: peak memory without "
+          f"remat_stages {[round(r['peak_gib'], 2) for r in out[False]]} "
+          f"GiB ({[round(r['above_state_gib'], 2) for r in out[False]]} "
+          f"above the state), with it "
+          f"{[round(r['peak_gib'], 2) for r in out[True]]} GiB "
+          f"({[round(r['above_state_gib'], 2) for r in out[True]]}); "
+          f"step ms {[round(r['ms'], 1) for r in out[False]]} against "
+          f"{[round(r['ms'], 1) for r in out[True]]} (one step each, not "
+          f"a rate) | {smi}")
+    _require(max(r["peak_gib"] for r in out[True])
+             < min(r["peak_gib"] for r in out[False]),
+             "remat_stages did not lower the step's peak memory")
+    return {"off": out[False], "on": out[True]}
+
+
+def _ma_plan(gen, cfg_model, model: int) -> dict:
+    """Launches per forward of the gated-conv kernels the group's plan
+    predicts: every member runs every gated conv that is not a rewrite
+    (s2d stem, fused upsample), stride 1 on the direct kernel, stride 2
+    on the strided one, sharded or whole."""
+    from gan_inpainting_torch.models.layers import InpaintConv
+
+    if cfg_model.kernel_backend != "pallas":
+        return {"gated_conv_direct": 0, "gated_matmul": 0}
+    convs = [m for m in gen.modules() if isinstance(m, InpaintConv)
+             and m.conv_kind == "gated" and not (m.s2d or m.pre_upsample)]
+    return {"gated_conv_direct": model * sum(m.stride == 1 for m in convs),
+            "gated_matmul": model * sum(m.stride == 2 for m in convs)}
+
+
+def _ma_forms(inp, imgs, masks) -> dict:
+    """The gated-conv forms one member's forward gives the kernels: (x
+    shape, features of the member's slice, window, stride, dilation,
+    activation) → count per forward, by forward pre-hooks on member 0."""
+    from gan_inpainting_torch.models.layers import InpaintConv
+
+    fuse = inp._cfg_for_size(imgs.shape[1]).model.fuse_upsample
+    gen = inp._forwards[0][0](fuse).generator
+    forms: dict = {}
+
+    def hook(m, args):
+        x = args[0]
+        f = m.features // (m.model_group.size if m.model_group else 1)
+        key = (tuple(x.shape), f, m.kernel_size, m.stride, m.dilation,
+               m.activation)
+        forms[key] = forms.get(key, 0) + 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in gen.modules()
+               if isinstance(m, InpaintConv) and m.conv_kind == "gated"
+               and not (m.s2d or m.pre_upsample)]
+    try:
+        inp.inpaint_batch(imgs, masks)
+    finally:
+        for h in handles:
+            h.remove()
+    return forms
+
+
+def _ma_serve(torch, rng, smi):
+    """Phase 12 (b): serve_v4_8 over a group of two devices (cuda:0 twice)
+    against one, under auto and pallas; the gated-conv slice forms."""
+    from gan_inpainting_torch.infer.inpaint import Inpainter
+    from gan_inpainting_torch.ops import dispatch
+
+    t_all = time.perf_counter()
+    reqs = {"8x256": (_smooth_images(rng, 8, 256, 256),
+                      _stroke_masks(rng, 8, 256, 256)),
+            "1x512": (_smooth_images(rng, 1, 512, 512),
+                      _stroke_masks(rng, 1, 512, 512))}
+    out, forms = {}, {}
+    for backend in ("auto", "pallas"):
+        ov = MA_SERVE + [f"model.kernel_backend={backend}"]
+        one = Inpainter.from_npz(NPZ, overrides=ov, device="cuda:0")
+        two = Inpainter.from_npz(NPZ, overrides=ov + MA_MODEL2,
+                                 devices=["cuda:0", "cuda:0"])
+        _require(len(two.groups) == 1 and len(two.groups[0]) == 2,
+                 f"model=2 over 2 devices: groups {two.groups}")
+        res = {}
+        for name, (imgs, masks) in reqs.items():
+            want = one.inpaint_batch(imgs, masks)
+            dispatch.reset_launches()
+            one.inpaint_batch(imgs, masks)
+            l_one = {k: dispatch.launches.get(k, 0) for k in MA_ROWS}
+            two.inpaint_batch(imgs, masks)            # cuDNN tuning, build
+            dispatch.reset_launches()
+            got = two.inpaint_batch(imgs, masks)
+            l_two = {k: dispatch.launches.get(k, 0) for k in MA_ROWS}
+            _known_exact(got, imgs, masks, f"model group {backend} {name}")
+            agree = _hole_agreement(got, want, masks)
+            _require(agree[f"within_{BF16_SERVE_LEVELS}"] >= BF16_SERVE_FRAC,
+                     f"model group {backend} {name} vs one device: {agree}")
+            fuse = two._cfg_for_size(imgs.shape[1]).model.fuse_upsample
+            plan = _ma_plan(two._forwards[0][0](fuse).generator,
+                            two.cfg.model, 2)
+            # rows 1–3 run whole on every member: twice model=1's
+            predicted = {**{k: 2 * l_one[k] for k in MA_ROWS[:2]}, **plan}
+            _require(l_two == predicted and all(
+                l_two[k] > 0 for k in MA_ROWS[:2]) and (
+                backend == "auto" or all(l_two[k] > 0 for k in plan)),
+                f"model group {backend} {name}: launches per forward "
+                f"{l_two}, plan {predicted}")
+            # ms per batch through inpaint_batch, in turns one, two, two,
+            # one: CUDA events on the card's default stream, which both
+            # members' work runs on, so the host's waits between the
+            # exchanges are inside
+            turns = {"one": [], "two": []}
+            for kind in ("one", "two", "two", "one"):
+                inp = one if kind == "one" else two
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                runs = []
+                for _ in range(3):
+                    start.record()
+                    inp.inpaint_batch(imgs, masks)
+                    end.record()
+                    torch.cuda.synchronize()
+                    runs.append(start.elapsed_time(end))
+                turns[kind].append(float(np.median(runs)))
+            if backend == "pallas":
+                forms[name] = _ma_forms(two, imgs, masks)
+            res[name] = dict(hole_agreement=agree, launches_one=l_one,
+                             launches_two=l_two, predicted=predicted,
+                             ms=turns)
+            print(f"[12] (b) serve_v4_8 (tex256_attn npz) {name} bf16 "
+                  f"{backend}: Inpainter(devices=[cuda:0, cuda:0]) with "
+                  f"train.mesh.model=2 model.tp_shard=true against one "
+                  f"device at model=1: known pixels bit-exact, hole pixels "
+                  f"within ±{BF16_SERVE_LEVELS} on "
+                  f"{agree[f'within_{BF16_SERVE_LEVELS}']:.6f} (need "
+                  f"{BF16_SERVE_FRAC}; max {agree['max']}); launches per "
+                  f"forward of rows 1-3, 6-7 {l_two} = the group's plan "
+                  f"{predicted} (model=1: {l_one}); ms per batch through "
+                  f"inpaint_batch in turns one, two, two, one: model=1 "
+                  f"{[round(t, 2) for t in turns['one']]}, model=2 on the "
+                  f"same card {[round(t, 2) for t in turns['two']]} (one "
+                  f"card: no gain claimed) | {smi}")
+        out[backend] = res
+        two.close()
+        del one, two
+        torch.cuda.empty_cache()
+    print(f"[12] (b) took {time.perf_counter() - t_all:.1f} s")
+    return out, forms
+
+
+def _ma_kernels(torch, rng, forms, smi):
+    """Phase 12 (c): the gated-conv kernel at every slice form of (b)'s
+    pallas group forwards against its plain version, bf16, with its time,
+    the plain version's, conv2d + bias and the bound."""
+    from gan_inpainting_torch.ops.conv import conv2d
+    from gan_inpainting_torch.ops.gated_conv import (
+        gated_conv,
+        gated_conv_plain,
+    )
+    from gan_inpainting_torch.ops.kernels import gated_matmul as gm
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    merged: dict = {}
+    for name, fs in forms.items():
+        for key, n in fs.items():
+            merged.setdefault(key, {})[name] = 2 * n    # both members
+    rows = []
+    for (shape, f, k, stride, dil, act), launches in sorted(
+            merged.items(), key=lambda kv: (kv[0][1], kv[0][0])):
+        b, h, w, cin = shape
+        xb = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, bf16)
+        wb = torch.from_numpy((rng.standard_normal((2 * f, cin, k, k))
+                               / np.sqrt(k * k * cin)).astype(
+                                   np.float32)).to(dev, bf16)
+        bias = torch.from_numpy(0.5 * rng.standard_normal(2 * f).astype(
+            np.float32)).to(dev)
+        kw = dict(stride=stride, dilation=dil, activation=act)
+        want = gated_conv_plain(xb.float(), wb.float(), bias, **kw)
+        got = gated_conv(xb, wb, bias, backend="pallas", **kw)
+        ref = max(want.abs().max().item(), 1.0)
+        err = (got.float() - want).abs().max().item()
+        ho, wo = got.shape[1:3]
+        del got, want
+        form = (f"{'matmul s2' if stride == 2 else f'direct d{dil}'} "
+                f"{cin}->2x{f} {k}x{k} {b}x{h}x{w} {act}")
+        _require(err <= CONV_BF16_TOL_FRAC * ref,
+                 f"slice form {form}: kernel disagrees with its plain "
+                 f"version ({err:.3e}, max|ref| {ref:.3e})")
+        ms = _time_ms(torch, lambda: gated_conv(xb, wb, bias,
+                                                backend="pallas", **kw), 5)
+        plain_ms = _time_ms(torch, lambda: gated_conv_plain(xb, wb, bias,
+                                                            **kw), 5)
+        lib_ms = _time_ms(torch, lambda: conv2d(xb, wb, bias, stride=stride,
+                                                dilation=dil), 5)
+        m = b * ho * wo
+        n_bytes = (xb.numel() + wb.numel() + m * f) * 2 + bias.numel() * 4
+        bound, by = _bound_ms(n_bytes, 2.0 * m * k * k * cin * 2 * f,
+                              H100_BF16_FLOPS)
+        p = gm.plan(cin, f, bf16)
+        rows.append(dict(form=form, features=f, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                         max_abs_err=err, launches=launches,
+                         block_f=p.block_f, n_col=p.n_col))
+        print(f"[12] (c) {form}: max_abs_err {err:.3e} (tol "
+              f"{CONV_BF16_TOL_FRAC * ref:.3e}); ms {ms:.4f}, plain "
+              f"{plain_ms:.4f}, conv2d+bias {lib_ms:.4f}, bound "
+              f"{bound:.4f} by {by}; plan block_f {p.block_f} x {p.n_col}; "
+              f"launches per group forward {launches} | {smi}")
+        del xb, wb
+    _require(any(r["features"] == 12 for r in rows),
+             "no slice form of 12 features was held")
+    return rows
+
+
+def model_axis(torch, rng, smi):
+    """Phase 12: (a) training over a model group of two gloo ranks, the
+    remat_stages peak, (b) serving over a group of two devices, (c) the
+    gated-conv kernel at the slice shapes."""
+    import pathlib
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        a = _ma_train(torch, pathlib.Path(tmp), smi)
+    torch.cuda.empty_cache()
+    remat = _ma_remat_peak(torch, smi)
+    b, forms = _ma_serve(torch, rng, smi)
+    c = _ma_kernels(torch, rng, forms, smi)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"[12] phase 12 took {wall:.1f} s")
+    return dict(train=a, remat=remat, serve=b, slice_kernels=c,
+                phase_s=wall)
+
+
 def main() -> int:
     import torch
 
@@ -4178,6 +4635,19 @@ def main() -> int:
               for r, launches in enumerate(dp["b"]["launches"])}
     torch.cuda.empty_cache()
     aot = aot_artifacts(torch, rng, smi)
+    torch.cuda.empty_cache()
+    ma = model_axis(torch, rng, smi)
+    ma_serve = ma["serve"]["pallas"]
+
+    def through_group(kernel):
+        """Launches per forward of ``kernel`` through phase 12's group of
+        two under pallas, by bucket."""
+        return {bucket: r["launches_two"][kernel]
+                for bucket, r in ma_serve.items()}
+
+    def slice_forms(route):
+        return [r for r in ma["slice_kernels"]
+                if r["form"].startswith(route)]
 
     def through_aot(kernel):
         """Launches per forward of ``kernel`` through each exported
@@ -4208,6 +4678,7 @@ def main() -> int:
             launches_train=l256["contextual_attention_fused"],
             launches_service=svc[256]["contextual_attention_fused"],
             launches_aot=through_aot("contextual_attention_fused"),
+            launches_model_axis=through_group("contextual_attention_fused"),
             train_with_lse_ms=bwd256["forward_with_lse_ms"]),
         row("contextual_attention_fused@512", "attention", res512,
             at_512["contextual_attention_fused"], attn_src, f"{tpu_fa}:52",
@@ -4223,7 +4694,8 @@ def main() -> int:
             "gan_inpainting_tpu/ops/pallas/fold.py:32",
             launches_train=l256["fold_taps"], at_64x256=fold["b64_256"],
             launches_service=svc[256]["fold_taps"],
-            launches_aot=through_aot("fold_taps")),
+            launches_aot=through_aot("fold_taps"),
+            launches_model_axis=through_group("fold_taps")),
         row("fold_taps@512train", "b8_512train", fold, at_512["fold_taps"],
             fold_src, "gan_inpainting_tpu/ops/pallas/fold.py:32",
             launches_train=l512["fold_taps"],
@@ -4261,6 +4733,8 @@ def main() -> int:
             path_a["gated_conv_direct"], conv_src,
             "gan_inpainting_tpu/ops/pallas/direct_conv.py:48",
             launches_aot=through_aot("gated_conv_direct"),
+            launches_model_axis=through_group("gated_conv_direct"),
+            at_model_axis_slices=slice_forms("direct"),
             also={k: conv[k] for k in (
                 "direct_d16", "direct_stem", "direct_f96", "direct_f24",
                 "direct_c384", "direct_relu")}),
@@ -4268,6 +4742,8 @@ def main() -> int:
             path_a["gated_matmul"], conv_src,
             "gan_inpainting_tpu/ops/pallas/fused_matmul.py:76",
             launches_aot=through_aot("gated_matmul"),
+            launches_model_axis=through_group("gated_matmul"),
+            at_model_axis_slices=slice_forms("matmul"),
             also={"matmul_c48": conv["matmul_c48"]}),
         row("partial_epilogue@C48_64x256²", "partial_c48", conv,
             path_b["serve_launches"]["partial_epilogue"],
@@ -4308,7 +4784,7 @@ def main() -> int:
         "serve_64x256": {"serve_v4_8": rates_a,
                          "partialconv256": path_b["rates"]},
         "service": service, "file_data": files, "data_parallel": dp,
-        "aot": aot}))
+        "aot": aot, "model_axis": ma}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

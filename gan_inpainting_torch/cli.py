@@ -15,7 +15,12 @@ Cards: ``torchrun --nproc-per-node N -m gan_inpainting_torch train ...``
 trains over N cards, one rank each (``eval`` under ``torchrun`` reduces
 over its ranks the same way); only rank 0 prints. ``serve`` and ``infer``
 serve over every local card of the config's mesh unless ``--device`` pins
-one; ``eval`` without ``torchrun`` runs on one card.
+one; ``eval`` without ``torchrun`` runs on one card. The overrides
+``train.mesh.model=M model.tp_shard=true`` add the mesh's model axis: the
+N ranks form N / M model groups of M neighbouring cards that train one
+batch slice each with the generator's convs channel-sharded over the
+group, and ``serve`` / ``infer`` run each replica over a group of M cards
+(with ``--device``, M members on that one device).
 """
 
 from __future__ import annotations
@@ -40,7 +45,9 @@ def _add_common(p: argparse.ArgumentParser):
                    "rank's card; serve and infer: every card of the "
                    "config's mesh), and an error when there is none")
     p.add_argument("overrides", nargs="*",
-                   help="config overrides, e.g. train.steps=100")
+                   help="config overrides, e.g. train.steps=100; "
+                   "train.mesh.model=2 model.tp_shard=true shards the "
+                   "generator's convs over groups of 2 cards")
 
 
 def _add_model_source(p: argparse.ArgumentParser, aot: bool = True):

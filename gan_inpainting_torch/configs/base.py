@@ -80,8 +80,12 @@ class ModelConfig:
     # (ops/s2d_conv.py): same math and parameters
     s2d_stem: bool = False
     bf16_head: bool = False
-    remat_stages: bool = False    # differentiation-only; ignored here
-    tp_shard: bool = False        # one card; ignored here
+    # each generator stack checkpointed where a gradient is taken: its
+    # activations recomputed in the backward instead of kept
+    remat_stages: bool = False
+    # channel-shard the generator convs over train.mesh.model
+    # (models/layers.py; no effect on a model axis of 1)
+    tp_shard: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

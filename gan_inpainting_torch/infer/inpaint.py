@@ -6,14 +6,26 @@ bit-exact) → uint8. Inputs are padded up to the nearest configured
 fixed set of shapes; non-square images pad H and W to the square bucket of
 the larger side and are cropped back.
 
-An :class:`Inpainter` serves over the data axis of its config's mesh,
-which is every local card by default, as the JAX package's is: one
-generator replica per card, each fed by a persistent worker thread under
+An :class:`Inpainter` serves over its config's mesh, which is every local
+card by default, as the JAX package's is: one generator replica per group
+of ``train.mesh.model`` consecutive devices (one per device without a
+model axis), each fed by a persistent worker thread under
 ``torch.cuda.device`` of its card, the bucket rounded up to a multiple of
 the replicas and split into equal contiguous shards that run at once.
 PyTorch keeps cuDNN's tuned plans per thread, so a replica is tuned on its
 own thread by the first batch of each bucket it runs (``warmup``). One
 replica runs in the caller's thread.
+
+Under ``model.tp_shard`` a replica's group computes one forward together,
+as a ``(data, model)`` mesh does under GSPMD: member m, on the group's
+m-th device with a thread of its own, holds a generator whose stacks'
+convs compute its slice of the output channels from weights sliced once
+(models/layers.py); after each such conv every member receives every
+slice by a peer copy and concatenates them in member order
+(parallel/sharding.py ``ThreadModelGroup``, no ``torch.distributed``);
+the rest runs whole on every member, and member 0's output is served.
+Without ``tp_shard`` the members would compute the same thing, so a group
+runs on its first device alone.
 """
 
 from __future__ import annotations
@@ -34,6 +46,10 @@ from gan_inpainting_torch.data.pipeline import denormalize, normalize
 from gan_inpainting_torch.models.generator import build_generator
 from gan_inpainting_torch.ops.dispatch import resolve_device
 from gan_inpainting_torch.parallel.mesh import build_mesh
+from gan_inpainting_torch.parallel.sharding import (
+    ModelGroup,
+    ThreadModelGroup,
+)
 
 
 def _bucket(value: int, buckets) -> int:
@@ -61,10 +77,14 @@ def serve_forward(generator, images_u8: torch.Tensor,
 
 
 def make_forward_fn(cfg: Config, state_dict,
-                    device: str | torch.device | None = None):
+                    device: str | torch.device | None = None,
+                    model_group: ModelGroup | None = None):
     """The serve forward ``(images_u8, masks) → uint8`` on ``device``
-    (:func:`serve_forward` under ``inference_mode``)."""
-    gen = build_generator(cfg.model, device=device, seed=None)
+    (:func:`serve_forward` under ``inference_mode``), as member
+    ``model_group.index`` of a channel-sharded group where one is given
+    (its members call their forwards together)."""
+    gen = build_generator(cfg.model, device=device, seed=None,
+                          model_group=model_group)
     gen.load_state_dict(state_dict)
     gen.eval()
 
@@ -111,6 +131,14 @@ def _run_jobs(jobs: queue.SimpleQueue, device: torch.device) -> None:
             del job, fn, args, fut
 
 
+def _start_worker(device: torch.device, name: str):
+    jobs: queue.SimpleQueue = queue.SimpleQueue()
+    thread = threading.Thread(target=_run_jobs, args=(jobs, device),
+                              daemon=True, name=name)
+    thread.start()
+    return jobs, thread
+
+
 def _stop_workers(workers) -> None:
     for jobs, _ in workers:
         jobs.put(None)
@@ -125,29 +153,37 @@ class Inpainter:
     :func:`gan_inpainting_torch.io.convert.params_from_jax`) or, through
     :meth:`from_npz`, from an exported artifact.
 
-    Where it runs: an explicit ``devices`` list gives one replica on each
-    (a device may repeat); an explicit ``device`` one replica there;
-    otherwise the data axis of ``cfg.train.mesh`` over the local cards
-    (``data = -1``, the default, is every card; ``data = n`` the first n),
-    and an error when there is no card. ``close()`` stops the replicas'
-    threads (collecting the Inpainter does too)."""
+    Where it runs, with n = ``cfg.train.mesh.model``: an explicit
+    ``devices`` list gives one replica on each n consecutive devices (a
+    device may repeat; a count not divisible by n raises the mesh's
+    ``ValueError``); an explicit ``device`` one replica there (its n
+    members share it); otherwise ``cfg.train.mesh`` over the local cards
+    (``data = -1``, the default, is every card; ``data = d`` the first
+    d·n), and an error when there is no card. ``close()`` stops the
+    replicas' threads (collecting the Inpainter does too)."""
 
     def __init__(self, cfg: Config, state_dict,
                  device: str | torch.device | None = None,
                  devices=None):
         self.cfg = cfg
+        axes = dataclasses.replace(cfg.train.mesh, data=-1)
         if devices is not None:
-            self.devices = tuple(torch.device(d) for d in devices)
-            if not self.devices:
+            devices = tuple(torch.device(d) for d in devices)
+            if not devices:
                 raise ValueError("devices is empty")
+            mesh = build_mesh(axes, devices)
         elif device is not None:
-            self.devices = (resolve_device(device),)
+            mesh = build_mesh(axes, (resolve_device(device),) * axes.model)
         else:
             resolve_device(None)            # raises without a card
             cards = [torch.device("cuda", i)
                      for i in range(torch.cuda.device_count())]
-            self.devices = build_mesh(cfg.train.mesh, cards).devices
+            mesh = build_mesh(cfg.train.mesh, cards)
+        self.devices = mesh.devices
         self.device = self.devices[0]
+        # the members that compute: the whole group under channel sharding
+        members = mesh.model if cfg.model.tp_shard else 1
+        self.groups = tuple(g[:members] for g in mesh.groups)
         if any(d.type == "cuda" for d in self.devices):
             # every request runs one of a fixed set of bucket shapes, so
             # cuDNN's per-shape algorithm search pays once per bucket (as
@@ -156,24 +192,31 @@ class Inpainter:
             # (PERF.md)
             torch.backends.cudnn.benchmark = True
         self.state_dict = state_dict
-        # one generator per replica and decoder formulation: eager PyTorch
+        # one generator per member and decoder formulation: eager PyTorch
         # needs no program per bucket shape. _forward is the first
-        # replica's (profiling tools call it)
+        # replica's first member's (profiling tools call it)
+        self._model_groups = [
+            ThreadModelGroup.members(len(g)) if len(g) > 1 else [None]
+            for g in self.groups]
         self._forwards = [
-            functools.lru_cache(maxsize=None)(
-                functools.partial(self._build_forward, replica=i))
-            for i in range(len(self.devices))]
-        self._forward = self._forwards[0]
-        self._workers = []
-        if len(self.devices) > 1:
-            for i, dev in enumerate(self.devices):
-                jobs: queue.SimpleQueue = queue.SimpleQueue()
-                thread = threading.Thread(
-                    target=_run_jobs, args=(jobs, dev), daemon=True,
-                    name=f"inpaint-replica-{i}")
-                thread.start()
-                self._workers.append((jobs, thread))
-        self.close = weakref.finalize(self, _stop_workers, self._workers)
+            [functools.lru_cache(maxsize=None)(functools.partial(
+                self._build_forward, replica=i, member=m))
+             for m in range(len(g))]
+            for i, g in enumerate(self.groups)]
+        self._forward = self._forwards[0][0]
+        # a thread per replica (where there are several) runs its member 0;
+        # a thread per further member runs that member
+        self._workers, self._member_workers = [], []
+        for i, group in enumerate(self.groups):
+            if len(self.groups) > 1:
+                self._workers.append(_start_worker(group[0],
+                                                   f"inpaint-replica-{i}"))
+            self._member_workers.append([
+                _start_worker(dev, f"inpaint-replica-{i}-member-{m}")
+                for m, dev in enumerate(group) if m > 0])
+        self.close = weakref.finalize(
+            self, _stop_workers,
+            self._workers + [w for ws in self._member_workers for w in ws])
 
     @classmethod
     def from_npz(cls, path: str, overrides: list[str] | None = None,
@@ -202,7 +245,8 @@ class Inpainter:
         run tracked one, else the raw parameters; ``best`` takes the
         best-eval-PSNR slot (``checkpoints_best``). The model is the
         checkpoint's own saved one; ``cfg`` supplies the serving knobs
-        (``infer``)."""
+        (``infer``, and the mesh with ``model.tp_shard``: how the model
+        is laid over the devices, not what it computes)."""
         from gan_inpainting_torch.configs.base import config_from_dict
         from gan_inpainting_torch.io.checkpoint import CheckpointManager
 
@@ -212,7 +256,9 @@ class Inpainter:
         raw = ckpt.restore_raw(step)
         params = (raw["g_ema"] if use_ema and raw["g_ema"]
                   else raw["g_params"])
-        return cls(dataclasses.replace(cfg, model=saved.model), params,
+        model = dataclasses.replace(saved.model,
+                                    tp_shard=cfg.model.tp_shard)
+        return cls(dataclasses.replace(cfg, model=model), params,
                    device=device, devices=devices)
 
     # ------------------------------------------------------------------
@@ -220,20 +266,59 @@ class Inpainter:
         """The formulation of a size bucket (:func:`serve_config`)."""
         return serve_config(self.cfg, size)
 
-    def _build_forward(self, fuse_upsample: bool, replica: int):
+    def _build_forward(self, fuse_upsample: bool, replica: int,
+                       member: int = 0):
         cfg = dataclasses.replace(
             self.cfg, model=dataclasses.replace(self.cfg.model,
                                                 fuse_upsample=fuse_upsample))
-        return make_forward_fn(cfg, self.state_dict, self.devices[replica])
+        return make_forward_fn(cfg, self.state_dict,
+                               self.groups[replica][member],
+                               self._model_groups[replica][member])
+
+    def _run_member(self, replica: int, member: int, fuse_upsample: bool,
+                    images_u8, masks) -> torch.Tensor:
+        """One member's forward of its replica's shard, on its device; a
+        failure releases the other members from their exchanges."""
+        dev = self.groups[replica][member]
+        try:
+            return self._forwards[replica][member](fuse_upsample)(
+                torch.from_numpy(images_u8).to(dev),
+                torch.from_numpy(masks).to(dev))
+        except BaseException:
+            group = self._model_groups[replica][member]
+            if group is not None:
+                group.abort()
+            raise
 
     def _run(self, replica: int, fuse_upsample: bool, images_u8, masks,
              rows: int, h: int, w: int) -> np.ndarray:
-        """One replica's shard: the forward on its card, the first ``rows``
-        outputs cropped to (h, w) and brought to the host."""
-        dev = self.devices[replica]
-        out = self._forwards[replica](fuse_upsample)(
-            torch.from_numpy(images_u8).to(dev),
-            torch.from_numpy(masks).to(dev))
+        """One replica's shard: the forward on its group (member 0 in this
+        thread, the others on theirs), member 0's first ``rows`` outputs
+        cropped to (h, w) and brought to the host."""
+        futures = []
+        for m, (jobs, _) in enumerate(self._member_workers[replica], 1):
+            fut: Future = Future()
+            jobs.put((self._run_member, (replica, m, fuse_upsample,
+                                         images_u8, masks), fut))
+            futures.append(fut)
+        errors = []
+        try:
+            out = self._run_member(replica, 0, fuse_upsample, images_u8,
+                                   masks)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+        for fut in futures:
+            try:
+                fut.result()
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+        if errors:
+            for group in self._model_groups[replica]:
+                if group is not None:
+                    group.reset()
+            # the first failure, not the others' broken barrier
+            raise next((e for e in errors if not isinstance(
+                e, threading.BrokenBarrierError)), errors[0])
         return out[:rows, :h, :w, :].cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -249,7 +334,7 @@ class Inpainter:
                 f"mask shape {masks.shape[:3]} does not match images "
                 f"{(b, h, w)}")
         icfg: InferConfig = self.cfg.infer
-        n = len(self.devices)
+        n = len(self.groups)
         # the bucket rounds up to a multiple of the replicas, so every
         # shard is whole (gan_inpainting_tpu/infer/inpaint.py:175-176)
         bb = -(-_bucket(b, icfg.batch_buckets) // n) * n

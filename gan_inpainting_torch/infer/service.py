@@ -369,7 +369,8 @@ def serve(inpainter: Inpainter, host: str = "127.0.0.1",
     server = make_http_server(service, host, port)
     print(f"[serve] inpaint service on http://{host}:{port} "
           f"(config {cfg.name}, buckets {cfg.infer.size_buckets}, "
-          f"replicas on {', '.join(map(str, inpainter.devices))})",
+          f"replicas on {', '.join(map(str, inpainter.devices))}, "
+          f"model axis {cfg.train.mesh.model})",
           flush=True)
     try:
         server.serve_forever()

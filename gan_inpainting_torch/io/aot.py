@@ -211,7 +211,9 @@ class AotInpainter:
     :class:`~gan_inpainting_torch.infer.inpaint.Inpainter`'s bucketing and
     padding, but every bucket's program was traced at export — no model
     code, no tracing. Runs on ``device`` (the card unless the caller asks
-    for another), which must be the artifact's platform."""
+    for another), which must be the artifact's platform: an artifact
+    serves one device per program, as the JAX module's does, whatever mesh
+    its config names (a whole, unsharded generator was traced)."""
 
     def __init__(self, path: str, device: str | torch.device | None = None):
         with open(os.path.join(path, _MANIFEST)) as f:

@@ -10,6 +10,15 @@ flax param paths map one to one onto ``state_dict`` keys).
 Both take the masked image (B, H, W, 3) in [-1, 1] and the hole mask
 (B, H, W, 1), 1 = hole, and return the full image in [-1, 1] with the tanh
 heads in float32 (unless ``bf16_head``). Upsampling is nearest + conv.
+
+``model.tp_shard`` over a model axis of n > 1 (a ``model_group``, see
+parallel/sharding.py): every conv of every stack whose output features are
+a multiple of 8 is channel-sharded (models/layers.py), the JAX package's
+``shard_channels`` rule; the 3-feature output heads, contextual attention
+and everything outside the stacks run whole on every member.
+``model.remat_stages``: each stack runs under ``torch.utils.checkpoint``
+where a gradient is taken, its activations recomputed in the backward
+instead of kept (``nn.remat`` of each stack in the JAX package).
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from gan_inpainting_torch.models.layers import InpaintConv
 from gan_inpainting_torch.ops.contextual_attention import (
@@ -25,6 +35,7 @@ from gan_inpainting_torch.ops.contextual_attention import (
     downscale_mask_max,
 )
 from gan_inpainting_torch.ops.dispatch import resolve_device
+from gan_inpainting_torch.parallel.sharding import ModelGroup
 from gan_inpainting_torch.utils.dtypes import DTypePolicy
 
 
@@ -41,12 +52,14 @@ def _upsample2x(x: torch.Tensor) -> torch.Tensor:
 
 class _Stack(nn.Module):
     """A sequence of InpaintConvs (``conv0``, ``conv1``, …) threading the
-    validity mask."""
+    validity mask; with a ``model_group``, those whose output features are
+    a multiple of 8 are channel-sharded over it."""
 
     def __init__(self, specs: Sequence[dict], in_features: int,
                  conv_kind: str, compute_dtype: torch.dtype,
                  fuse_upsample: bool = False, s2d_stem: bool = False,
-                 backend: str = "auto"):
+                 backend: str = "auto", model_group: ModelGroup | None = None,
+                 name: str = "body"):
         super().__init__()
         self.upsample: list[bool] = []
         self.explicit_upsample: list[bool] = []
@@ -69,9 +82,12 @@ class _Stack(nn.Module):
                     and spec.get("dilation", 1) == 1)
             self.upsample.append(up)
             self.explicit_upsample.append(up and not fuse)
+            shard = spec["features"] % 8 == 0
             self.add_module(f"conv{i}", InpaintConv(
                 cin, conv_kind=kind, compute_dtype=compute_dtype,
-                pre_upsample=fuse, s2d=s2d, backend=backend, **spec))
+                pre_upsample=fuse, s2d=s2d, backend=backend,
+                model_group=model_group if shard else None,
+                name=f"{name}.conv{i}", **spec))
             cin = spec["features"]
 
     def forward(self, x, valid=None):
@@ -117,23 +133,37 @@ def _head(x: torch.Tensor, bf16_head: bool) -> torch.Tensor:
     return torch.tanh(x if bf16_head else x.float())
 
 
+def _run(stack: _Stack, remat: bool, x, valid):
+    """A stack's forward; under ``remat``, where a gradient is taken,
+    checkpointed (its activations recomputed in the backward). The whole
+    stack is recomputed, so every model peer reissues every gather."""
+    if remat and torch.is_grad_enabled():
+        with set_checkpoint_early_stop(False):
+            return checkpoint(stack, x, valid, use_reentrant=False)
+    return stack(x, valid)
+
+
 class DilatedGenerator(nn.Module):
     """Single-stage dilated encoder-decoder."""
 
     def __init__(self, base_features: int = 48, conv_kind: str = "plain",
                  compute_dtype: torch.dtype = torch.bfloat16,
                  fuse_upsample: bool = False, s2d_stem: bool = False,
-                 bf16_head: bool = False, backend: str = "auto"):
+                 bf16_head: bool = False, backend: str = "auto",
+                 model_group: ModelGroup | None = None,
+                 remat_stages: bool = False):
         super().__init__()
         f = base_features
         self.bf16_head = bf16_head
+        self.remat_stages = remat_stages
         self.body = _Stack(
             _encoder_specs(f) + _dilation_specs(f) + _decoder_specs(f), 4,
-            conv_kind, compute_dtype, fuse_upsample, s2d_stem, backend)
+            conv_kind, compute_dtype, fuse_upsample, s2d_stem, backend,
+            model_group, "body")
 
     def forward(self, masked, mask) -> GeneratorOutput:
         x = torch.cat([masked, mask.to(masked.dtype)], -1)
-        x, _ = self.body(x, 1.0 - mask)
+        x, _ = _run(self.body, self.remat_stages, x, 1.0 - mask)
         return GeneratorOutput(coarse=None, fine=_head(x, self.bf16_head))
 
 
@@ -145,25 +175,29 @@ class CoarseToFineGenerator(nn.Module):
                  attention_ksize: int = 3, softmax_scale: float = 10.0,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  fuse_upsample: bool = False, s2d_stem: bool = False,
-                 bf16_head: bool = False, backend: str = "auto"):
+                 bf16_head: bool = False, backend: str = "auto",
+                 model_group: ModelGroup | None = None,
+                 remat_stages: bool = False):
         super().__init__()
         f = base_features
         self.backend = backend
+        self.remat_stages = remat_stages
         self.use_attention = use_attention
         self.attention_rate = attention_rate
         self.attention_ksize = attention_ksize
         self.softmax_scale = softmax_scale
         self.bf16_head = bf16_head
 
-        def stack(specs, cin):
+        def stack(name, specs, cin):
             return _Stack(specs, cin, conv_kind, compute_dtype,
-                          fuse_upsample, s2d_stem, backend)
+                          fuse_upsample, s2d_stem, backend, model_group,
+                          name)
 
         enc = _encoder_specs(f) + _dilation_specs(f)
-        self.coarse = stack(enc + _decoder_specs(f), 4)
-        self.refine_conv = stack(enc, 4)
+        self.coarse = stack("coarse", enc + _decoder_specs(f), 4)
+        self.refine_conv = stack("refine_conv", enc, 4)
         if use_attention:
-            self.refine_attn_enc = stack([
+            self.refine_attn_enc = stack("refine_attn_enc", [
                 dict(features=f, kernel_size=5),
                 dict(features=2 * f, stride=2),
                 dict(features=2 * f),
@@ -171,8 +205,9 @@ class CoarseToFineGenerator(nn.Module):
                 dict(features=4 * f, activation="relu"),
             ], 4)
             self.refine_attn_post = stack(
+                "refine_attn_post",
                 [dict(features=4 * f), dict(features=4 * f)], 4 * f)
-        self.refine_dec = stack(_decoder_specs(f),
+        self.refine_dec = stack("refine_dec", _decoder_specs(f),
                                 8 * f if use_attention else 4 * f)
 
     def forward(self, masked, mask) -> GeneratorOutput:
@@ -180,42 +215,49 @@ class CoarseToFineGenerator(nn.Module):
         valid = 1.0 - mask
 
         # ---- stage 1: coarse -------------------------------------------
-        x1, _ = self.coarse(torch.cat([masked, mask], -1), valid)
+        remat = self.remat_stages
+        x1, _ = _run(self.coarse, remat, torch.cat([masked, mask], -1),
+                     valid)
         coarse = _head(x1, self.bf16_head)
 
         # ---- stage 2: refinement on the pasted coarse result -----------
         pasted = coarse.to(masked.dtype) * mask + masked * valid
         x2 = torch.cat([pasted, mask], -1)
-        conv_branch, _ = self.refine_conv(x2, valid)
+        conv_branch, _ = _run(self.refine_conv, remat, x2, valid)
         if self.use_attention:
-            xa, _ = self.refine_attn_enc(x2, valid)
+            xa, _ = _run(self.refine_attn_enc, remat, x2, valid)
             # hole mask at the branch's 1/4 resolution, max-pooled so thin
             # strokes cannot vanish
             xa = contextual_attention(
                 xa, xa, downscale_mask_max(mask, 4),
                 ksize=self.attention_ksize, rate=self.attention_rate,
                 softmax_scale=self.softmax_scale, backend=self.backend)
-            xa, _ = self.refine_attn_post(xa, valid[:, ::4, ::4, :])
+            xa, _ = _run(self.refine_attn_post, remat, xa,
+                         valid[:, ::4, ::4, :])
             x2 = torch.cat([conv_branch, xa], -1)
         else:
             x2 = conv_branch
-        x2, _ = self.refine_dec(x2, valid[:, ::4, ::4, :])
+        x2, _ = _run(self.refine_dec, remat, x2, valid[:, ::4, ::4, :])
         return GeneratorOutput(coarse=coarse, fine=_head(x2, self.bf16_head))
 
 
 def build_generator(model_cfg, device: str | torch.device | None = None,
-                    seed: int | None = 0,
-                    backend: str | None = None) -> nn.Module:
+                    seed: int | None = 0, backend: str | None = None,
+                    model_group: ModelGroup | None = None) -> nn.Module:
     """The generator a ModelConfig describes, on ``device`` (CUDA unless
     the caller asks for another). Weights are drawn from ``seed`` with a
     ``torch.Generator``; load a state_dict over them to serve trained ones.
     ``backend`` overrides ``model_cfg.kernel_backend`` (ops/dispatch.py).
-
-    ``tp_shard`` and ``remat_stages`` are accepted and ignored: one card
-    shards nothing, and rematerialization only changes differentiation.
+    With ``model_cfg.tp_shard`` and a ``model_group`` of more than one
+    member, the stacks' convs are channel-sharded over it; the parameters
+    stay whole either way. ``remat_stages`` checkpoints each stack where a
+    gradient is taken.
     """
     device = resolve_device(device)
     policy = DTypePolicy.from_name(model_cfg.dtype_policy)
+    if not model_cfg.tp_shard or (model_group is not None
+                                  and model_group.size == 1):
+        model_group = None
     common = dict(
         base_features=model_cfg.base_features,
         conv_kind=model_cfg.conv_kind,
@@ -224,6 +266,8 @@ def build_generator(model_cfg, device: str | torch.device | None = None,
         s2d_stem=model_cfg.s2d_stem,
         bf16_head=model_cfg.bf16_head,
         backend=backend or model_cfg.kernel_backend,
+        model_group=model_group,
+        remat_stages=model_cfg.remat_stages,
     )
     if model_cfg.generator == "dilated":
         gen = DilatedGenerator(**common)
@@ -239,3 +283,11 @@ def build_generator(model_cfg, device: str | torch.device | None = None,
             if isinstance(m, InpaintConv):
                 m.reset_parameters(g)
     return gen.to(device)
+
+
+def sliced_parameters(module: nn.Module) -> list[nn.Parameter]:
+    """The parameters of ``module``'s channel-sharded convs: each member's
+    gradient of them is nonzero on its own rows only."""
+    return [p for m in module.modules()
+            if isinstance(m, InpaintConv) and m.model_group is not None
+            for p in (m.weight, m.bias)]

@@ -10,6 +10,18 @@ preceding nearest-2x upsample into the conv (ops/upsample_conv.py) and
 ``s2d`` evaluates a 5x5 stem conv in the space-to-depth cell domain
 (ops/s2d_conv.py): same parameter, same math; neither goes through the
 gated-conv kernels.
+
+Given a ``model_group`` (parallel/sharding.py), the layer is sharded over
+the mesh's model axis, as the JAX package's ``shard_channels`` shards its
+output: member m of n computes output features ``[m·F/n, (m+1)·F/n)`` (a
+gated conv also the matching gates, rows ``F + [m·F/n, (m+1)·F/n)`` of
+its 2F) from the whole input and the whole, replicated parameters, and the
+slices are gathered back to F channels in member order. Every conv kind
+and rewrite takes the sliced weights as it takes whole ones. Where a
+gradient is taken the slice is cut under autograd at every call (its
+gradient is the whole parameter's, zero off the member's rows); otherwise
+it is cut once per parameter version and kept, so that the gated-conv
+kernels keep one packed copy of it.
 """
 
 from __future__ import annotations
@@ -28,6 +40,11 @@ from gan_inpainting_torch.ops.gated_conv import (
 from gan_inpainting_torch.ops.partial_conv import partial_conv
 from gan_inpainting_torch.ops.s2d_conv import s2d_conv5x5_epilogue
 from gan_inpainting_torch.ops.upsample_conv import upsample2x_conv2d_epilogue
+from gan_inpainting_torch.parallel.sharding import (
+    ModelGroup,
+    gather_channels,
+    reduce_input_grad,
+)
 
 
 class InpaintConv(nn.Module):
@@ -40,7 +57,8 @@ class InpaintConv(nn.Module):
                  activation: str = "elu",
                  compute_dtype: torch.dtype = torch.bfloat16,
                  pre_upsample: bool = False, s2d: bool = False,
-                 backend: str = "auto"):
+                 backend: str = "auto", model_group: ModelGroup | None = None,
+                 name: str = "InpaintConv"):
         super().__init__()
         if conv_kind not in ("plain", "gated", "partial"):
             raise ValueError(f"unknown conv_kind {conv_kind!r}")
@@ -61,6 +79,14 @@ class InpaintConv(nn.Module):
         self.pre_upsample = pre_upsample
         self.s2d = s2d
         self.backend = backend
+        self.features = features
+        if model_group is not None and features % model_group.size:
+            raise ValueError(
+                f"{name}: {features} output features do not split over a "
+                f"model axis of {model_group.size} (model.tp_shard shards "
+                "every conv whose features are a multiple of 8)")
+        self.model_group = model_group
+        self._kept_slice: tuple | None = None
         cout = 2 * features if conv_kind == "gated" else features
         self.weight = nn.Parameter(
             torch.empty(cout, in_features, kernel_size, kernel_size))
@@ -82,33 +108,66 @@ class InpaintConv(nn.Module):
             return gated_epilogue(y, self.activation)
         return _activation(self.activation)(y)
 
+    def _cut(self, t: torch.Tensor) -> torch.Tensor:
+        """This member's rows of a weight or bias: its features (and, for
+        a gated conv, the matching gates)."""
+        group, f = self.model_group, self.features
+        c = f // group.size
+        lo = group.index * c
+        if self.conv_kind == "gated":
+            return torch.cat([t[lo:lo + c], t[f + lo:f + lo + c]])
+        return t[lo:lo + c]
+
+    def _member_params(self) -> tuple[torch.Tensor, torch.Tensor]:
+        if torch.is_grad_enabled() and (self.weight.requires_grad
+                                        or self.bias.requires_grad):
+            return self._cut(self.weight), self._cut(self.bias)
+        key = tuple((t.data_ptr(), t._version) for t in (self.weight,
+                                                         self.bias))
+        if self._kept_slice is None or self._kept_slice[0] != key:
+            # normal tensors, also under inference_mode: the packed-weight
+            # cache keys on their versions
+            with torch.inference_mode(False), torch.no_grad():
+                self._kept_slice = (key, self._cut(self.weight).clone(),
+                                    self._cut(self.bias).clone())
+        return self._kept_slice[1:]
+
     def forward(self, x: torch.Tensor, valid: torch.Tensor | None = None):
+        if self.model_group is None:
+            return self._conv(x, valid, self.weight, self.bias)
+        weight, bias = self._member_params()
+        y, valid = self._conv(reduce_input_grad(x, self.model_group), valid,
+                              weight, bias)
+        return gather_channels(y, self.model_group), valid
+
+    def _conv(self, x: torch.Tensor, valid: torch.Tensor | None,
+              weight: torch.Tensor, bias: torch.Tensor):
         x = x.to(self.compute_dtype)
         if self.s2d or self.pre_upsample:
             # cell / parity kernels from the float32 param, cast once inside
-            bias = self.bias.to(self.compute_dtype)
+            bias = bias.to(self.compute_dtype)
             rewrite = (s2d_conv5x5_epilogue if self.s2d
                        else upsample2x_conv2d_epilogue)
-            y = rewrite(x, self.weight, lambda m: self._epilogue(m + bias))
+            y = rewrite(x, weight, lambda m: self._epilogue(m + bias))
             return y, valid
         if self.conv_kind == "gated":
             # the float32 parameter itself: conv2d casts it, and the kernel
             # path keeps one packed copy per parameter version
-            y = gated_conv(x, self.weight, self.bias, stride=self.stride,
+            y = gated_conv(x, weight, bias, stride=self.stride,
                            dilation=self.dilation, activation=self.activation,
                            backend=self.backend)
             return y, _resize_valid(valid, self.stride)
-        weight = self.weight.to(self.compute_dtype)
+        weight = weight.to(self.compute_dtype)
         if self.conv_kind == "partial":
             if valid is None:
                 valid = torch.ones(x.shape[:3] + (1,), dtype=torch.float32,
                                    device=x.device)
-            y, valid_out = partial_conv(x, valid, weight, self.bias,
+            y, valid_out = partial_conv(x, valid, weight, bias,
                                         stride=self.stride,
                                         dilation=self.dilation,
                                         backend=self.backend)
             return _activation(self.activation)(y), valid_out
-        y = self._epilogue(conv2d(x, weight, self.bias, stride=self.stride,
+        y = self._epilogue(conv2d(x, weight, bias, stride=self.stride,
                                   dilation=self.dilation))
         return y, _resize_valid(valid, self.stride)
 

@@ -106,6 +106,7 @@ def override_backend(backend: str):
 
 
 launches: dict[str, int] = {}
+_launches_lock = threading.Lock()   # replicas and group members count at once
 _interpret = False            # set by interpret_kernels, for every thread
 
 
@@ -129,7 +130,8 @@ def interpreting() -> bool:
 
 
 def count_launch(name: str) -> None:
-    launches[name] = launches.get(name, 0) + 1
+    with _launches_lock:
+        launches[name] = launches.get(name, 0) + 1
 
 
 def reset_launches() -> None:

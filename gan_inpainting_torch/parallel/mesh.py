@@ -3,19 +3,22 @@ of it.
 
 ``MeshConfig`` keeps the JAX package's fields and :meth:`MeshConfig.resolve`
 its semantics letter for letter, so a config embedded in an export parses
-and means the same thing in both packages. The port runs the ``data``
-axis only:
+and means the same thing in both packages. The port runs the ``data`` and
+``model`` axes, laid out as the JAX package lays out its devices
+(``devices.reshape(data, model, spatial)``): the model index varies
+fastest, so device (or rank) ``r`` has data index ``r // model`` and model
+index ``r % model``, and the members of one model group are neighbours.
 
 * training resolves the mesh over the world size, one process per card as
-  ``torchrun`` launches it (:func:`train_mesh`); ``data`` must equal the
-  world size, since a rank outside the mesh would idle;
+  ``torchrun`` launches it (:func:`train_mesh`); ``data × model`` must be
+  the world size, since a rank outside the mesh would idle;
 * serving resolves it over the local cards or an explicit device list
-  (:func:`build_mesh`); an explicit ``data = n`` takes the first n, as the
-  JAX package's device prefix does.
+  (:func:`build_mesh`); an explicit ``data = n`` takes the first
+  ``n × model``, as the JAX package's device prefix does.
 
-``model`` or ``spatial`` above 1 raises ``NotImplementedError`` in both
-places: the model axis (channel sharding) and the spatial axis
-(row-sharded attention and conv halos) are ROADMAP Queue 1 items 1 and 2.
+``spatial`` above 1 raises ``NotImplementedError`` in both places: the
+spatial axis (row-sharded attention and conv halos) is ROADMAP Queue 1
+item 2.
 """
 
 from __future__ import annotations
@@ -23,8 +26,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
-_ROADMAP = {"model": "ROADMAP Queue 1 item 1, the model axis",
-            "spatial": "ROADMAP Queue 1 item 2, the spatial axis"}
+_SPATIAL = "ROADMAP Queue 1 item 2, the spatial axis"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,42 +56,44 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A resolved mesh: its axis sizes and the devices its data axis
-    covers, in order (the ranks, for training)."""
+    """A resolved mesh: its axis sizes and the ``data × model`` devices it
+    covers, in mesh order (the ranks, for training): model index
+    fastest."""
 
     data: int
     model: int
     spatial: int
     devices: tuple
 
-
-def _require_data_axis_only(config: MeshConfig) -> None:
-    for axis in ("model", "spatial"):
-        n = getattr(config, axis)
-        if n > 1:
-            raise NotImplementedError(
-                f"mesh {axis}={n}: the PyTorch port runs the data axis "
-                f"only; the {axis} axis awaits {_ROADMAP[axis]}")
+    @property
+    def groups(self) -> tuple[tuple, ...]:
+        """The devices of each data index: one model group each."""
+        n = self.model
+        return tuple(self.devices[i * n:(i + 1) * n]
+                     for i in range(self.data))
 
 
 def build_mesh(config: MeshConfig, devices: Sequence) -> Mesh:
     """Resolve ``config`` over ``devices`` (a smaller explicit ``data``
     takes their prefix). Raises ``ValueError`` as :meth:`MeshConfig.resolve`
-    does and ``NotImplementedError`` for ``model`` or ``spatial`` above
-    1."""
-    _require_data_axis_only(config)
+    does and ``NotImplementedError`` for ``spatial`` above 1."""
+    if config.spatial > 1:
+        raise NotImplementedError(
+            f"mesh spatial={config.spatial}: the PyTorch port runs the data "
+            f"and model axes; the spatial axis awaits {_SPATIAL}")
     devices = tuple(devices)
     data, model, spatial = config.resolve(len(devices))
-    return Mesh(data, model, spatial, devices[:data])
+    return Mesh(data, model, spatial, devices[:data * model])
 
 
 def train_mesh(config: MeshConfig, world: int) -> Mesh:
-    """The training mesh over ``world`` ranks: its data axis must be every
-    rank, so ``data`` other than -1 or the world size raises."""
+    """The training mesh over ``world`` ranks: ``data × model`` must be
+    every rank, so ``data`` other than -1 or ``world / model`` raises."""
     mesh = build_mesh(config, range(world))
-    if mesh.data != world:
+    if mesh.data * mesh.model != world:
         raise ValueError(
             f"train.mesh.data={config.data} but {world} rank(s) run: each "
             "rank trains one slice of the data axis, so data must be -1 or "
-            f"{world} (launch with torchrun --nproc-per-node {mesh.data})")
+            f"{world // mesh.model} (launch with torchrun --nproc-per-node "
+            f"{mesh.data * mesh.model})")
     return mesh

@@ -1,5 +1,5 @@
-"""Processes of a data-parallel run: the process group, this rank's slice
-of the batch, and this rank's card.
+"""Processes of a parallel run: the process group, this rank's place in
+the mesh, its slice of the batch, and its card.
 
 ``torchrun --nproc-per-node N -m gan_inpainting_torch train ...`` starts N
 processes with ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
@@ -9,6 +9,14 @@ them is a world of one and never touches ``torch.distributed``, so a
 single process computes what it computed before the port had ranks. A
 caller may set up its own group first (gloo ranks sharing one card, the
 CPU tests); :func:`ensure_initialized` then only reports its size.
+
+The ranks form the training mesh's ``data × model`` grid, model index
+fastest (parallel/mesh.py): :func:`set_model_axis` records the model
+axis's size (``parallel/sharding.py use_mesh`` does, beside making the
+axes' process groups), and :func:`data_index` / :func:`model_index` /
+:func:`data_size` read this rank's place from it. Model peers train the
+same slice of the batch; in a world without a model axis the data index is
+the rank.
 """
 
 from __future__ import annotations
@@ -29,6 +37,35 @@ def rank() -> int:
 
 def world() -> int:
     return dist.get_world_size() if initialized() else 1
+
+
+_model_axis = 1                 # the model axis of the mesh the ranks form
+
+
+def set_model_axis(n: int) -> None:
+    """Record that the ranks form a mesh with a model axis of ``n``: ranks
+    ``d·n … d·n + n − 1`` are data index ``d``'s model group."""
+    global _model_axis
+    if n < 1 or world() % n:
+        raise ValueError(f"model axis {n} does not divide the world of "
+                         f"{world()} rank(s)")
+    _model_axis = n
+
+
+def model_size() -> int:
+    return _model_axis if initialized() else 1
+
+
+def data_size() -> int:
+    return world() // model_size()
+
+
+def data_index() -> int:
+    return rank() // model_size()
+
+
+def model_index() -> int:
+    return rank() % model_size()
 
 
 def is_main() -> bool:
@@ -66,14 +103,15 @@ def shutdown() -> None:
 
 
 def process_batch_slice(global_batch: int) -> tuple[int, int]:
-    """(this rank's batch size, this rank's seed offset): each rank feeds
-    its slice of the global batch from a data stream of its own; rank 0's
-    offset is 0, so one process draws what it always drew."""
-    n = world()
+    """(this rank's batch size, this rank's seed offset): each data index
+    feeds its slice of the global batch from a data stream of its own,
+    which its model peers share; data index 0's offset is 0, so one
+    process draws what it always drew."""
+    n = data_size()
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} not divisible by "
-                         f"the world size {n}")
-    return global_batch // n, rank() * 1_000_003
+                         f"the data axis {n}")
+    return global_batch // n, data_index() * 1_000_003
 
 
 def local_device_index(n_cards: int) -> int | None:

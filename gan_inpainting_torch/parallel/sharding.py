@@ -10,32 +10,304 @@ optimizer step (:func:`all_reduce_mean_`), since the step takes them with
 averaged gradients then keep the ranks bit-identical step after step, the
 spectral-norm vectors included (they advance from the weights alone).
 
+The model axis (``train.mesh.model`` = n, ``model.tp_shard``): the n ranks
+of a model group hold the same whole state and train the same batch
+slice, and each sharded layer (models/layers.py ``InpaintConv``) computes
+only its member's slice of the output channels from the whole input,
+then :func:`gather_channels` concatenates the slices in member order, as
+GSPMD's gathers do in the JAX package. The gradient rules, Megatron's:
+the gather's backward takes the member's own channels; the input of a
+sharded layer passes through :func:`reduce_input_grad`, the identity
+whose backward sums the members' partial input gradients; a sliced
+weight's gradient is nonzero on its member's rows only, so the model
+group's sum is the whole gradient, exactly. The members compute the
+replicated parts (the discriminator, attention, the heads) each for
+itself, and on a card cuDNN picks its algorithms per process and some of
+them add in a nondeterministic order, so those parts may differ between
+members in their last bits: :func:`reduce_over_model_` therefore sums the
+sliced weights' gradients and averages every other gradient over the
+model group, so every member applies the same update. Then comes the
+mean over the data axis (:func:`all_reduce_mean_`, and
+:func:`mean_over_ranks` for the loss normalizers), over the data group:
+the ranks of one model index, which is the world when there is no model
+axis. :func:`all_gather_rows` and :func:`reduce_metrics` take model
+index 0's values of each data index, so every rank returns the same
+numbers. :func:`use_mesh` makes both kinds of group, on every rank in
+the same order. A model group in one process, one thread per member on cards
+of its own (or sharing one), is a :class:`ThreadModelGroup`: serving
+over a group of cards (infer/inpaint.py) exchanges the slices by peer
+copies, with no ``torch.distributed``.
+
 Only ``all_reduce``, ``broadcast`` and ``barrier`` are used. NCCL takes
 them between cards, and gloo takes them on CUDA tensors too (staged
 through the host), so two gloo ranks sharing one card run the same code
 an n-card NCCL run does: that is how a one-card machine checks it. A
-gather is an ``all_reduce`` over a zero-filled buffer
-(:func:`all_gather_rows`), which is exact.
+gather is an ``all_reduce`` over a zero-filled buffer that holds this
+rank's part at its offset (:func:`all_gather_rows`, and the channel
+gather), which is exact in every dtype; it moves n times the bytes of an
+``all_gather``.
 
 With no process group initialized every function is the identity and
 issues no collective, so a single process computes what it always did. In
 a group of one each still issues its collective, whose result equals its
-input. ``counts["all_reduce_mean_"]`` counts the gradient reduces (the
-run's record logs it as ``grad_all_reduces``).
+input. ``counts`` counts the gradient reduces (``all_reduce_mean_``, the
+run's record logs it as ``grad_all_reduces``), the channel gathers and the
+bytes of their buffers, the input-gradient reduces and the model group's
+gradient reduces.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Sequence
+import threading
+from typing import Iterable, NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
 
-from gan_inpainting_torch.parallel.multihost import initialized, rank, world
+from gan_inpainting_torch.parallel import multihost
+from gan_inpainting_torch.parallel.mesh import MeshConfig, train_mesh
+from gan_inpainting_torch.parallel.multihost import initialized, world
 
 BUCKET_BYTES = 64 << 20           # largest flat buffer per collective
 
-counts: dict[str, int] = {"all_reduce_mean_": 0}
+counts: dict[str, int] = {"all_reduce_mean_": 0, "channel_gathers": 0,
+                          "channel_gather_bytes": 0,
+                          "input_grad_all_reduces": 0,
+                          "model_grad_reduces": 0}
+_counts_lock = threading.Lock()   # the members of a ThreadModelGroup
+
+
+def _count(name: str, n: int = 1) -> None:
+    with _counts_lock:
+        counts[name] += n
+
+
+# ---------------------------------------------------------------------------
+# the axes' groups
+# ---------------------------------------------------------------------------
+
+
+class ModelGroup:
+    """One model group: member ``index`` of ``size``. :meth:`gather`
+    concatenates every member's tensor along the last axis in member
+    order; :meth:`all_reduce_` sums every member's tensor into each, in
+    place. Every member calls both at the same points, in the same
+    order."""
+
+    def __init__(self, index: int, size: int):
+        self.index, self.size = index, size
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def all_reduce_(self, t: torch.Tensor) -> None:
+        raise NotImplementedError
+
+
+class ProcessModelGroup(ModelGroup):
+    """The model group of ranks: a ``torch.distributed`` group."""
+
+    def __init__(self, group, index: int, size: int):
+        super().__init__(index, size)
+        self.group = group
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        # the zero-filled all_reduce: exact, and what gloo takes on a card
+        c = t.shape[-1]
+        out = t.new_zeros((*t.shape[:-1], c * self.size))
+        out[..., self.index * c:(self.index + 1) * c] = t
+        dist.all_reduce(out, group=self.group)
+        _count("channel_gather_bytes", out.numel() * out.element_size())
+        return out
+
+    def all_reduce_(self, t: torch.Tensor) -> None:
+        dist.all_reduce(t, group=self.group)
+
+
+class _Exchange:
+    def __init__(self, n: int, timeout: float):
+        self.slots: list = [None] * n
+        self.barrier = threading.Barrier(n, timeout=timeout)
+
+
+class ThreadModelGroup(ModelGroup):
+    """A model group of threads in one process, member ``index`` on its
+    own device (devices may repeat): each exchange posts the member's
+    tensor, waits for every member, combines the posted tensors on its
+    own device (a peer copy and a ``cat``, or a sum in member order) and
+    waits again, so no member overwrites a slot another still reads. The
+    barrier's ``timeout`` (seconds) bounds a wait; a member that fails
+    calls :meth:`abort`, so the others raise instead of waiting, and the
+    caller calls :meth:`reset` once every member has returned."""
+
+    def __init__(self, exchange: _Exchange, index: int):
+        super().__init__(index, len(exchange.slots))
+        self.exchange = exchange
+
+    @classmethod
+    def members(cls, n: int, timeout: float = 600.0) -> list:
+        ex = _Exchange(n, timeout)
+        return [cls(ex, i) for i in range(n)]
+
+    def _combine(self, t: torch.Tensor, combine):
+        ex = self.exchange
+        ex.slots[self.index] = t
+        ex.barrier.wait()
+        out = combine([s.to(t.device) for s in ex.slots])
+        ex.barrier.wait()
+        return out
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        out = self._combine(t, lambda parts: torch.cat(parts, -1))
+        _count("channel_gather_bytes", out.numel() * out.element_size())
+        return out
+
+    def all_reduce_(self, t: torch.Tensor) -> None:
+        def total(parts):
+            acc = parts[0].clone()
+            for p in parts[1:]:
+                acc += p
+            return acc
+
+        t.copy_(self._combine(t, total))
+
+    def abort(self) -> None:
+        self.exchange.barrier.abort()
+
+    def reset(self) -> None:
+        self.exchange.slots[:] = [None] * self.size
+        self.exchange.barrier.reset()
+
+
+class _Axes(NamedTuple):
+    world_group: object           # the process group the axes were made in
+    model: int
+    data_group: object            # None: the world
+    model_group: ModelGroup | None
+
+
+_axes: _Axes | None = None        # this process's, made by use_mesh
+
+
+def use_mesh(config: MeshConfig) -> ModelGroup | None:
+    """Place this rank in ``config``'s training mesh over the ranks (the
+    checks of ``train_mesh``) and make the process groups of both axes,
+    on every rank in the same order; returns this rank's model group, or
+    None without a model axis. Without a process group: None, and nothing
+    changes. The groups are made once per process group and model size."""
+    global _axes
+    if not initialized():
+        return None
+    mesh = train_mesh(config, world())
+    multihost.set_model_axis(mesh.model)
+    default = dist.distributed_c10d._get_default_group()
+    if (_axes is None or _axes.world_group is not default
+            or _axes.model != mesh.model):
+        data_group = model_group = None
+        n, r = mesh.model, multihost.rank()
+        if n > 1:
+            for d in range(mesh.data):
+                g = dist.new_group([d * n + m for m in range(n)])
+                if d == r // n:
+                    model_group = ProcessModelGroup(g, r % n, n)
+            for m in range(n):
+                g = dist.new_group([d * n + m for d in range(mesh.data)])
+                if m == r % n:
+                    data_group = g
+        _axes = _Axes(default, mesh.model, data_group, model_group)
+    return _axes.model_group
+
+
+def model_group() -> ModelGroup | None:
+    """This rank's model group (:func:`use_mesh`), or None."""
+    return _axes.model_group if initialized() and _axes else None
+
+
+def _data_group():
+    """The data axis's group: None (the world) without a model axis."""
+    return _axes.data_group if _axes else None
+
+
+# ---------------------------------------------------------------------------
+# the model axis's autograd collectives
+# ---------------------------------------------------------------------------
+
+
+class _GatherChannels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return group.gather(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the upstream gradient is the same on every member: take ours
+        group = ctx.group
+        c = g.shape[-1] // group.size
+        return g[..., group.index * c:(group.index + 1) * c], None
+
+
+class _ReduceInputGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        ctx.group.all_reduce_(g)
+        _count("input_grad_all_reduces")
+        return g, None
+
+
+def gather_channels(t: torch.Tensor,
+                    group: ModelGroup | None) -> torch.Tensor:
+    """(…, C) slices of the model group's members → (…, n·C), member
+    order; its gradient is the member's own channels. ``t`` itself
+    without a group."""
+    if group is None:
+        return t
+    _count("channel_gathers")
+    return _GatherChannels.apply(t, group)
+
+
+def reduce_input_grad(x: torch.Tensor,
+                      group: ModelGroup | None) -> torch.Tensor:
+    """The identity, whose backward sums the gradient over the model group
+    (the members' partial input gradients of a sharded layer)."""
+    if group is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _ReduceInputGrad.apply(x, group)
+
+
+def reduce_over_model_(tensors: Sequence[torch.Tensor],
+                       sliced: Sequence[bool]) -> None:
+    """Over this rank's model group, in place: the sum of each tensor
+    marked ``sliced`` (a sliced weight's gradient, nonzero on its
+    member's rows only: the sum is exact) and the mean of every other
+    one (a replicated part's gradient, equal on every member up to the
+    order of its sums). One flat float32 buffer per bucket; nothing
+    without a model group."""
+    group = model_group()
+    if group is None or not tensors:
+        return
+    _count("model_grad_reduces")
+    marks = dict(zip(map(id, tensors), sliced))
+    for part in _buckets(tensors, 4):
+        flat = torch.cat([t.reshape(-1).float() for t in part])
+        group.all_reduce_(flat)
+        pieces = list(flat.split([t.numel() for t in part]))
+        for i, t in enumerate(part):
+            if not marks[id(t)]:
+                pieces[i] = pieces[i] / group.size
+        torch._foreach_copy_(list(part),
+                             [p.view_as(t) for p, t in zip(pieces, part)])
+
+
+# ---------------------------------------------------------------------------
+# the data axis
+# ---------------------------------------------------------------------------
 
 
 def _buckets(tensors: Sequence[torch.Tensor], itemsize: int):
@@ -66,15 +338,15 @@ def barrier() -> None:
 
 
 def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Replace each tensor by its mean over ranks, in place: one flat
-    float32 buffer per bucket of at most ``BUCKET_BYTES``."""
+    """Replace each tensor by its mean over the data axis, in place: one
+    flat float32 buffer per bucket of at most ``BUCKET_BYTES``."""
     if not initialized():
         return
-    counts["all_reduce_mean_"] += 1
-    n = world()
+    _count("all_reduce_mean_")
+    n, data_group = multihost.data_size(), _data_group()
     for group in _buckets(tensors, 4):
         flat = torch.cat([t.reshape(-1).float() for t in group])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=data_group)
         flat /= n
         parts = flat.split([t.numel() for t in group])
         torch._foreach_copy_(list(group),
@@ -82,13 +354,13 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
 
 
 def mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
-    """The mean of ``t`` over ranks, outside autograd (a loss's
+    """The mean of ``t`` over the data axis, outside autograd (a loss's
     normalizer); ``t`` itself with no group."""
     if not initialized():
         return t
     t = t.detach().clone()
-    dist.all_reduce(t)
-    return t / world()
+    dist.all_reduce(t, group=_data_group())
+    return t / multihost.data_size()
 
 
 def _state_tensors(modules: Iterable[torch.nn.Module], optimizers,
@@ -131,28 +403,35 @@ def broadcast_module_state(modules: Iterable[torch.nn.Module], src: int = 0,
 
 
 def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` stacked along dim 0 in rank order (each rank
-    passes the same shape): an ``all_reduce`` over a zero-filled buffer
-    that holds this rank's rows at its offset, exact in any dtype."""
+    """Every data index's ``t`` stacked along dim 0 in data order (each
+    rank passes the same shape; of a model group, member 0's rows, so
+    each slice counts once and every rank gets the same rows): an
+    ``all_reduce`` of a zero-filled buffer that holds those rows at
+    their offset, exact in any dtype."""
     if not initialized():
         return t
-    n = t.shape[0]
-    out = t.new_zeros((world() * n, *t.shape[1:]))
-    out[rank() * n:(rank() + 1) * n] = t
+    n, i = t.shape[0], multihost.data_index()
+    out = t.new_zeros((multihost.data_size() * n, *t.shape[1:]))
+    if multihost.model_index() == 0:
+        out[i * n:(i + 1) * n] = t
     dist.all_reduce(out)
     return out
 
 
 def reduce_metrics(metrics: dict, average: bool = True) -> dict[str, float]:
     """Metric values (0-d tensors or floats, the same keys on every rank)
-    as floats: their mean over ranks, or with ``average=False`` their
-    sum. With no group, each value as it is."""
+    as floats: their mean over the data axis, or with ``average=False``
+    their sum (of a model group, member 0's values: each slice counts
+    once, and every rank gets the same numbers). With no group, each
+    value as it is."""
     if not initialized() or not metrics:
         return {k: float(v) for k, v in metrics.items()}
     device = _host_device()
     vals = torch.stack([torch.as_tensor(v, dtype=torch.float64).to(device)
                         for v in metrics.values()])
+    if multihost.model_index() != 0:
+        vals.zero_()
     dist.all_reduce(vals)
     if average:
-        vals /= world()
+        vals /= multihost.data_size()
     return dict(zip(metrics, vals.tolist()))

@@ -15,13 +15,14 @@ from gan_inpainting_torch.metrics.swd import swd
 from gan_inpainting_torch.models.generator import build_generator
 from gan_inpainting_torch.ops.dispatch import resolve_device
 from gan_inpainting_torch.parallel.multihost import (
+    data_index,
+    data_size,
     process_batch_slice,
-    rank,
-    world,
 )
 from gan_inpainting_torch.parallel.sharding import (
     all_gather_rows,
     reduce_metrics,
+    use_mesh,
 )
 from gan_inpainting_torch.train.step import composite
 from gan_inpainting_torch.utils.rng import STREAM_EVAL, stream_generator
@@ -36,7 +37,8 @@ def make_eval_step(cfg: Config, device: str | torch.device | None = None):
     holds ``_composite``, the composited images as float16 (the SWD
     descriptors are normalized anyway), for :func:`evaluate` to pool.
     ``eval_step.generator`` is that generator module (the loop's sample
-    grid runs it too)."""
+    grid runs it too). Over ranks it is channel-sharded over this rank's
+    model group as the train state's generator is (``model.tp_shard``)."""
     names = tuple(cfg.eval.metrics)
     unknown = [n for n in names if n not in _METRIC_FNS and n != "swd"]
     if unknown:
@@ -44,7 +46,8 @@ def make_eval_step(cfg: Config, device: str | torch.device | None = None):
                          f"have {sorted(_METRIC_FNS) + ['swd']}")
     scalar_names = tuple(n for n in names if n in _METRIC_FNS)
     want_swd = "swd" in names
-    gen = build_generator(cfg.model, device=device, seed=None)
+    gen = build_generator(cfg.model, device=device, seed=None,
+                          model_group=use_mesh(cfg.train.mesh))
     gen.eval()
 
     @torch.no_grad()
@@ -69,13 +72,15 @@ def evaluate(cfg: Config, g_state_dict, seed: int = 0, eval_step=None,
     over the first ``eval.swd_max_images`` composites against their
     ground truth, the draws from a generator seeded ``seed + 1234``.
 
-    Over several ranks each rank evaluates its slice of every eval batch
-    from data and mask streams of its own (rank 0's are one process's);
-    the metric sums are added over ranks, so the means cover every rank's
-    images, and the SWD pools the first ⌈cap / ranks⌉ composites of each
-    rank, gathered in rank order and cut to the cap. Every rank returns
-    the same numbers."""
+    Over several ranks each data index evaluates its slice of every eval
+    batch from data and mask streams of its own (index 0's are one
+    process's), which its model peers share; the metric sums are added
+    over the data axis, so the means cover every slice's images once, and
+    the SWD pools the first ⌈cap / data⌉ composites of each data index,
+    gathered in data order and cut to the cap. Every rank returns the same
+    numbers."""
     device = resolve_device(device)
+    use_mesh(cfg.train.mesh)
     if eval_step is None:
         eval_step = make_eval_step(cfg, device)
     local_bs, seed_offset = process_batch_slice(cfg.data.eval_batch_size)
@@ -84,13 +89,13 @@ def evaluate(cfg: Config, g_state_dict, seed: int = 0, eval_step=None,
     sums: dict[str, float] = {}
     count = 0
     swd_cap = cfg.eval.swd_max_images
-    local_cap = -(-swd_cap // world())
+    local_cap = -(-swd_cap // data_size())
     reals: list[torch.Tensor] = []
     comps: list[torch.Tensor] = []
     for i in range(cfg.data.num_eval_batches):
         batch = make_train_batch(
             next(it), stream_generator(seed + 777, STREAM_EVAL, i,
-                                       extra=rank()), cfg.mask)
+                                       extra=data_index()), cfg.mask)
         for name, value in eval_step(g_state_dict, batch).items():
             if name == "_composite":
                 if sum(c.shape[0] for c in comps) < local_cap:

@@ -4,9 +4,10 @@ step.
 
 Every random draw of step ``n`` (data batch, crop, flip, masks) comes from
 a generator derived from (seed, stream, n), so a resumed run continues
-exactly as the uninterrupted one would. Under data parallelism each rank
-derives its own: its data stream from ``seed + rank · 1 000 003``, its
-masks with ``extra = rank``; rank 0 draws what a single process draws.
+exactly as the uninterrupted one would. Under data parallelism each data
+index derives its own: its data stream from ``seed + index · 1 000 003``,
+its masks with ``extra = index``, shared by its model peers; data index 0
+draws what a single process draws.
 """
 
 from __future__ import annotations
@@ -25,16 +26,18 @@ from gan_inpainting_torch.io.checkpoint import CheckpointManager
 from gan_inpainting_torch.io.metrics_writer import MetricsWriter
 from gan_inpainting_torch.ops.dispatch import resolve_device
 from gan_inpainting_torch.parallel.multihost import (
+    data_index,
     ensure_initialized,
     initialized,
     is_main,
+    model_size,
     process_batch_slice,
-    rank,
 )
 from gan_inpainting_torch.parallel.sharding import (
     barrier,
     counts,
     reduce_metrics,
+    use_mesh,
 )
 from gan_inpainting_torch.train.evaluate import evaluate, make_eval_step
 from gan_inpainting_torch.train.state import (
@@ -65,9 +68,13 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
     data and mask streams of its own, the gradients averaged over ranks;
     logged metrics and evals are reduced over ranks, and only rank 0
     writes (record, samples, checkpoints) and prints. ``train.mesh`` must
-    be the world's data axis (``create_state``)."""
+    cover the world as ``data × model`` (``create_state``); the ranks of a
+    model group train the same slice, the generator channel-sharded over
+    them under ``model.tp_shard``, and the record then also counts the
+    channel gathers and the bytes they all-reduce."""
     device = resolve_device(device)
     n_ranks = ensure_initialized(device)
+    use_mesh(cfg.train.mesh)
     main = is_main()
     verbose = verbose and main
     if device.type == "cuda" and device.index is not None:
@@ -89,8 +96,8 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
             print(f"[train] warm-started params from {cfg.train.init_from}")
     if verbose and initialized():
         print(f"[train] data parallel over {n_ranks} rank(s), "
-              f"{local_batch} images each, backend "
-              f"{torch.distributed.get_backend()}")
+              f"{local_batch} images each, model axis {model_size()}, "
+              f"backend {torch.distributed.get_backend()}")
 
     # best-eval-PSNR retention: a second single-slot manager and a small
     # json of the best metrics; every rank reads the same reduced eval, so
@@ -116,13 +123,16 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
     t_last = time.perf_counter()
     steps_since_log = 0
     reduces_before = counts["all_reduce_mean_"]
+    gathers_before = {k: counts[k] for k in _GATHER_COUNTS}
+    # the channel gathers since the last log
+    window = dict(counts, _step=state.step)
     cur_steps = cfg.mask.curriculum_steps
     try:
         for step in range(state.step, cfg.train.steps):
             progress = min(1.0, step / cur_steps) if cur_steps else 1.0
             batch = make_train_batch(
                 next(data), stream_generator(cfg.train.seed, STREAM_MASKS,
-                                             step, extra=rank()),
+                                             step, extra=data_index()),
                 cfg.mask, progress, flip=cfg.data.random_flip,
                 crop=cfg.data.image_size if cfg.data.random_crop else 0)
             metrics = train_step(state, batch)
@@ -141,6 +151,15 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
                     scalars["world_size"] = n_ranks
                     scalars["grad_all_reduces"] = (
                         counts["all_reduce_mean_"] - reduces_before)
+                if model_size() > 1:
+                    scalars["model_axis"] = model_size()
+                    scalars.update({k: counts[k] - gathers_before[k]
+                                    for k in _GATHER_COUNTS})
+                    scalars["channel_gather_bytes_per_step"] = (
+                        counts["channel_gather_bytes"]
+                        - window["channel_gather_bytes"]) / max(
+                        next_step - window["_step"], 1)
+                window = dict(counts, _step=next_step)
                 if main:
                     writer.scalars(next_step, scalars)
                 if verbose:
@@ -164,9 +183,12 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
                     if verbose:
                         print(f"[train] new best psnr {best_psnr:.3f} "
                               f"@ {next_step} -> checkpoints_best")
-                if main:
+                if main or (cfg.model.tp_shard and model_size() > 1):
+                    # a sharded generator's model peers join its gathers
                     _dump_samples(cfg, state, writer, next_step, eval_step,
                                   device)
+                # the window counts the train steps' gathers, not the eval's
+                window = dict(counts, _step=next_step)
 
             if next_step % cfg.train.checkpoint_every == 0 or last:
                 if main:
@@ -179,14 +201,20 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
     return state, scalars
 
 
+# the model axis's collectives, logged beside grad_all_reduces
+_GATHER_COUNTS = ("channel_gathers", "channel_gather_bytes",
+                  "input_grad_all_reduces", "model_grad_reduces")
+
+
 @torch.no_grad()
 def _dump_samples(cfg: Config, state, writer: MetricsWriter, step: int,
                   eval_step, device, n: int = 4) -> np.ndarray:
     """Write a (masked | output | composite | target) grid of ``n`` eval
     images (at most an eval batch, which the eval split holds), side by
-    side on the width axis, as TensorBoard images; masks from the run's
-    eval stream at ``step``. The EMA generator runs on the eval step's
-    module. Returns the (n, H, 4W, 3) uint8 grid."""
+    side on the width axis, as TensorBoard images, where ``writer`` is
+    given; masks from the run's eval stream at ``step``. The EMA generator
+    runs on the eval step's module. Returns the (n, H, 4W, 3) uint8
+    grid."""
     it = make_dataset(cfg.data, seed=cfg.train.seed, split="eval",
                       batch_size=min(n, cfg.data.eval_batch_size),
                       device=device)
@@ -202,5 +230,6 @@ def _dump_samples(cfg: Config, state, writer: MetricsWriter, step: int,
     grid = torch.cat([denormalize(t) for t in (batch.masked, out, comp,
                                                batch.image)], dim=2)
     grid = grid.cpu().numpy()
-    writer.images(step, "samples", grid)
+    if writer is not None:
+        writer.images(step, "samples", grid)
     return grid

@@ -22,7 +22,10 @@ from gan_inpainting_torch.models.generator import build_generator
 from gan_inpainting_torch.ops.dispatch import resolve_device
 from gan_inpainting_torch.parallel.mesh import train_mesh
 from gan_inpainting_torch.parallel.multihost import world
-from gan_inpainting_torch.parallel.sharding import broadcast_module_state
+from gan_inpainting_torch.parallel.sharding import (
+    broadcast_module_state,
+    use_mesh,
+)
 
 
 @dataclasses.dataclass
@@ -131,17 +134,21 @@ def create_state(cfg: Config, seed: int | None = None,
                  device: str | torch.device | None = None) -> GANTrainState:
     """Initialize G, D (seeded), the optimizers and the EMA for a config, on
     ``device`` (CUDA unless the caller asks for another), equal on every
-    rank. ``train.mesh`` must be the world's data axis (``ValueError``
-    otherwise; ``NotImplementedError`` for a model or spatial axis, see
-    ``parallel/mesh.py``)."""
+    rank. ``train.mesh`` must cover the world as ``data × model``
+    (``ValueError`` otherwise; ``NotImplementedError`` for a spatial axis,
+    see ``parallel/mesh.py``); with ``model.tp_shard`` the generator is
+    channel-sharded over this rank's model group (``use_mesh``), its
+    parameters whole."""
     train_mesh(cfg.train.mesh, world())
+    group = use_mesh(cfg.train.mesh)
     device = resolve_device(device)
     if device.type == "cuda":
         # a run repeats a few fixed shapes: let cuDNN search once per shape
         # (its heuristic pick for the dilation-16 convs is far slower)
         torch.backends.cudnn.benchmark = True
     seed = cfg.train.seed if seed is None else seed
-    generator = build_generator(cfg.model, device=device, seed=seed)
+    generator = build_generator(cfg.model, device=device, seed=seed,
+                                model_group=group)
     discriminator = build_discriminator(cfg.model, device=device,
                                         seed=seed + 1)
     g_opt, d_opt = make_optimizers(cfg, generator, discriminator)

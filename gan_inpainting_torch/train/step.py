@@ -13,7 +13,11 @@ Under data parallelism each rank runs the step on its slice of the global
 batch; the gradients are averaged over ranks once per optimizer step
 (``parallel/sharding.py``), and the L1 and TV losses divide by the global
 batch's normalizers, so the ranks step as one process would on the whole
-batch. The metrics stay the rank's own.
+batch. The metrics stay the rank's own. Over a model axis the gradients
+are first reduced over the model group: those of the channel-sharded
+convs' weights (``model.tp_shard``), each nonzero on its member's rows
+only, summed, every other one averaged, so every member holds the same
+whole gradient before the mean over the data axis.
 """
 
 from __future__ import annotations
@@ -32,7 +36,11 @@ from gan_inpainting_torch.losses.perceptual import (
 )
 from gan_inpainting_torch.losses.reconstruction import l1_loss, tv_loss
 from gan_inpainting_torch.ops.dispatch import section
-from gan_inpainting_torch.parallel.sharding import all_reduce_mean_
+from gan_inpainting_torch.models.generator import sliced_parameters
+from gan_inpainting_torch.parallel.sharding import (
+    all_reduce_mean_,
+    reduce_over_model_,
+)
 from gan_inpainting_torch.train.state import (
     GANTrainState,
     clip_by_global_norm,
@@ -136,9 +144,13 @@ def make_train_step(cfg: Config) -> Callable[[GANTrainState, Batch], dict]:
         aux["g_loss"] = total
         return total, aux
 
-    def apply(opt: torch.optim.Adam, params, grads, lr: float) -> None:
-        # the mean over ranks first, so that the clip reads the global
-        # batch's norm, as GSPMD's all-reduce gives it in the JAX step
+    def apply(opt: torch.optim.Adam, params, grads, lr: float,
+              sliced=()) -> None:
+        # the model group's gradient (the sliced weights' whole one),
+        # then the mean over the data axis, so that the clip reads the
+        # global batch's norm, as GSPMD's all-reduce gives it in the JAX
+        # step
+        reduce_over_model_(grads, [id(p) in sliced for p in params])
         all_reduce_mean_(grads)
         if accum > 1:
             torch._foreach_div_(grads, accum)
@@ -194,7 +206,8 @@ def make_train_step(cfg: Config) -> Callable[[GANTrainState, Batch], dict]:
                 g_grads = add(g_grads, torch.autograd.grad(total, g_params))
             g_parts.append({k: v.detach() for k, v in aux.items()})
         with section("optimizer"):
-            apply(state.g_opt, g_params, g_grads, g_lr(state.step))
+            apply(state.g_opt, g_params, g_grads, g_lr(state.step),
+                  {id(p) for p in sliced_parameters(gen)})
 
         if tc.g_ema_decay > 0:
             with torch.no_grad(), section("optimizer"):

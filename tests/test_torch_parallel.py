@@ -338,7 +338,8 @@ def _assert_same(a: dict, b: dict, what: str):
 def test_mesh_resolve_matches_jax(mesh, n, want):
     """The cases of tests/distributed/test_mesh_parity.py::
     test_mesh_construction through both packages' ``resolve``; the port
-    builds only meshes without a model or spatial axis."""
+    builds every mesh without a spatial axis, its devices the first
+    data × model in order."""
     from gan_inpainting_tpu.parallel.mesh import MeshConfig as JMeshConfig
 
     if want is ValueError:
@@ -349,9 +350,10 @@ def test_mesh_resolve_matches_jax(mesh, n, want):
     assert MeshConfig(**mesh).resolve(n) == JMeshConfig(**mesh).resolve(n) \
         == want
     devices = [torch.device("cpu")] * n
-    if want[1:] == (1, 1):
+    if want[2] == 1:
         built = build_mesh(MeshConfig(**mesh), devices)
-        assert (built.data, len(built.devices)) == (want[0], want[0])
+        assert (built.data, len(built.devices)) == (want[0],
+                                                    want[0] * want[1])
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             build_mesh(MeshConfig(**mesh), devices)

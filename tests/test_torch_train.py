@@ -372,10 +372,10 @@ def test_warm_start_grafts_parameters(tiny_config, tmp_path):
 def test_mesh_above_one_device_raises(tiny_config, tmp_path, mesh):
     """A ``train.mesh`` the run cannot hold raises in ``create_state`` and
     ``train`` instead of training on fewer cards without a word: in one
-    process ``data = 2`` fails the world-size check (launch two ranks for
-    it); the model and spatial axes are not ported. ``data = -1`` (every
-    rank) trains. Serving an npz whose config carries a mesh is not
-    affected."""
+    process ``data = 2`` fails the world-size check and ``model = 2`` the
+    mesh's divisibility (launch two ranks for either); the spatial axis is
+    not ported. ``data = -1`` (every rank) trains. Serving an npz whose
+    config carries a mesh is not affected."""
     from gan_inpainting_torch.train.loop import train
 
     cfg = _port_cfg(j_overrides(tiny_config, [f"train.mesh.{mesh}",
@@ -384,9 +384,11 @@ def test_mesh_above_one_device_raises(tiny_config, tmp_path, mesh):
     if mesh == "data=-1":
         assert create_state(cfg, device="cpu").step == 0
         return
-    err, match = ((ValueError, "needs more than the 1")
-                  if mesh == "data=2" else
-                  (NotImplementedError, "ROADMAP Queue 1 item"))
+    err, match = {
+        "data=2": (ValueError, "needs more than the 1"),
+        "model=2": (ValueError, "not divisible by model"),
+        "spatial=4": (NotImplementedError, "ROADMAP Queue 1 item 2"),
+    }[mesh]
     for fn in (lambda: create_state(cfg, device="cpu"),
                lambda: train(cfg, device="cpu", verbose=False)):
         with pytest.raises(err, match=match):
