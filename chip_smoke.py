@@ -148,10 +148,26 @@ Phases (each prints its lines; any failure exits non-zero):
    the gated-conv kernel at every slice form of (b)'s pallas forwards
    (F = 12 included) against its plain version, with its time, the plain
    version's, ``conv2d`` + bias and the bound;
-13. one JSON line of per-kernel numbers (with the service's under
+13. path I, the mesh's spatial axis in serving
+   (``train.mesh.spatial``): (a) the pinned generator under path C's
+   buckets serves one 1×2048² request (bf16) over spatial groups of 2
+   and 4 members sharing cuda:0 against the whole map on one device
+   (known pixels bit-exact, hole pixels within ±2 on ≥ 99.9 %, one
+   patch-attention forward per member at Lq = Lk / n and no fused
+   attention, the row exchanges and their bytes, ms per request of
+   each in turns, peak memory); (b) the patch-attention forward (row 9)
+   at a member's shapes, B 1 Lq 32 768 Lk 65 536 and B 8 Lq 512 Lk 1024,
+   against its plain version (over chunks of query rows), with its time,
+   the plain version's, SDPA's and the bound; (c) serve_v4_8 at 8×256²
+   and 1×512² over a spatial group of two against one device, under
+   ``auto`` and ``pallas`` (bf16) and a float32 1×512² pair, with
+   launches per forward of rows 1–3, 6–7 and 9 and ms per batch in
+   turns;
+14. one JSON line of per-kernel numbers (with the service's under
    ``"service"``, phase 9's under ``"file_data"``, phase 10's under
-   ``"data_parallel"``, phase 11's under ``"aot"`` and phase 12's under
-   ``"model_axis"``), then the result line.
+   ``"data_parallel"``, phase 11's under ``"aot"``, phase 12's under
+   ``"model_axis"`` and phase 13's under ``"spatial_axis"``), then the
+   result line.
 
 Phase 2 also holds the three patch-attention kernels (forward, dQ, dK/dV)
 against their plain versions at the full widths (d 1728, dv 3072) at L
@@ -4500,6 +4516,314 @@ def model_axis(torch, rng, smi):
                 phase_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the mesh's spatial axis in serving (train.mesh.spatial)
+# ---------------------------------------------------------------------------
+
+# (a) path C's pinned generator and buckets, one 1×2048² request, bf16
+SP_2048 = ["model.fuse_upsample=true", "infer.size_buckets=256,512,2048",
+           "infer.batch_buckets=1"]
+SP_GROUPS = (2, 4)
+# the kernels of PERF.md §6 rows 1–3, 6–7 and 9, counted per forward
+SP_ROWS = ("contextual_attention_fused", "fold_taps", "gated_conv_direct",
+           "gated_matmul", "patch_attention_fwd")
+# the row exchanges of parallel/spatial.py, counted in sharding.counts
+SP_COUNTS = ("halo_exchanges", "halo_bytes", "row_gathers",
+             "row_gather_bytes", "spill_adds", "spill_bytes",
+             "unsharded_forwards")
+# (b) row 9 at the spatial shapes: B, Lq, Lk (d 1728, dv 3072, bf16) of a
+# member of a group of 2 at the 2048² request and at the 8×256² bucket;
+# the forward within phase 2's bf16 tolerance of max|reference|
+# (BF16_TOL_FRAC: the output is rounded to bf16 once, and the plain
+# version rounds the weights to bf16 before its PV product)
+SP_KERNEL_SHAPES = {"B1_Lq32768_Lk65536": (1, 32768, 65536),
+                    "B8_Lq512_Lk1024": (8, 512, 1024)}
+SP_KERNEL_TOL_FRAC = BF16_TOL_FRAC
+SP_PLAIN_CHUNK = 2048            # query rows per chunk of the plain version
+
+
+def _sp_recorder():
+    """Record (thread, B, Lq, Lk) of every call of the spatial branch's
+    patch-attention wrapper, which still runs (and counts its launch);
+    returns the list and a function that restores the wrapper."""
+    import importlib
+    import threading
+
+    ca = importlib.import_module(
+        "gan_inpainting_torch.ops.contextual_attention")
+    real, calls, lock = ca.attend, [], threading.Lock()
+
+    def recorded(q, k, key_valid, v, softmax_scale):
+        with lock:
+            calls.append((threading.current_thread().name, q.shape[0],
+                          q.shape[1], k.shape[1]))
+        return real(q, k, key_valid, v, softmax_scale)
+
+    ca.attend = recorded
+
+    def restore():
+        ca.attend = real
+
+    return calls, restore
+
+
+def _sp_forward(torch, inp, imgs, masks):
+    """One forward through ``inp`` with the launch counts set to 0 just
+    before and read just after: (output, launches of SP_ROWS, row
+    exchanges of SP_COUNTS, patch-attention calls)."""
+    from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.parallel.sharding import counts
+
+    torch.cuda.synchronize()
+    calls, restore = _sp_recorder()
+    before = {k: counts[k] for k in SP_COUNTS}
+    dispatch.reset_launches()
+    try:
+        out = inp.inpaint_batch(imgs, masks)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = {k: dispatch.launches.get(k, 0) for k in SP_ROWS}
+    moved = {k: counts[k] - before[k] for k in SP_COUNTS}
+    return out, launches, moved, calls
+
+
+def _sp_turns(torch, inps, order, imgs, masks, runs=3):
+    """ms per request through ``inpaint_batch`` (host uint8 in and out),
+    ``runs`` each, taken in the turns of ``order``."""
+    turns = {k: [] for k in inps}
+    for k in order:
+        lat = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inps[k].inpaint_batch(imgs, masks)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        turns[k].append(lat)
+    return turns
+
+
+def _sp_2048(torch, rng, smi):
+    """Phase 13 (a): one 1×2048² request of the pinned generator on
+    spatial groups of 2 and 4 members sharing cuda:0 against the whole
+    map on one device."""
+    from gan_inpainting_torch.infer.inpaint import Inpainter
+
+    imgs = _smooth_images(rng, 1, 2048, 2048)
+    masks = _stroke_masks(rng, 1, 2048, 2048)
+    torch.cuda.reset_peak_memory_stats()
+    whole = Inpainter.from_npz(NPZ, overrides=SP_2048, device="cuda:0")
+    want, l_whole, _, _ = _sp_forward(torch, whole, imgs, masks)
+    _known_exact(want, imgs, masks, "spatial (a) whole map")
+    inps, res = {1: whole}, {1: dict(
+        launches=l_whole,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)}
+    lk = (2048 // 4 // 2) ** 2
+    for n in SP_GROUPS:
+        torch.cuda.reset_peak_memory_stats()
+        inp = Inpainter.from_npz(NPZ, overrides=SP_2048 + [
+            f"train.mesh.spatial={n}"], devices=["cuda:0"] * n)
+        _require(len(inp.groups) == 1 and len(inp.groups[0]) == n
+                 and inp.row_sharded(2048),
+                 f"spatial={n}: groups {inp.groups}")
+        t0 = time.perf_counter()
+        inp.inpaint_batch(imgs, masks)       # cuDNN tuning on every member
+        first_s = time.perf_counter() - t0
+        got, launches, moved, calls = _sp_forward(torch, inp, imgs, masks)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _known_exact(got, imgs, masks, f"spatial={n} 1x2048²")
+        agree = _hole_agreement(got, want, masks)
+        _require(agree[f"within_{BF16_SERVE_LEVELS}"] >= BF16_SERVE_FRAC,
+                 f"spatial={n} 1x2048² vs the whole map: {agree}")
+        shapes = sorted(c[1:] for c in calls)
+        _require(launches["patch_attention_fwd"] == n
+                 and launches["contextual_attention_fused"] == 0
+                 and shapes == [(1, lk // n, lk)] * n
+                 and len({c[0] for c in calls}) == n
+                 and moved["unsharded_forwards"] == 0
+                 and moved["halo_exchanges"] > 0,
+                 f"spatial={n} 1x2048²: launches {launches}, attention "
+                 f"calls {calls}, exchanges {moved}; expected one "
+                 f"patch_attention_fwd per member at Lq {lk // n}, Lk {lk}")
+        res[n] = dict(hole_agreement=agree, launches=launches,
+                      attention_calls=shapes, exchanges=moved,
+                      first_request_s=first_s, peak_gib=peak)
+        inps[n] = inp
+        print(f"[13] (a) serve_v4_8 (tex256_attn npz) 1x2048² bf16 over "
+              f"train.mesh.spatial={n} (devices=[cuda:0] x {n}) against "
+              f"the whole map: known pixels bit-exact, hole pixels within "
+              f"±{BF16_SERVE_LEVELS} on "
+              f"{agree[f'within_{BF16_SERVE_LEVELS}']:.6f} (need "
+              f"{BF16_SERVE_FRAC}; max {agree['max']}); launches "
+              f"{launches} (whole map {l_whole}); patch attention per "
+              f"member (B, Lq, Lk) {shapes[0]}; exchanges per request "
+              f"{moved}; first request {first_s:.1f} s (cuDNN tuning per "
+              f"member thread); peak {peak:.2f} GiB (whole map "
+              f"{res[1]['peak_gib']:.2f}) | {smi}")
+    order = [1, *SP_GROUPS, *SP_GROUPS[::-1], 1]
+    turns = _sp_turns(torch, inps, order, imgs, masks)
+    for n in inps:
+        res[n]["ms_turns"] = turns[n]
+    print(f"[13] (a) ms per 1x2048² request through inpaint_batch, 3 runs "
+          f"per turn in turns {order}: " + "; ".join(
+              f"spatial={n} {[[round(t, 1) for t in r] for r in turns[n]]}"
+              for n in inps) + f" (one card: no gain claimed) | {smi}")
+    for n in SP_GROUPS:
+        inps[n].close()
+    return res
+
+
+def _sp_kernel(torch, smi):
+    """Phase 13 (b): row 9 (the patch-attention forward) at the spatial
+    shapes against its plain version, with the wrapper's time, the plain
+    version's, SDPA's and the bound."""
+    import torch.nn.functional as F
+
+    from gan_inpainting_torch.ops.kernels.patch_attention import (
+        patch_attention,
+        patch_attention_plain,
+    )
+
+    d, dv, rows = 1728, 3072, {}
+    for name, (b, lq, lk) in SP_KERNEL_SHAPES.items():
+        q, k, v, _, valid = _patch_inputs(torch, 23, b, lq, lk, d, dv,
+                                          torch.bfloat16, dead=b > 1)
+
+        def wrapper():
+            return patch_attention(q, k, valid, v, softmax_scale=10.0)
+
+        def plain():
+            return [patch_attention_plain(
+                q[:, c0:c0 + SP_PLAIN_CHUNK], k, valid, v,
+                softmax_scale=10.0) for c0 in range(0, lq, SP_PLAIN_CHUNK)]
+
+        got = wrapper()
+        err = ref = 0.0
+        for c0, want in zip(range(0, lq, SP_PLAIN_CHUNK), plain()):
+            a = got[:, c0:c0 + SP_PLAIN_CHUNK].float()
+            err = max(err, (a - want.float()).abs().max().item())
+            ref = max(ref, want.float().abs().max().item())
+        _require(err <= SP_KERNEL_TOL_FRAC * max(ref, 1.0),
+                 f"spatial (b) {name}: max abs err {err:.3e} of max|ref| "
+                 f"{ref:.3e} (tol {SP_KERNEL_TOL_FRAC})")
+        # the last sample of a batch has no valid key: exactly 0
+        _require(b == 1 or got[-1].abs().max().item() == 0.0,
+                 f"spatial (b) {name}: a row with no valid key is not 0")
+        del got
+        ms = _time_ms(torch, wrapper, 3)
+        plain_ms = _time_ms(torch, plain, 1)
+        n_bytes, n_ops = _patch_bounds(valid, lq, d, dv, 2)["fwd"]
+        bound, by = _bound_ms(n_bytes, n_ops, H100_BF16_FLOPS)
+        mask = torch.where(valid, 0.0, -1e9).to(q.dtype)[:, None, None, :]
+        try:
+            sdpa_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, None], k[:, None], v[:, None], attn_mask=mask,
+                scale=10.0), 2)
+        except RuntimeError as e:          # no SDPA backend holds it
+            sdpa_ms = None
+            print(f"[13] (b) {name}: SDPA refused ({str(e)[:80]})")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
+                          bound_ms=bound, bound_by=by, max_abs_err=err,
+                          max_abs_err_of=ref,
+                          tflops=n_ops / (ms * 1e-3) / 1e12)
+        print(f"[13] (b) patch_attention_fwd {name} d{d} dv{dv} bf16: max "
+              f"abs err {err:.3e} of max|ref| {ref:.3e} (tol "
+              f"{SP_KERNEL_TOL_FRAC} of it); wrapper {ms:.3f} ms "
+              f"({rows[name]['tflops']:.1f} TFLOP/s of valid pairs), plain "
+              f"{plain_ms:.3f}, SDPA "
+              f"{'n/a' if sdpa_ms is None else f'{sdpa_ms:.3f}'}, bound "
+              f"{bound:.3f} by {by} | {smi}")
+        del q, k, v, valid, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _sp_serve(torch, rng, smi):
+    """Phase 13 (c): serve_v4_8 at 8×256² and 1×512² over a spatial group
+    of two against one device, under auto and pallas, and a float32
+    1×512² pair."""
+    from gan_inpainting_torch.infer.inpaint import Inpainter
+
+    reqs = {"8x256": (_smooth_images(rng, 8, 256, 256),
+                      _stroke_masks(rng, 8, 256, 256)),
+            "1x512": (_smooth_images(rng, 1, 512, 512),
+                      _stroke_masks(rng, 1, 512, 512))}
+    out = {}
+    for backend in ("auto", "pallas", "f32"):
+        ov = MA_SERVE + (["model.dtype_policy=f32"] if backend == "f32"
+                         else [f"model.kernel_backend={backend}"])
+        one = Inpainter.from_npz(NPZ, overrides=ov, device="cuda:0")
+        two = Inpainter.from_npz(NPZ, overrides=ov + [
+            "train.mesh.spatial=2"], devices=["cuda:0", "cuda:0"])
+        res = {}
+        for name, (imgs, masks) in reqs.items():
+            if backend == "f32" and name != "1x512":
+                continue
+            one.inpaint_batch(imgs, masks)           # tuning, build
+            want, l_one, _, _ = _sp_forward(torch, one, imgs, masks)
+            two.inpaint_batch(imgs, masks)
+            got, l_two, moved, calls = _sp_forward(torch, two, imgs, masks)
+            _known_exact(got, imgs, masks, f"spatial (c) {backend} {name}")
+            agree = _hole_agreement(got, want, masks)
+            if backend == "f32":
+                ok = agree["max"] <= 1
+            else:
+                ok = agree[f"within_{BF16_SERVE_LEVELS}"] >= BF16_SERVE_FRAC
+            b, s = imgs.shape[0], imgs.shape[1]
+            lk = (s // 4 // 2) ** 2
+            convs = ("gated_conv_direct", "gated_matmul")
+            _require(ok and l_two["patch_attention_fwd"] == 2
+                     and l_two["contextual_attention_fused"] == 0
+                     and sorted(c[1:] for c in calls) == [(b, lk // 2,
+                                                           lk)] * 2
+                     and all(l_two[k] == 2 * l_one[k] for k in convs)
+                     and (backend != "pallas"
+                          or all(l_two[k] > 0 for k in convs)),
+                     f"spatial (c) {backend} {name}: agreement {agree}, "
+                     f"launches {l_two} (one device {l_one}), attention "
+                     f"calls {calls}")
+            turns = _sp_turns(torch, {1: one, 2: two}, (1, 2, 2, 1), imgs,
+                              masks)
+            res[name] = dict(hole_agreement=agree, launches_one=l_one,
+                             launches_two=l_two, exchanges=moved,
+                             ms_turns={f"spatial{k}": v
+                                       for k, v in turns.items()})
+            print(f"[13] (c) serve_v4_8 {name} "
+                  f"{'float32' if backend == 'f32' else 'bf16 ' + backend}:"
+                  f" spatial=2 (devices=[cuda:0, cuda:0]) against one "
+                  f"device: known pixels bit-exact, hole pixels "
+                  + (f"max {agree['max']} (need ≤ 1)" if backend == "f32"
+                     else f"within ±{BF16_SERVE_LEVELS} on "
+                     f"{agree[f'within_{BF16_SERVE_LEVELS}']:.6f} (need "
+                     f"{BF16_SERVE_FRAC}; max {agree['max']})")
+                  + f"; launches per forward {l_two} (one device {l_one}; "
+                  f"per member rows 6-7 as one device's, row 9 once at Lq "
+                  f"{lk // 2}, Lk {lk}); exchanges {moved}; ms per batch in "
+                  f"turns one, two, two, one: one "
+                  f"{[[round(t, 1) for t in r] for r in turns[1]]}, two "
+                  f"{[[round(t, 1) for t in r] for r in turns[2]]} | {smi}")
+        out[backend] = res
+        two.close()
+        del one, two
+        torch.cuda.empty_cache()
+    return out
+
+
+def spatial_axis(torch, rng, smi):
+    """Phase 13: serving over the mesh's spatial axis: (a) the 2048²
+    request on spatial groups of 2 and 4, (b) row 9 at the spatial
+    shapes, (c) serve_v4_8's buckets at spatial 2."""
+    t0 = time.perf_counter()
+    a = _sp_2048(torch, rng, smi)
+    torch.cuda.empty_cache()
+    b = _sp_kernel(torch, smi)
+    c = _sp_serve(torch, rng, smi)
+    wall = time.perf_counter() - t0
+    print(f"[13] phase 13 took {wall:.1f} s")
+    return dict(serve_2048=a, kernel=b, serve_v4_8=c, phase_s=wall)
+
+
 def main() -> int:
     import torch
 
@@ -4638,6 +4962,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     ma = model_axis(torch, rng, smi)
     ma_serve = ma["serve"]["pallas"]
+    torch.cuda.empty_cache()
+    sp = spatial_axis(torch, rng, smi)
+
+    def through_spatial(kernel):
+        """Launches per forward of ``kernel`` on path I (phase 13), by
+        group and bucket: (a) the 2048² request, (c) serve_v4_8's."""
+        got = {f"2048_spatial{n}": sp["serve_2048"][n]["launches"][kernel]
+               for n in SP_GROUPS}
+        for backend, by_bucket in sp["serve_v4_8"].items():
+            for bucket, r in by_bucket.items():
+                got[f"{bucket}_{backend}_spatial2"] = r["launches_two"][
+                    kernel]
+        return got
 
     def through_group(kernel):
         """Launches per forward of ``kernel`` through phase 12's group of
@@ -4734,6 +5071,7 @@ def main() -> int:
             "gan_inpainting_tpu/ops/pallas/direct_conv.py:48",
             launches_aot=through_aot("gated_conv_direct"),
             launches_model_axis=through_group("gated_conv_direct"),
+            launches_spatial=through_spatial("gated_conv_direct"),
             at_model_axis_slices=slice_forms("direct"),
             also={k: conv[k] for k in (
                 "direct_d16", "direct_stem", "direct_f96", "direct_f24",
@@ -4743,6 +5081,7 @@ def main() -> int:
             "gan_inpainting_tpu/ops/pallas/fused_matmul.py:76",
             launches_aot=through_aot("gated_matmul"),
             launches_model_axis=through_group("gated_matmul"),
+            launches_spatial=through_spatial("gated_matmul"),
             at_model_axis_slices=slice_forms("matmul"),
             also={"matmul_c48": conv["matmul_c48"]}),
         row("partial_epilogue@C48_64x256²", "partial_c48", conv,
@@ -4767,10 +5106,24 @@ def main() -> int:
                        train_512=l512.get(name, 0),
                        serve_2048=large["serve_launches"].get(name, 0),
                        train_2048=trained.get(name, 0))
+        if kname == "fwd":
+            by_path.update({f"spatial_{k}": v for k, v in
+                            through_spatial(name).items()})
         kernels.append(row(
             f"{name}@B2_L16384", kname, patch, sum(by_path.values()),
             attn_src if kname == "fwd" else bwd_wgmma_src, f"{tpu_pa}:{line}",
             launches_by_path=by_path, launches_aot=through_aot(name)))
+    # row 9 at the spatial axis's shapes (phase 13 (b)): a member's local
+    # query rows against every key; launches: path I's 2048² requests
+    sp_k = sp["kernel"]
+    kernels.append(dict(
+        name="patch_attention_fwd@spatial_B1_Lq32768_Lk65536", route="cuda",
+        source=attn_src, replaces=f"{tpu_pa}:64",
+        launches=sum(sp["serve_2048"][n]["launches"]["patch_attention_fwd"]
+                     for n in SP_GROUPS),
+        **sp_k["B1_Lq32768_Lk65536"],
+        at_B8_Lq512_Lk1024=sp_k["B8_Lq512_Lk1024"],
+        launches_by_path=through_spatial("patch_attention_fwd")))
     print(json.dumps({"kernels": kernels, "card": smi, "large_map": {
         **large,
         "routes": routes,
@@ -4784,7 +5137,7 @@ def main() -> int:
         "serve_64x256": {"serve_v4_8": rates_a,
                          "partialconv256": path_b["rates"]},
         "service": service, "file_data": files, "data_parallel": dp,
-        "aot": aot, "model_axis": ma}))
+        "aot": aot, "model_axis": ma, "spatial_axis": sp}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

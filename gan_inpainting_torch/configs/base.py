@@ -8,9 +8,9 @@ were taken on TPUs and are not the port's.
 
 ``MeshConfig`` lives in ``parallel/mesh.py``, which copies the JAX
 package's dataclass (the JAX module imports jax): embedded configs carry it
-under ``train.mesh`` and parse in both packages. The port runs its data
-axis; a ``model`` or ``spatial`` axis above 1 raises where the mesh is
-built (``parallel/mesh.py``).
+under ``train.mesh`` and parse in both packages. The port trains over
+the data and model axes and serves over all three; a ``spatial`` axis
+above 1 raises in training and evaluation (``parallel/mesh.py``).
 """
 
 from __future__ import annotations

@@ -25,7 +25,25 @@ slice by a peer copy and concatenates them in member order
 (parallel/sharding.py ``ThreadModelGroup``, no ``torch.distributed``);
 the rest runs whole on every member, and member 0's output is served.
 Without ``tp_shard`` the members would compute the same thing, so a group
-runs on its first device alone.
+runs on its first model index alone.
+
+Over the mesh's spatial axis (``train.mesh.spatial`` = n > 1) each
+replica's group holds ``model × n`` members, member ``r`` at model index
+``r // n`` and spatial index ``r % n`` (parallel/mesh.py), each on a
+thread and a device of its own, as the JAX ``Inpainter`` row-shards a
+bucket over its spatial mesh (gan_inpainting_tpu/infer/inpaint.py:
+114-151). The padded bucket is split into n row bands: member (j, i)
+takes band i, every activation of its forward stays band i (models/
+generator.py: conv halos from the neighbouring bands, contextual
+attention over the gathered map), its row exchanges run among the
+members of model index j (parallel/spatial.py ``ThreadSpatialGroup``)
+and its channel gathers among those of spatial index i; the bands of
+model index 0 are concatenated in order. Bands stay whole and aligned
+through both stride-2 levels and the ``::4`` slices only where
+``S % (4·n) == 0`` for a size bucket S; any other bucket runs unsharded
+on the spatial index-0 members and is counted
+(``sharding.counts["unsharded_forwards"]``), where JAX's GSPMD shards the
+rows unevenly.
 """
 
 from __future__ import annotations
@@ -49,7 +67,9 @@ from gan_inpainting_torch.parallel.mesh import build_mesh
 from gan_inpainting_torch.parallel.sharding import (
     ModelGroup,
     ThreadModelGroup,
+    _count,
 )
+from gan_inpainting_torch.parallel.spatial import ThreadSpatialGroup
 
 
 def _bucket(value: int, buckets) -> int:
@@ -78,13 +98,16 @@ def serve_forward(generator, images_u8: torch.Tensor,
 
 def make_forward_fn(cfg: Config, state_dict,
                     device: str | torch.device | None = None,
-                    model_group: ModelGroup | None = None):
+                    model_group: ModelGroup | None = None,
+                    spatial_group: ThreadSpatialGroup | None = None):
     """The serve forward ``(images_u8, masks) → uint8`` on ``device``
     (:func:`serve_forward` under ``inference_mode``), as member
-    ``model_group.index`` of a channel-sharded group where one is given
-    (its members call their forwards together)."""
+    ``model_group.index`` of a channel-sharded group and member
+    ``spatial_group.index`` of a row-sharded one where they are given (its
+    members call their forwards together, each on its row band)."""
     gen = build_generator(cfg.model, device=device, seed=None,
-                          model_group=model_group)
+                          model_group=model_group,
+                          spatial_group=spatial_group)
     gen.load_state_dict(state_dict)
     gen.eval()
 
@@ -153,14 +176,16 @@ class Inpainter:
     :func:`gan_inpainting_torch.io.convert.params_from_jax`) or, through
     :meth:`from_npz`, from an exported artifact.
 
-    Where it runs, with n = ``cfg.train.mesh.model``: an explicit
-    ``devices`` list gives one replica on each n consecutive devices (a
-    device may repeat; a count not divisible by n raises the mesh's
-    ``ValueError``); an explicit ``device`` one replica there (its n
-    members share it); otherwise ``cfg.train.mesh`` over the local cards
-    (``data = -1``, the default, is every card; ``data = d`` the first
-    d·n), and an error when there is no card. ``close()`` stops the
-    replicas' threads (collecting the Inpainter does too)."""
+    Where it runs, with n = ``cfg.train.mesh.model`` ×
+    ``cfg.train.mesh.spatial``: an explicit ``devices`` list gives one
+    replica on each n consecutive devices (a device may repeat; a count
+    not divisible by n raises the mesh's ``ValueError``); an explicit
+    ``device`` one replica there (its n members share it); otherwise
+    ``cfg.train.mesh`` over the local cards (``data = -1``, the default,
+    is every card; ``data = d`` the first d·n; more than the cards raises
+    the mesh's ``ValueError``), and an error when there is no card.
+    ``close()`` stops the replicas' threads (collecting the Inpainter does
+    too)."""
 
     def __init__(self, cfg: Config, state_dict,
                  device: str | torch.device | None = None,
@@ -173,7 +198,8 @@ class Inpainter:
                 raise ValueError("devices is empty")
             mesh = build_mesh(axes, devices)
         elif device is not None:
-            mesh = build_mesh(axes, (resolve_device(device),) * axes.model)
+            mesh = build_mesh(axes, (resolve_device(device),)
+                              * (axes.model * axes.spatial))
         else:
             resolve_device(None)            # raises without a card
             cards = [torch.device("cuda", i)
@@ -181,9 +207,12 @@ class Inpainter:
             mesh = build_mesh(cfg.train.mesh, cards)
         self.devices = mesh.devices
         self.device = self.devices[0]
-        # the members that compute: the whole group under channel sharding
-        members = mesh.model if cfg.model.tp_shard else 1
-        self.groups = tuple(g[:members] for g in mesh.groups)
+        # the members that compute: every model index under channel
+        # sharding, else model index 0; each with its spatial indices
+        self.model_axis = mesh.model if cfg.model.tp_shard else 1
+        self.spatial = mesh.spatial
+        self.groups = tuple(g[:self.model_axis * self.spatial]
+                            for g in mesh.groups)
         if any(d.type == "cuda" for d in self.devices):
             # every request runs one of a fixed set of bucket shapes, so
             # cuDNN's per-shape algorithm search pays once per bucket (as
@@ -192,12 +221,14 @@ class Inpainter:
             # (PERF.md)
             torch.backends.cudnn.benchmark = True
         self.state_dict = state_dict
-        # one generator per member and decoder formulation: eager PyTorch
-        # needs no program per bucket shape. _forward is the first
-        # replica's first member's (profiling tools call it)
-        self._model_groups = [
-            ThreadModelGroup.members(len(g)) if len(g) > 1 else [None]
-            for g in self.groups]
+        # each member's (model group, spatial group): member r = j·n + i
+        # shares a model group with the members of spatial index i and a
+        # spatial group with those of model index j
+        self._axes = [self._member_axes() for _ in self.groups]
+        # one generator per member, decoder formulation and row sharding:
+        # eager PyTorch needs no program per bucket shape. _forward is the
+        # first replica's first member's whole-map one (profiling tools
+        # call it)
         self._forwards = [
             [functools.lru_cache(maxsize=None)(functools.partial(
                 self._build_forward, replica=i, member=m))
@@ -266,60 +297,102 @@ class Inpainter:
         """The formulation of a size bucket (:func:`serve_config`)."""
         return serve_config(self.cfg, size)
 
-    def _build_forward(self, fuse_upsample: bool, replica: int,
-                       member: int = 0):
+    def _member_axes(self) -> list[tuple]:
+        """One replica's (model group, spatial group) per member, None
+        where an axis has one member."""
+        m, n = self.model_axis, self.spatial
+        models = [ThreadModelGroup.members(m) if m > 1 else [None] * m
+                  for _ in range(n)]
+        rows = [ThreadSpatialGroup.members(n) if n > 1 else [None] * n
+                for _ in range(m)]
+        return [(models[r % n][r // n], rows[r // n][r % n])
+                for r in range(m * n)]
+
+    def _exchanges(self, replica: int):
+        return [g for axes in self._axes[replica] for g in axes
+                if g is not None]
+
+    def row_sharded(self, size: int) -> bool:
+        """True where a size bucket splits into row bands that stay whole
+        and aligned through both stride-2 levels and the ``::4`` slices:
+        ``size % (4·spatial) == 0``."""
+        return self.spatial > 1 and size % (4 * self.spatial) == 0
+
+    def _build_forward(self, fuse_upsample: bool, rows: bool = False,
+                       *, replica: int, member: int = 0):
         cfg = dataclasses.replace(
             self.cfg, model=dataclasses.replace(self.cfg.model,
                                                 fuse_upsample=fuse_upsample))
+        model_group, spatial_group = self._axes[replica][member]
         return make_forward_fn(cfg, self.state_dict,
-                               self.groups[replica][member],
-                               self._model_groups[replica][member])
+                               self.groups[replica][member], model_group,
+                               spatial_group if rows else None)
 
     def _run_member(self, replica: int, member: int, fuse_upsample: bool,
                     images_u8, masks) -> torch.Tensor:
-        """One member's forward of its replica's shard, on its device; a
-        failure releases the other members from their exchanges."""
+        """One member's forward of its replica's shard (its row band where
+        the bucket is row-sharded), on its device; a failure releases
+        every member of the replica from its exchanges."""
         dev = self.groups[replica][member]
+        rows = self.row_sharded(images_u8.shape[1])
+        if rows:
+            band = images_u8.shape[1] // self.spatial
+            i = member % self.spatial
+            images_u8, masks = (np.ascontiguousarray(a[:, i * band:
+                                                       (i + 1) * band])
+                                for a in (images_u8, masks))
         try:
-            return self._forwards[replica][member](fuse_upsample)(
-                torch.from_numpy(images_u8).to(dev),
-                torch.from_numpy(masks).to(dev))
+            # the whole-map forward's cache key is (fuse_upsample,) alone
+            fwd = self._forwards[replica][member]
+            fwd = fwd(fuse_upsample, True) if rows else fwd(fuse_upsample)
+            return fwd(torch.from_numpy(images_u8).to(dev),
+                       torch.from_numpy(masks).to(dev))
         except BaseException:
-            group = self._model_groups[replica][member]
-            if group is not None:
+            for group in self._exchanges(replica):
                 group.abort()
             raise
 
     def _run(self, replica: int, fuse_upsample: bool, images_u8, masks,
              rows: int, h: int, w: int) -> np.ndarray:
         """One replica's shard: the forward on its group (member 0 in this
-        thread, the others on theirs), member 0's first ``rows`` outputs
-        cropped to (h, w) and brought to the host."""
-        futures = []
-        for m, (jobs, _) in enumerate(self._member_workers[replica], 1):
+        thread, the others on theirs; an unsharded bucket on the spatial
+        index-0 members alone), the row bands of model index 0 in order,
+        their first ``rows`` outputs cropped to (h, w) and brought to the
+        host."""
+        n = self.spatial
+        members = range(1, len(self.groups[replica]))
+        if n > 1 and not self.row_sharded(images_u8.shape[1]):
+            members = [m for m in members if m % n == 0]
+            _count("unsharded_forwards")
+        futures = {}
+        for m in members:
+            jobs, _ = self._member_workers[replica][m - 1]
             fut: Future = Future()
             jobs.put((self._run_member, (replica, m, fuse_upsample,
                                          images_u8, masks), fut))
-            futures.append(fut)
-        errors = []
+            futures[m] = fut
+        errors, bands = [], {}
         try:
-            out = self._run_member(replica, 0, fuse_upsample, images_u8,
-                                   masks)
+            bands[0] = self._run_member(replica, 0, fuse_upsample,
+                                        images_u8, masks)
         except Exception as e:  # noqa: BLE001 — raised below
             errors.append(e)
-        for fut in futures:
+        for m, fut in futures.items():
             try:
-                fut.result()
+                bands[m] = fut.result()
             except Exception as e:  # noqa: BLE001 — raised below
                 errors.append(e)
         if errors:
-            for group in self._model_groups[replica]:
-                if group is not None:
-                    group.reset()
+            for group in self._exchanges(replica):
+                group.reset()
             # the first failure, not the others' broken barrier
             raise next((e for e in errors if not isinstance(
                 e, threading.BrokenBarrierError)), errors[0])
-        return out[:rows, :h, :w, :].cpu().numpy()
+        # model index 0's bands: members 0 .. n − 1 (member 0 alone when
+        # the bucket ran unsharded)
+        out = [bands[m][:rows].cpu().numpy() for m in range(n) if m in bands]
+        out = out[0] if len(out) == 1 else np.concatenate(out, 1)
+        return out[:, :h, :w, :]
 
     # ------------------------------------------------------------------
     def inpaint_batch(self, images_u8, masks) -> np.ndarray:

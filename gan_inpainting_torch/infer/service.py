@@ -370,7 +370,8 @@ def serve(inpainter: Inpainter, host: str = "127.0.0.1",
     print(f"[serve] inpaint service on http://{host}:{port} "
           f"(config {cfg.name}, buckets {cfg.infer.size_buckets}, "
           f"replicas on {', '.join(map(str, inpainter.devices))}, "
-          f"model axis {cfg.train.mesh.model})",
+          f"model axis {cfg.train.mesh.model}, spatial axis "
+          f"{getattr(inpainter, 'spatial', 1)})",
           flush=True)
     try:
         server.serve_forever()

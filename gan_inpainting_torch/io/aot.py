@@ -43,6 +43,12 @@ Where the port departs from the JAX module:
 The programs run on the platform they were exported on (a ``cuda``
 artifact on the card, a ``cpu`` artifact on the CPU); the first run of a
 bucket on the card still tunes cuDNN's plans, as the live path's does.
+
+An artifact is one device per program, as the JAX module's is (it builds
+no mesh): exported under a config with ``train.mesh.spatial`` above 1,
+``export_serving`` warns that the row split is not applied and the
+manifest records ``devices_per_program`` 1; row-sharded serving is the
+live ``Inpainter``'s.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ import dataclasses
 import json
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -142,6 +149,12 @@ def export_serving(cfg: Config, state_dict, outdir: str, *,
     from gan_inpainting_torch.ops.kernels import build
 
     device = resolve_device(device)
+    if cfg.train.mesh.spatial > 1:
+        warnings.warn(
+            f"train.mesh.spatial={cfg.train.mesh.spatial} is not applied: an "
+            "AOT artifact runs each bucket's program whole on one device, "
+            "as the JAX package's does; serve row-sharded through the live "
+            "Inpainter", stacklevel=2)
     if buckets is None:
         buckets = [(b, cfg.data.image_size) for b in cfg.infer.batch_buckets]
     buckets = [(int(b), int(s)) for b, s in buckets]
@@ -192,6 +205,7 @@ def export_serving(cfg: Config, state_dict, outdir: str, *,
         "kernel_backend": {op: resolve_backend(cfg.model.kernel_backend, op)
                            for op in AUTO_CUDA},
         "buckets": [[b, s] for b, s in buckets],
+        "devices_per_program": 1,
         "formulation": formulation,
         "ops": ops,
         "packed": packed,

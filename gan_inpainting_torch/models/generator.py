@@ -19,6 +19,17 @@ and everything outside the stacks run whole on every member.
 ``model.remat_stages``: each stack runs under ``torch.utils.checkpoint``
 where a gradient is taken, its activations recomputed in the backward
 instead of kept (``nn.remat`` of each stack in the JAX package).
+
+Over the mesh's spatial axis (a ``spatial_group`` of n > 1, see
+parallel/spatial.py; serving only) the generator takes one row band of
+the request, and every activation stays a row band: each conv of every
+stack, the heads included, takes its halo from the neighbouring bands
+(models/layers.py), and contextual attention gathers the map it needs
+(ops/contextual_attention.py). Everything else is band-local as it
+stands — the concatenations, the pasted coarse result, the nearest 2×
+upsample, ``tanh`` — and so are ``downscale_mask_max(mask, 4)`` and
+``valid[:, ::4, ::4]`` because every band starts at a multiple of 4 rows
+(the caller's split, infer/inpaint.py).
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from gan_inpainting_torch.ops.contextual_attention import (
 )
 from gan_inpainting_torch.ops.dispatch import resolve_device
 from gan_inpainting_torch.parallel.sharding import ModelGroup
+from gan_inpainting_torch.parallel.spatial import ThreadSpatialGroup
 from gan_inpainting_torch.utils.dtypes import DTypePolicy
 
 
@@ -53,12 +65,14 @@ def _upsample2x(x: torch.Tensor) -> torch.Tensor:
 class _Stack(nn.Module):
     """A sequence of InpaintConvs (``conv0``, ``conv1``, …) threading the
     validity mask; with a ``model_group``, those whose output features are
-    a multiple of 8 are channel-sharded over it."""
+    a multiple of 8 are channel-sharded over it; with a ``spatial_group``
+    every one takes a row band."""
 
     def __init__(self, specs: Sequence[dict], in_features: int,
                  conv_kind: str, compute_dtype: torch.dtype,
                  fuse_upsample: bool = False, s2d_stem: bool = False,
                  backend: str = "auto", model_group: ModelGroup | None = None,
+                 spatial_group: ThreadSpatialGroup | None = None,
                  name: str = "body"):
         super().__init__()
         self.upsample: list[bool] = []
@@ -87,7 +101,8 @@ class _Stack(nn.Module):
                 cin, conv_kind=kind, compute_dtype=compute_dtype,
                 pre_upsample=fuse, s2d=s2d, backend=backend,
                 model_group=model_group if shard else None,
-                name=f"{name}.conv{i}", **spec))
+                spatial_group=spatial_group, name=f"{name}.conv{i}",
+                **spec))
             cin = spec["features"]
 
     def forward(self, x, valid=None):
@@ -151,7 +166,8 @@ class DilatedGenerator(nn.Module):
                  fuse_upsample: bool = False, s2d_stem: bool = False,
                  bf16_head: bool = False, backend: str = "auto",
                  model_group: ModelGroup | None = None,
-                 remat_stages: bool = False):
+                 remat_stages: bool = False,
+                 spatial_group: ThreadSpatialGroup | None = None):
         super().__init__()
         f = base_features
         self.bf16_head = bf16_head
@@ -159,7 +175,7 @@ class DilatedGenerator(nn.Module):
         self.body = _Stack(
             _encoder_specs(f) + _dilation_specs(f) + _decoder_specs(f), 4,
             conv_kind, compute_dtype, fuse_upsample, s2d_stem, backend,
-            model_group, "body")
+            model_group, spatial_group, "body")
 
     def forward(self, masked, mask) -> GeneratorOutput:
         x = torch.cat([masked, mask.to(masked.dtype)], -1)
@@ -177,10 +193,12 @@ class CoarseToFineGenerator(nn.Module):
                  fuse_upsample: bool = False, s2d_stem: bool = False,
                  bf16_head: bool = False, backend: str = "auto",
                  model_group: ModelGroup | None = None,
-                 remat_stages: bool = False):
+                 remat_stages: bool = False,
+                 spatial_group: ThreadSpatialGroup | None = None):
         super().__init__()
         f = base_features
         self.backend = backend
+        self.spatial_group = spatial_group
         self.remat_stages = remat_stages
         self.use_attention = use_attention
         self.attention_rate = attention_rate
@@ -191,7 +209,7 @@ class CoarseToFineGenerator(nn.Module):
         def stack(name, specs, cin):
             return _Stack(specs, cin, conv_kind, compute_dtype,
                           fuse_upsample, s2d_stem, backend, model_group,
-                          name)
+                          spatial_group, name)
 
         enc = _encoder_specs(f) + _dilation_specs(f)
         self.coarse = stack("coarse", enc + _decoder_specs(f), 4)
@@ -231,7 +249,8 @@ class CoarseToFineGenerator(nn.Module):
             xa = contextual_attention(
                 xa, xa, downscale_mask_max(mask, 4),
                 ksize=self.attention_ksize, rate=self.attention_rate,
-                softmax_scale=self.softmax_scale, backend=self.backend)
+                softmax_scale=self.softmax_scale, backend=self.backend,
+                spatial_group=self.spatial_group)
             xa, _ = _run(self.refine_attn_post, remat, xa,
                          valid[:, ::4, ::4, :])
             x2 = torch.cat([conv_branch, xa], -1)
@@ -243,7 +262,9 @@ class CoarseToFineGenerator(nn.Module):
 
 def build_generator(model_cfg, device: str | torch.device | None = None,
                     seed: int | None = 0, backend: str | None = None,
-                    model_group: ModelGroup | None = None) -> nn.Module:
+                    model_group: ModelGroup | None = None,
+                    spatial_group: ThreadSpatialGroup | None = None
+                    ) -> nn.Module:
     """The generator a ModelConfig describes, on ``device`` (CUDA unless
     the caller asks for another). Weights are drawn from ``seed`` with a
     ``torch.Generator``; load a state_dict over them to serve trained ones.
@@ -251,13 +272,16 @@ def build_generator(model_cfg, device: str | torch.device | None = None,
     With ``model_cfg.tp_shard`` and a ``model_group`` of more than one
     member, the stacks' convs are channel-sharded over it; the parameters
     stay whole either way. ``remat_stages`` checkpoints each stack where a
-    gradient is taken.
+    gradient is taken. With a ``spatial_group`` of more than one member it
+    serves one row band of each request (no gradient).
     """
     device = resolve_device(device)
     policy = DTypePolicy.from_name(model_cfg.dtype_policy)
     if not model_cfg.tp_shard or (model_group is not None
                                   and model_group.size == 1):
         model_group = None
+    if spatial_group is not None and spatial_group.size == 1:
+        spatial_group = None
     common = dict(
         base_features=model_cfg.base_features,
         conv_kind=model_cfg.conv_kind,
@@ -268,6 +292,7 @@ def build_generator(model_cfg, device: str | torch.device | None = None,
         backend=backend or model_cfg.kernel_backend,
         model_group=model_group,
         remat_stages=model_cfg.remat_stages,
+        spatial_group=spatial_group,
     )
     if model_cfg.generator == "dilated":
         gen = DilatedGenerator(**common)

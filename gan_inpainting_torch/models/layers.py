@@ -22,6 +22,28 @@ gradient is taken the slice is cut under autograd at every call (its
 gradient is the whole parameter's, zero off the member's rows); otherwise
 it is cut once per parameter version and kept, so that the gated-conv
 kernels keep one packed copy of it.
+
+Given a ``spatial_group`` (parallel/spatial.py), the layer takes one row
+band of the map, as a device of the JAX package's spatial axis holds one
+(GSPMD inserts the halo exchange there). Every conv kind, kernel and
+rewrite runs unchanged: the band is widened by the rows its window needs
+from the neighbours (:meth:`ThreadSpatialGroup.halo`, zeros beyond the
+map: TF-SAME's zeros), the op pads it TF-SAME as it pads a whole map, and
+the output rows that belong to the band are kept. Per form, on a band
+of h rows:
+
+* stride 1, window ``eff = (k − 1)·d + 1`` (the ``s2d`` stem included):
+  halo ``((eff − 1) // 2, eff // 2)``, keep ``[lo, lo + h)``;
+* 3×3 stride 2 on an even band: halo (0, 2), so that the op's own pad is
+  (0, 1) and output row j reads rows 2j..2j+2; keep the first h / 2;
+* ``pre_upsample``: halo (1, 1) at low resolution, keep output rows
+  ``[2, 2 + 2h)``;
+* partial convs halo ``valid`` as they halo ``x``; the window counts see
+  zeros beyond the map, as TF-SAME's do.
+
+Under both axes a member first takes its halo from its spatial peers
+(the same model index), then computes its channel slice and gathers it
+from its model peers (the same spatial index).
 """
 
 from __future__ import annotations
@@ -45,6 +67,7 @@ from gan_inpainting_torch.parallel.sharding import (
     gather_channels,
     reduce_input_grad,
 )
+from gan_inpainting_torch.parallel.spatial import ThreadSpatialGroup
 
 
 class InpaintConv(nn.Module):
@@ -58,6 +81,7 @@ class InpaintConv(nn.Module):
                  compute_dtype: torch.dtype = torch.bfloat16,
                  pre_upsample: bool = False, s2d: bool = False,
                  backend: str = "auto", model_group: ModelGroup | None = None,
+                 spatial_group: ThreadSpatialGroup | None = None,
                  name: str = "InpaintConv"):
         super().__init__()
         if conv_kind not in ("plain", "gated", "partial"):
@@ -86,6 +110,8 @@ class InpaintConv(nn.Module):
                 f"model axis of {model_group.size} (model.tp_shard shards "
                 "every conv whose features are a multiple of 8)")
         self.model_group = model_group
+        self.spatial_group = spatial_group
+        self._name = name
         self._kept_slice: tuple | None = None
         cout = 2 * features if conv_kind == "gated" else features
         self.weight = nn.Parameter(
@@ -132,13 +158,48 @@ class InpaintConv(nn.Module):
                                     self._cut(self.bias).clone())
         return self._kept_slice[1:]
 
+    def _band(self, rows: int) -> tuple[int, int, int, int]:
+        """(halo above, halo below, first kept output row, kept rows) of
+        this conv on a band of ``rows`` rows (module docstring)."""
+        if self.pre_upsample:
+            return 1, 1, 2, 2 * rows
+        eff = (self.kernel_size - 1) * self.dilation + 1
+        if self.stride == 1:
+            return (eff - 1) // 2, eff // 2, (eff - 1) // 2, rows
+        if self.stride == 2 and eff == 3 and rows % 2 == 0:
+            return 0, 2, 0, rows // 2
+        raise ValueError(
+            f"{self._name}: a {self.kernel_size}x{self.kernel_size} "
+            f"stride-{self.stride} dilation-{self.dilation} conv has no "
+            f"row-band form on a band of {rows} rows")
+
     def forward(self, x: torch.Tensor, valid: torch.Tensor | None = None):
+        band, valid_in = None, valid
+        if self.spatial_group is not None:
+            band = self._band(x.shape[1])
+            lo, hi, first, rows = band
+            if self.conv_kind == "partial":
+                if valid is None:
+                    valid = torch.ones(x.shape[:3] + (1,),
+                                       dtype=torch.float32, device=x.device)
+                valid_in = self.spatial_group.halo(valid, lo, hi)
+            else:
+                valid_in = None
+            x = self.spatial_group.halo(x, lo, hi)
         if self.model_group is None:
-            return self._conv(x, valid, self.weight, self.bias)
-        weight, bias = self._member_params()
-        y, valid = self._conv(reduce_input_grad(x, self.model_group), valid,
-                              weight, bias)
-        return gather_channels(y, self.model_group), valid
+            weight, bias = self.weight, self.bias
+        else:
+            weight, bias = self._member_params()
+            x = reduce_input_grad(x, self.model_group)
+        y, valid_out = self._conv(x, valid_in, weight, bias)
+        if band is not None:
+            y = y[:, first:first + rows]
+            valid_out = (valid_out[:, first:first + rows]
+                         if self.conv_kind == "partial"
+                         else _resize_valid(valid, self.stride))
+        if self.model_group is not None:
+            y = gather_channels(y, self.model_group)
+        return y, valid_out
 
     def _conv(self, x: torch.Tensor, valid: torch.Tensor | None,
               weight: torch.Tensor, bias: torch.Tensor):

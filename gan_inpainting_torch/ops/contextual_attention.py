@@ -38,6 +38,25 @@ Under the ``xla`` backend on any device, and where a gradient is wanted
 of a CPU tensor, it runs the plain composition below, which materializes
 the patches and the (Lq, Lk) score matrix and is differentiated by
 autograd.
+
+Over the mesh's spatial axis (a ``spatial_group`` of n > 1 members, each
+holding one row band of h rows, parallel/spatial.py; serving only) the op
+is the JAX package's ``_spatial_attention``
+(gan_inpainting_tpu/ops/contextual_attention.py:210-300) where every band
+holds whole query-cell rows, ``h % rate == 0`` (:func:`spatial_shardable`,
+the JAX ``(H / rate) % n == 0``; its batch and channel conditions do not
+apply: the port splits the batch before the group and gathers channels
+after every sharded conv): gather the map and the hole mask, build K, V
+and key validity from the whole map (a band's own mask would misjudge
+keys at its edges) and Q for the band's own cell rows, attend with the
+patch-attention kernel (Lq = Lk / n; the plain dense attention under
+``xla``), overlap-add onto the band and the rows it spills into
+(:func:`~gan_inpainting_torch.ops.patches.fold_band`), add the
+neighbours' spill (``add_spill``, the JAX ``psum_scatter``) and divide
+by the whole map's overlap counts. Elsewhere it gathers the map, runs
+the op as one device would (its own routing, the fused kernels
+included) and keeps the band: the JAX package runs XLA's dense attention
+there, the same math.
 """
 
 from __future__ import annotations
@@ -55,7 +74,11 @@ from gan_inpainting_torch.ops.kernels.patch_attention import (
     attend,
     patch_attention_plain,
 )
-from gan_inpainting_torch.ops.patches import extract_patches, fold_patches
+from gan_inpainting_torch.ops.patches import (
+    extract_patches,
+    fold_band,
+    fold_patches,
+)
 
 NEG_INF = -1e9
 
@@ -195,18 +218,25 @@ class _FusedAttention(torch.autograd.Function):
 
 
 def contextual_attention(f, b, hole_mask, *, ksize: int = 3, rate: int = 2,
-                         softmax_scale: float = 10.0,
-                         backend: str = "auto") -> torch.Tensor:
+                         softmax_scale: float = 10.0, backend: str = "auto",
+                         spatial_group=None) -> torch.Tensor:
     """Contextual attention.
 
     Args:
       f: (B, H, W, C) foreground features (queries; typically ``is b``).
       b: (B, H, W, C) background features (keys/values).
       hole_mask: (B, H, W, 1), 1 = hole. Keys inside the hole are excluded.
+      spatial_group: a ``ThreadSpatialGroup``; with more than one member,
+        f, b and hole_mask are this member's row band of the map, and so
+        is the result (module docstring).
 
     Returns:
       (B, H, W, C) attended features, in f's dtype.
     """
+    if spatial_group is not None and spatial_group.size > 1:
+        return _spatial_attention(f, b, hole_mask, ksize=ksize, rate=rate,
+                                  softmax_scale=softmax_scale,
+                                  backend=backend, group=spatial_group)
     backend = resolve_backend(backend, op="contextual_attention")
     backward = torch.is_grad_enabled() and b.requires_grad
     if backend == "xla" or (backward and not (interpreting()
@@ -233,3 +263,46 @@ def contextual_attention(f, b, hole_mask, *, ksize: int = 3, rate: int = 2,
     taps = fused_attention_taps(b, hole_mask, ksize=ksize, rate=rate,
                                 softmax_scale=softmax_scale)
     return fold_taps(taps, h // rate, w // rate, rate).to(f.dtype)
+
+
+def spatial_shardable(band_rows: int, rate: int) -> bool:
+    """The row-sharded route holds where every band of ``band_rows`` rows
+    holds whole query-cell rows: the JAX ``(H / rate) % n == 0``."""
+    return band_rows % rate == 0
+
+
+def _spatial_attention(f, b, hole_mask, *, ksize: int, rate: int,
+                       softmax_scale: float, backend: str, group):
+    """The op on this member's row band (B, h, W, C) of a map of n·h rows
+    (module docstring): the counterpart of the JAX package's
+    ``_spatial_attention``."""
+    bsz, bh, w, c = f.shape
+    n, i = group.size, group.index
+    b_full = group.gather_rows(b)
+    f_full = b_full if f is b else group.gather_rows(f)
+    m_full = group.gather_rows(hole_mask)
+    if not spatial_shardable(bh, rate):
+        y = contextual_attention(f_full, b_full, m_full, ksize=ksize,
+                                 rate=rate, softmax_scale=softmax_scale,
+                                 backend=backend)
+        return y[:, i * bh:(i + 1) * bh]
+    q, k, key_valid, v, (hs, ws) = _attention_inputs(f_full, b_full, m_full,
+                                                     ksize, rate)
+    hb = bh // rate
+    # this band's query-cell rows, a tensor of their own (the kernel's
+    # TMA descriptor takes a contiguous, aligned block)
+    q = q.reshape(bsz, hs, ws, -1)[:, i * hb:(i + 1) * hb].reshape(
+        bsz, hb * ws, -1).clone(memory_format=torch.contiguous_format)
+    if resolve_backend(backend, op="contextual_attention") == "pallas":
+        yp = attend(q, k, key_valid, v, softmax_scale)
+    else:
+        yp = patch_attention_plain(q, k, key_valid, v,
+                                   softmax_scale=softmax_scale)
+    ext, (up, down) = fold_band(
+        yp.reshape(bsz, hb, ws, 2 * rate, 2 * rate, c), rate, w)
+    y = group.add_spill(ext, up, down)
+    # the whole map's overlap counts on this band (geometry only)
+    _, cnt = fold_patches(yp.new_zeros((1, hs, ws, 2 * rate, 2 * rate, 1)),
+                          rate, (n * bh, w))
+    cnt = cnt[i * bh:(i + 1) * bh]
+    return (y / torch.clamp(cnt, min=1.0).to(y.dtype)).to(f.dtype)

@@ -57,3 +57,36 @@ def fold_patches(patches: torch.Tensor, stride: int,
     out = out[:, ph[0]:ph[0] + h, pw[0]:pw[0] + w, :]
     cnt = cnt[ph[0]:ph[0] + h, pw[0]:pw[0] + w, :]
     return out, cnt
+
+
+def fold_band(patches: torch.Tensor, stride: int,
+              width: int) -> tuple[torch.Tensor, tuple[int, int]]:
+    """Overlap-add of one row band's patches, rows uncropped: the band's
+    share of :func:`fold_patches` on a map whose rows split into bands of
+    ``stride``-aligned cells.
+
+    ``patches`` (B, hb, W/stride, k, k, C) are the patches of cell rows
+    ``[i0, i0 + hb)``; returns their (B, pad_lo + hb·stride + pad_hi,
+    width, C) sum, whose row 0 is map row ``i0·stride − pad_lo``, and
+    ``(pad_lo, pad_hi)``, the map's TF-SAME row pads: the rows the band
+    spills above and below its own ``hb·stride`` rows. Columns are
+    cropped as :func:`fold_patches` crops them. At k = 2·stride (the
+    attention's value patches) the pads are (stride // 2, stride −
+    stride // 2), one row each way at stride 2. Counts are the caller's:
+    they are the whole map's, not the band's."""
+    b, hb, wo, k, k2, c = patches.shape
+    if k != k2:
+        raise ValueError(f"patches must be square, got {k}x{k2}")
+    pads = same_pads(hb * stride, k, stride)
+    if pads[0] + pads[1] != k - stride:
+        raise ValueError(f"fold_band needs a window of at least the stride "
+                         f"({k} < {stride})")
+    pw = same_pads(width, k, stride)
+    out = patches.new_zeros((b, (hb - 1) * stride + k,
+                             width + pw[0] + pw[1], c))
+    for p in range(k):
+        for q in range(k):
+            rs = slice(p, p + (hb - 1) * stride + 1, stride)
+            cs = slice(q, q + (wo - 1) * stride + 1, stride)
+            out[:, rs, cs, :] += patches[:, :, :, p, q, :]
+    return out[:, :, pw[0]:pw[0] + width, :], pads

@@ -4,21 +4,26 @@ of it.
 ``MeshConfig`` keeps the JAX package's fields and :meth:`MeshConfig.resolve`
 its semantics letter for letter, so a config embedded in an export parses
 and means the same thing in both packages. The port runs the ``data`` and
-``model`` axes, laid out as the JAX package lays out its devices
-(``devices.reshape(data, model, spatial)``): the model index varies
-fastest, so device (or rank) ``r`` has data index ``r // model`` and model
-index ``r % model``, and the members of one model group are neighbours.
+``model`` axes in training and serving, and the ``spatial`` axis in
+serving, laid out as the JAX package lays out its devices
+(``devices.reshape(data, model, spatial)``): the spatial index varies
+fastest, then the model index, so device ``r`` has data index
+``r // (model·spatial)``, model index ``(r // spatial) % model`` and
+spatial index ``r % spatial``. At ``spatial = 1`` that is model index
+fastest, and the members of one model group are neighbours.
 
 * training resolves the mesh over the world size, one process per card as
   ``torchrun`` launches it (:func:`train_mesh`); ``data × model`` must be
   the world size, since a rank outside the mesh would idle;
 * serving resolves it over the local cards or an explicit device list
   (:func:`build_mesh`); an explicit ``data = n`` takes the first
-  ``n × model``, as the JAX package's device prefix does.
+  ``n × model × spatial``, as the JAX package's device prefix does. Each
+  data index is one replica: a group of ``model × spatial`` devices
+  (:attr:`Mesh.groups`), member ``r`` of a group at model index
+  ``r // spatial`` and spatial index ``r % spatial``.
 
-``spatial`` above 1 raises ``NotImplementedError`` in both places: the
-spatial axis (row-sharded attention and conv halos) is ROADMAP Queue 1
-item 2.
+``spatial`` above 1 raises ``NotImplementedError`` in training: training
+and evaluating over the spatial axis are ROADMAP Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
-_SPATIAL = "ROADMAP Queue 1 item 2, the spatial axis"
+_SPATIAL_TRAINING = ("ROADMAP Queue 1 item 3, training and evaluating over "
+                     "the spatial axis")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,9 +62,9 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A resolved mesh: its axis sizes and the ``data × model`` devices it
-    covers, in mesh order (the ranks, for training): model index
-    fastest."""
+    """A resolved mesh: its axis sizes and the ``data × model × spatial``
+    devices it covers, in mesh order (the ranks, for training): spatial
+    index fastest, then model."""
 
     data: int
     model: int
@@ -67,8 +73,10 @@ class Mesh:
 
     @property
     def groups(self) -> tuple[tuple, ...]:
-        """The devices of each data index: one model group each."""
-        n = self.model
+        """The devices of each data index: one group of ``model ×
+        spatial`` each, member ``r`` at model index ``r // spatial`` and
+        spatial index ``r % spatial``."""
+        n = self.model * self.spatial
         return tuple(self.devices[i * n:(i + 1) * n]
                      for i in range(self.data))
 
@@ -76,19 +84,17 @@ class Mesh:
 def build_mesh(config: MeshConfig, devices: Sequence) -> Mesh:
     """Resolve ``config`` over ``devices`` (a smaller explicit ``data``
     takes their prefix). Raises ``ValueError`` as :meth:`MeshConfig.resolve`
-    does and ``NotImplementedError`` for ``spatial`` above 1."""
-    if config.spatial > 1:
-        raise NotImplementedError(
-            f"mesh spatial={config.spatial}: the PyTorch port runs the data "
-            f"and model axes; the spatial axis awaits {_SPATIAL}")
+    does."""
     devices = tuple(devices)
     data, model, spatial = config.resolve(len(devices))
-    return Mesh(data, model, spatial, devices[:data * model])
+    return Mesh(data, model, spatial, devices[:data * model * spatial])
 
 
 def train_mesh(config: MeshConfig, world: int) -> Mesh:
     """The training mesh over ``world`` ranks: ``data × model`` must be
-    every rank, so ``data`` other than -1 or ``world / model`` raises."""
+    every rank, so ``data`` other than -1 or ``world / model`` raises;
+    ``spatial`` above 1 raises ``NotImplementedError``."""
+    refuse_spatial(config, "train")
     mesh = build_mesh(config, range(world))
     if mesh.data * mesh.model != world:
         raise ValueError(
@@ -97,3 +103,13 @@ def train_mesh(config: MeshConfig, world: int) -> Mesh:
             f"{world // mesh.model} (launch with torchrun --nproc-per-node "
             f"{mesh.data * mesh.model})")
     return mesh
+
+
+def refuse_spatial(config: MeshConfig, what: str) -> None:
+    """``NotImplementedError`` for a ``spatial`` axis above 1: the port
+    serves over it, but ``what`` (train, evaluate) does not run on it."""
+    if config.spatial > 1:
+        raise NotImplementedError(
+            f"train.mesh.spatial={config.spatial}: the PyTorch port serves "
+            f"over the spatial axis (Inpainter) but cannot {what} over it "
+            f"yet; that is {_SPATIAL_TRAINING}")

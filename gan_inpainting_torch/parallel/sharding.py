@@ -36,7 +36,8 @@ numbers. :func:`use_mesh` makes both kinds of group, on every rank in
 the same order. A model group in one process, one thread per member on cards
 of its own (or sharing one), is a :class:`ThreadModelGroup`: serving
 over a group of cards (infer/inpaint.py) exchanges the slices by peer
-copies, with no ``torch.distributed``.
+copies, with no ``torch.distributed``; the spatial axis's row exchanges
+(parallel/spatial.py) sit on the same :class:`_Exchange`.
 
 Only ``all_reduce``, ``broadcast`` and ``barrier`` are used. NCCL takes
 them between cards, and gloo takes them on CUDA tensors too (staged
@@ -53,7 +54,7 @@ a group of one each still issues its collective, whose result equals its
 input. ``counts`` counts the gradient reduces (``all_reduce_mean_``, the
 run's record logs it as ``grad_all_reduces``), the channel gathers and the
 bytes of their buffers, the input-gradient reduces and the model group's
-gradient reduces.
+gradient reduces, and the spatial axis's exchanges and their bytes.
 """
 
 from __future__ import annotations
@@ -73,8 +74,14 @@ BUCKET_BYTES = 64 << 20           # largest flat buffer per collective
 counts: dict[str, int] = {"all_reduce_mean_": 0, "channel_gathers": 0,
                           "channel_gather_bytes": 0,
                           "input_grad_all_reduces": 0,
-                          "model_grad_reduces": 0}
-_counts_lock = threading.Lock()   # the members of a ThreadModelGroup
+                          "model_grad_reduces": 0,
+                          # the spatial axis (parallel/spatial.py): bytes
+                          # each member takes from the others
+                          "halo_exchanges": 0, "halo_bytes": 0,
+                          "row_gathers": 0, "row_gather_bytes": 0,
+                          "spill_adds": 0, "spill_bytes": 0,
+                          "unsharded_forwards": 0}
+_counts_lock = threading.Lock()   # the members of a thread group
 
 
 def _count(name: str, n: int = 1) -> None:
@@ -125,9 +132,29 @@ class ProcessModelGroup(ModelGroup):
 
 
 class _Exchange:
+    """The slots and barrier of a group of threads: :meth:`combine` posts
+    a member's tensor, waits for every member, applies ``fn`` to every
+    member's post and waits again, so no member overwrites a slot another
+    still reads. The barrier's ``timeout`` (seconds) bounds a wait;
+    :meth:`abort` releases the waiting members with an error."""
+
     def __init__(self, n: int, timeout: float):
         self.slots: list = [None] * n
         self.barrier = threading.Barrier(n, timeout=timeout)
+
+    def combine(self, index: int, t, fn):
+        self.slots[index] = t
+        self.barrier.wait()
+        out = fn(self.slots)
+        self.barrier.wait()
+        return out
+
+    def abort(self) -> None:
+        self.barrier.abort()
+
+    def reset(self) -> None:
+        self.slots[:] = [None] * len(self.slots)
+        self.barrier.reset()
 
 
 class ThreadModelGroup(ModelGroup):
@@ -150,12 +177,9 @@ class ThreadModelGroup(ModelGroup):
         return [cls(ex, i) for i in range(n)]
 
     def _combine(self, t: torch.Tensor, combine):
-        ex = self.exchange
-        ex.slots[self.index] = t
-        ex.barrier.wait()
-        out = combine([s.to(t.device) for s in ex.slots])
-        ex.barrier.wait()
-        return out
+        return self.exchange.combine(
+            self.index, t, lambda slots: combine([s.to(t.device)
+                                                   for s in slots]))
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         out = self._combine(t, lambda parts: torch.cat(parts, -1))
@@ -172,11 +196,10 @@ class ThreadModelGroup(ModelGroup):
         t.copy_(self._combine(t, total))
 
     def abort(self) -> None:
-        self.exchange.barrier.abort()
+        self.exchange.abort()
 
     def reset(self) -> None:
-        self.exchange.slots[:] = [None] * self.size
-        self.exchange.barrier.reset()
+        self.exchange.reset()
 
 
 class _Axes(NamedTuple):

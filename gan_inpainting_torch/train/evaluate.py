@@ -14,6 +14,7 @@ from gan_inpainting_torch.metrics.image import psnr, ssim
 from gan_inpainting_torch.metrics.swd import swd
 from gan_inpainting_torch.models.generator import build_generator
 from gan_inpainting_torch.ops.dispatch import resolve_device
+from gan_inpainting_torch.parallel.mesh import refuse_spatial
 from gan_inpainting_torch.parallel.multihost import (
     data_index,
     data_size,
@@ -79,6 +80,7 @@ def evaluate(cfg: Config, g_state_dict, seed: int = 0, eval_step=None,
     the SWD pools the first ⌈cap / data⌉ composites of each data index,
     gathered in data order and cut to the cap. Every rank returns the same
     numbers."""
+    refuse_spatial(cfg.train.mesh, "evaluate")
     device = resolve_device(device)
     use_mesh(cfg.train.mesh)
     if eval_step is None:

@@ -136,7 +136,8 @@ def create_state(cfg: Config, seed: int | None = None,
     ``device`` (CUDA unless the caller asks for another), equal on every
     rank. ``train.mesh`` must cover the world as ``data × model``
     (``ValueError`` otherwise; ``NotImplementedError`` for a spatial axis,
-    see ``parallel/mesh.py``); with ``model.tp_shard`` the generator is
+    which the port serves over but does not train over yet:
+    ``parallel/mesh.py``); with ``model.tp_shard`` the generator is
     channel-sharded over this rank's model group (``use_mesh``), its
     parameters whole."""
     train_mesh(cfg.train.mesh, world())

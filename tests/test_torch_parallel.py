@@ -338,8 +338,8 @@ def _assert_same(a: dict, b: dict, what: str):
 def test_mesh_resolve_matches_jax(mesh, n, want):
     """The cases of tests/distributed/test_mesh_parity.py::
     test_mesh_construction through both packages' ``resolve``; the port
-    builds every mesh without a spatial axis, its devices the first
-    data × model in order."""
+    builds every mesh for serving, its devices the first data × model ×
+    spatial in order, and refuses to train over a spatial axis."""
     from gan_inpainting_tpu.parallel.mesh import MeshConfig as JMeshConfig
 
     if want is ValueError:
@@ -350,13 +350,12 @@ def test_mesh_resolve_matches_jax(mesh, n, want):
     assert MeshConfig(**mesh).resolve(n) == JMeshConfig(**mesh).resolve(n) \
         == want
     devices = [torch.device("cpu")] * n
-    if want[2] == 1:
-        built = build_mesh(MeshConfig(**mesh), devices)
-        assert (built.data, len(built.devices)) == (want[0],
-                                                    want[0] * want[1])
-    else:
+    built = build_mesh(MeshConfig(**mesh), devices)
+    assert (built.data, len(built.devices)) == (
+        want[0], want[0] * want[1] * want[2])
+    if want[2] > 1:
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            build_mesh(MeshConfig(**mesh), devices)
+            train_mesh(MeshConfig(**mesh), n)
 
 
 def test_process_batch_slice_one_process(monkeypatch):

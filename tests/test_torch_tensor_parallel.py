@@ -318,35 +318,34 @@ def _close(a: dict, b: dict, rel: float, parts=("g_params", "d_params",
     (dict(data=-1, model=4), 8, ((0, 1, 2, 3), (4, 5, 6, 7))),
     (dict(data=5, model=2), 8, ValueError),
     (dict(data=-1, model=3), 8, ValueError),
-    (dict(data=-1, model=2, spatial=2), 8, NotImplementedError),
+    (dict(data=-1, model=2, spatial=2), 8, ((0, 1, 2, 3), (4, 5, 6, 7))),
 ], ids=["model2", "prefix", "model4", "too_big", "model_not_dividing",
         "spatial"])
 def test_model_axis_mesh_matches_jax(mesh, n, want):
     """build_mesh with a model axis against the JAX package's: the same
-    axis sizes and the same devices in each model group (its devices
-    reshaped to (data, model, spatial)); the JAX ValueErrors; the spatial
-    axis still raises, naming its ROADMAP item."""
+    axis sizes and the same devices in each group of a data index (its
+    devices reshaped to (data, model, spatial)); the JAX ValueErrors; with
+    a spatial axis each group holds model × spatial devices, spatial
+    index fastest."""
     import jax
 
     from gan_inpainting_tpu.parallel.mesh import MeshConfig as JMesh
     from gan_inpainting_tpu.parallel.mesh import build_mesh as j_build_mesh
 
     if isinstance(want, type):
-        with pytest.raises(want, match="ROADMAP Queue 1 item 2"
-                           if want is NotImplementedError else None):
+        with pytest.raises(want):
             build_mesh(MeshConfig(**mesh), range(n))
-        if want is ValueError:
-            with pytest.raises(ValueError):
-                j_build_mesh(JMesh(**mesh), devices=jax.devices()[:n])
+        with pytest.raises(ValueError):
+            j_build_mesh(JMesh(**mesh), devices=jax.devices()[:n])
         return
     built = build_mesh(MeshConfig(**mesh), range(n))
     assert built.groups == want
     jmesh = j_build_mesh(JMesh(**mesh), devices=jax.devices()[:n])
     ids = {d.id: i for i, d in enumerate(jax.devices()[:n])}
-    jgroups = tuple(tuple(ids[d.id] for d in row[:, 0])
+    jgroups = tuple(tuple(ids[d.id] for d in row.reshape(-1))
                     for row in jmesh.devices)
     assert jgroups == want
-    assert (built.data, built.model) == jmesh.devices.shape[:2]
+    assert (built.data, built.model, built.spatial) == jmesh.devices.shape
 
 
 def test_train_mesh_with_a_model_axis():

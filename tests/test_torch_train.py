@@ -373,8 +373,8 @@ def test_mesh_above_one_device_raises(tiny_config, tmp_path, mesh):
     """A ``train.mesh`` the run cannot hold raises in ``create_state`` and
     ``train`` instead of training on fewer cards without a word: in one
     process ``data = 2`` fails the world-size check and ``model = 2`` the
-    mesh's divisibility (launch two ranks for either); the spatial axis is
-    not ported. ``data = -1`` (every rank) trains. Serving an npz whose
+    mesh's divisibility (launch two ranks for either); the spatial axis
+    serves but does not train yet. ``data = -1`` (every rank) trains. Serving an npz whose
     config carries a mesh is not affected."""
     from gan_inpainting_torch.train.loop import train
 
@@ -387,7 +387,7 @@ def test_mesh_above_one_device_raises(tiny_config, tmp_path, mesh):
     err, match = {
         "data=2": (ValueError, "needs more than the 1"),
         "model=2": (ValueError, "not divisible by model"),
-        "spatial=4": (NotImplementedError, "ROADMAP Queue 1 item 2"),
+        "spatial=4": (NotImplementedError, "ROADMAP Queue 1 item 3"),
     }[mesh]
     for fn in (lambda: create_state(cfg, device="cpu"),
                lambda: train(cfg, device="cpu", verbose=False)):
