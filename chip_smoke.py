@@ -65,7 +65,8 @@ Phases (each prints its lines; any failure exits non-zero):
    fused forward whose backward plan does not hold, its gradient through
    the patch kernels against the plain gradient;
 8. the serving tier: the pinned generator under ``serve_v4_8``'s model
-   config and its batch (1, 8, 16, 32, 64, 256) and size (256, 512)
+   config and its batch (1, 8, 16, 32, 64; its 256 cut, which no traffic
+   of this phase reaches) and size (256, 512)
    buckets (full width, bf16) behind ``InpaintService``, once its
    dispatcher thread has warmed every bucket (``ready()``) — 16
    closed-loop clients, as ``tools/load_serve.py`` drives the service,
@@ -126,13 +127,13 @@ Phases (each prints its lines; any failure exits non-zero):
    attention and fold, the gated convs under ``pallas``, the partial
    epilogue, the patch forward at 2048², each > 0); start-up (construction
    to the end of the warm-up of the three serve_v4_8 buckets), artifact
-   and live, each in a fresh process; img/s at 64×256² (over ≥ 2.5 s) and
-   the 1×256² latency (over 100 requests), artifact against live, in
+   and live, each in a fresh process; img/s at 64×256² (over ≥ 1.5 s) and
+   the 1×256² latency (over 50 requests), artifact against live, in
    turns; ``InpaintService`` over an artifact (32 mixed 256²/512² requests
    from concurrent clients, fewer dispatches); a ``cpu`` artifact and a
    stale kernel build refused on the card;
 12. the mesh's model axis (``train.mesh.model=2 model.tp_shard=true``):
-   (a) ``places512_deepfill`` at full width, bf16, ``auto``, 3 steps over
+   (a) ``places512_deepfill`` at full width, bf16, ``auto``, 2 steps over
    one model group of two gloo ranks sharing cuda:0 (global batch cut
    from 8 to 2: every gather goes through the host under gloo) — the
    ranks bit-identical after each step, losses and parameters against
@@ -154,8 +155,8 @@ Phases (each prints its lines; any failure exits non-zero):
    and 4 members sharing cuda:0 against the whole map on one device
    (known pixels bit-exact, hole pixels within ±2 on ≥ 99.9 %, one
    patch-attention forward per member at Lq = Lk / n and no fused
-   attention, the row exchanges and their bytes, ms per request of
-   each in turns, peak memory); (b) the patch-attention forward (row 9)
+   attention, the row exchanges and their bytes, peak memory; ms per
+   request of the whole map and the group of 2 in turns); (b) the patch-attention forward (row 9)
    at a member's shapes, B 1 Lq 32 768 Lk 65 536 and B 8 Lq 512 Lk 1024,
    against its plain version (over chunks of query rows), with its time,
    the plain version's, SDPA's and the bound; (c) serve_v4_8 at 8×256²
@@ -163,17 +164,29 @@ Phases (each prints its lines; any failure exits non-zero):
    ``auto`` and ``pallas`` (bf16) and a float32 1×512² pair, with
    launches per forward of rows 1–3, 6–7 and 9 and ms per batch in
    turns;
-14. one JSON line of per-kernel numbers (with the service's under
+14. path J, training and evaluating over the mesh's spatial axis: (a)
+   path C's ``places512_deepfill`` 1×2048² bf16 run (the same seed, state
+   and two batches, from step 0 with the lazy R1) over a spatial group of
+   two gloo ranks sharing cuda:0, each on one row band, against path C's
+   own figures (metrics and G parameters within stated tolerances, rows
+   9–11 launched 2 / 1 / 1 times per step on every rank, ms per step, the
+   exchanges and their bytes per step, peak memory per rank); (b) the
+   patch dQ and dK/dV kernels (rows 10, 11) at a member's shapes, B 1 Lq
+   32 768 Lk 65 536, against their plain versions over chunks of query
+   rows, with their times, the plain backward's, SDPA's autograd
+   backward and the bounds; (c) ``evaluate`` (float32, 256², two batches)
+   over the group against one process;
+15. one JSON line of per-kernel numbers (with the service's under
    ``"service"``, phase 9's under ``"file_data"``, phase 10's under
    ``"data_parallel"``, phase 11's under ``"aot"``, phase 12's under
-   ``"model_axis"`` and phase 13's under ``"spatial_axis"``), then the
-   result line.
+   ``"model_axis"``, phase 13's under ``"spatial_axis"`` and phase 14's
+   under ``"spatial_training"``), then the result line.
 
 Phase 2 also holds the three patch-attention kernels (forward, dQ, dK/dV)
 against their plain versions at the full widths (d 1728, dv 3072) at L
-16 384 and, over chunks of query rows, L 65 536, at an odd shape and
-through contextual attention with f ≠ b, in float32 and bfloat16, each
-with a sample that has no valid key; the bf16 forward (and its lse) and
+16 384 and, over chunks of query rows, L 65 536 (bfloat16 only), at an
+odd shape and through contextual attention with f ≠ b, in float32 and
+bfloat16, each with a sample that has no valid key; the bf16 forward (and its lse) and
 the bf16 dQ and dK/dV at ragged L 1000 and 4097, d 200, dv 300; and times
 the fused and the patch route where both hold. The fused forward's lse is held against the plain
 one (1e-3) at the 256² and 512² shapes.
@@ -196,9 +209,12 @@ NPZ = "docs/artifacts/tex256_attn/generator_best.npz"
 SERVE_OVERRIDES = ["model.fuse_upsample=true",
                    "infer.size_buckets=256,512",
                    "infer.batch_buckets=1,8,64"]
-# phase 8 serves under serve_v4_8's own batch and size buckets
-SERVE_V4_8 = SERVE_OVERRIDES[:2] + ["infer.batch_buckets=1,8,16,32,64,256"]
-SERVICE_WINDOW_S = 5.0        # each closed-loop window of phase 8's rates
+# phase 8 serves under serve_v4_8's own batch and size buckets, all but
+# the batch of 256: at most 64 clients are in flight, so no dispatch
+# reaches it, and its warm-up (cuDNN's search at 256×512²) was cut to keep
+# the script inside its time limit
+SERVE_V4_8 = SERVE_OVERRIDES[:2] + ["infer.batch_buckets=1,8,16,32,64"]
+SERVICE_WINDOW_S = 3.0        # each closed-loop window of phase 8's rates
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, SXM, 700 W
 H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12    # HBM3
@@ -1966,7 +1982,7 @@ def check_patch_kernels(torch, smi):
     """Phase 2, patch attention: the forward, dQ and dK/dV kernels against
     their plain versions at the full widths (d 1728, dv 3072) at L 4096 B 8
     (the 512² train shape), L 16 384 and, over chunks of query rows,
-    L 65 536; the forward at L 4096 B 64 (the 512² serve bucket); the bf16
+    L 65 536 (bf16); the forward at L 4096 B 64 (the 512² serve bucket); the bf16
     kernels at ragged shapes; an odd shape; an f ≠ b map;
     each with a sample that has no valid key; times at L 16 384 (kernel,
     plain, SDPA) and L 65 536 (kernel) with every sample live, bounds from
@@ -1998,6 +2014,11 @@ def check_patch_kernels(torch, smi):
     for dtype in (f32, bf16):
         for name, (b, lq) in (("L4096", (8, 4096)), ("L16384", (2, 16384)),
                               ("L65536", (2, 65536)), ("odd", (2, 1000))):
+            if name == "L65536" and dtype == f32:
+                # float32 runs no 2048² path (its CUDA-core kernels are
+                # held at L 4096 and 16 384): cut to keep the script
+                # inside its time limit
+                continue
             dd, ddv = (36, 64) if name == "odd" else (d, dv)
             q, k, v, g, valid = _patch_inputs(torch, lq + len(name), b, lq,
                                               lq, dd, ddv, dtype)
@@ -2218,8 +2239,9 @@ def compare_routes(torch, smi, maps=((64, 64), (64, 128), (128, 128),
     maps of L = 1024, 2048, 4096, 8192 and 16 384 cells at rate 2: the 256²
     image, a 256×512 one, the 512² image, a 512×1024 one and the 1024²
     one), time both, forward without gradient
-    and forward + backward in bf16, the forward in float32, taken in turns
-    (fused, patch, patch, fused)."""
+    and forward + backward in bf16, the forward in float32 up to L 4096
+    (past its threshold of 2048), taken in turns (fused, patch, patch,
+    fused); the route the op takes at every L in both."""
     from gan_inpainting_torch.ops import dispatch
     from gan_inpainting_torch.ops.contextual_attention import (
         _FusedAttention,
@@ -2279,6 +2301,11 @@ def compare_routes(torch, smi, maps=((64, 64), (64, 128), (128, 128),
                      f"contextual attention took the {took} route at L "
                      f"{cells}")
             with_bwd = dtype == torch.bfloat16
+            if not with_bwd and cells > 2 * FUSED_MAX_CELLS_F32:
+                # float32 timed where its threshold is decided (the fused
+                # forward at L 16 384 takes ≈ 3.7 s a call): cut to keep
+                # the script inside its time limit
+                continue
             diff = (fwd("fused").float() - fwd("patch").float()).abs().max() \
                 .item()
             times = {k: [] for k in ("fused_fwd", "patch_fwd", "fused_train",
@@ -2443,6 +2470,13 @@ def _path_c_train(torch, smi):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     res = dict(train_step_ms=step_ms, train_launches=train_launches,
                train_peak_gib=peak, metrics_step1=history[-1])
+    # phase 14 trains the same state on the same batches over the spatial
+    # axis: its reference (left out of the JSON line)
+    res["_spatial_ref"] = dict(
+        batches=[tuple(t.cpu() for t in b) for b in batches[:n_steps]],
+        metrics=history, step_ms=step_ms, peak_gib=peak,
+        g_params={k: v.float().cpu() for k, v in
+                  state.generator.state_dict().items()})
     print(f"[7] path C train places512_deepfill 1x2048² bf16, 2 steps from "
           f"step 0: metrics finite, step 1 {history[-1]}; launches "
           f"{train_launches}; |Δ| G {moved:.4g}; attention-branch gradient "
@@ -3710,8 +3744,8 @@ AOT_KERNELS = ("contextual_attention_fused", "fold_taps", "gated_conv_direct",
 # phase 11's rates, artifact against live in turns: img/s at 64×256² over a
 # window of at least this many seconds, and the 1×256² latency over this
 # many requests
-AOT_RATE_WINDOW_S = 2.5
-AOT_LATENCY_REQUESTS = 100
+AOT_RATE_WINDOW_S = 1.5
+AOT_LATENCY_REQUESTS = 50
 
 
 def _aot_start(kind: str, path: str) -> None:
@@ -4103,7 +4137,7 @@ MA_MODEL2 = ["train.mesh.model=2", "model.tp_shard=true"]
 # ranks on cuda:0, bf16 under auto. The global batch is cut from 8 to 2:
 # under gloo every gather and input-gradient reduce is staged through the
 # host (≈ 0.8 GB of gathers per forward at batch 2)
-MA_STEPS = 3
+MA_STEPS = 2                  # 3 until [14] was added: the time limit
 MA_TRAIN = TRAIN_512 + ["data.batch_size=2"]
 # (a) the group's steps against one process on the same batches, both
 # bf16: per metric |a − b| ≤ MA_METRIC_TOL · max(|b|, 1) (bf16 activations
@@ -4524,6 +4558,10 @@ def model_axis(torch, rng, smi):
 SP_2048 = ["model.fuse_upsample=true", "infer.size_buckets=256,512,2048",
            "infer.batch_buckets=1"]
 SP_GROUPS = (2, 4)
+# the groups whose ms per request is taken in turns against the whole map:
+# not the group of 4, whose turns would take the script past its time
+# limit since [14] (its check, launches and exchanges stay)
+SP_TIMED = (2,)
 # the kernels of PERF.md §6 rows 1–3, 6–7 and 9, counted per forward
 SP_ROWS = ("contextual_attention_fused", "fold_taps", "gated_conv_direct",
            "gated_matmul", "patch_attention_fwd")
@@ -4588,7 +4626,7 @@ def _sp_forward(torch, inp, imgs, masks):
     return out, launches, moved, calls
 
 
-def _sp_turns(torch, inps, order, imgs, masks, runs=3):
+def _sp_turns(torch, inps, order, imgs, masks, runs=2):
     """ms per request through ``inpaint_batch`` (host uint8 in and out),
     ``runs`` each, taken in the turns of ``order``."""
     turns = {k: [] for k in inps}
@@ -4606,8 +4644,8 @@ def _sp_turns(torch, inps, order, imgs, masks, runs=3):
 
 def _sp_2048(torch, rng, smi):
     """Phase 13 (a): one 1×2048² request of the pinned generator on
-    spatial groups of 2 and 4 members sharing cuda:0 against the whole
-    map on one device."""
+    spatial groups of SP_GROUPS members sharing cuda:0 against the whole
+    map on one device; ms per request in turns for SP_TIMED."""
     from gan_inpainting_torch.infer.inpaint import Inpainter
 
     imgs = _smooth_images(rng, 1, 2048, 2048)
@@ -4661,15 +4699,18 @@ def _sp_2048(torch, rng, smi):
               f"{moved}; first request {first_s:.1f} s (cuDNN tuning per "
               f"member thread); peak {peak:.2f} GiB (whole map "
               f"{res[1]['peak_gib']:.2f}) | {smi}")
-    order = [1, *SP_GROUPS, *SP_GROUPS[::-1], 1]
+        if n not in SP_TIMED:
+            inps.pop(n).close()
+            torch.cuda.empty_cache()
+    order = [1, *SP_TIMED, *SP_TIMED[::-1], 1]
     turns = _sp_turns(torch, inps, order, imgs, masks)
     for n in inps:
         res[n]["ms_turns"] = turns[n]
-    print(f"[13] (a) ms per 1x2048² request through inpaint_batch, 3 runs "
-          f"per turn in turns {order}: " + "; ".join(
+    print(f"[13] (a) ms per 1x2048² request through inpaint_batch, "
+          f"{len(turns[1][0])} runs per turn in turns {order}: " + "; ".join(
               f"spatial={n} {[[round(t, 1) for t in r] for r in turns[n]]}"
               for n in inps) + f" (one card: no gain claimed) | {smi}")
-    for n in SP_GROUPS:
+    for n in SP_TIMED:
         inps[n].close()
     return res
 
@@ -4812,7 +4853,7 @@ def _sp_serve(torch, rng, smi):
 
 def spatial_axis(torch, rng, smi):
     """Phase 13: serving over the mesh's spatial axis: (a) the 2048²
-    request on spatial groups of 2 and 4, (b) row 9 at the spatial
+    request on spatial groups of SP_GROUPS, (b) row 9 at the spatial
     shapes, (c) serve_v4_8's buckets at spatial 2."""
     t0 = time.perf_counter()
     a = _sp_2048(torch, rng, smi)
@@ -4824,8 +4865,312 @@ def spatial_axis(torch, rng, smi):
     return dict(serve_2048=a, kernel=b, serve_v4_8=c, phase_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training and evaluating over the mesh's spatial axis
+# ---------------------------------------------------------------------------
+
+# (a) path C (b)'s run over a spatial group of two gloo ranks sharing
+# cuda:0: places512_deepfill at 1×2048², bf16, from step 0 (the lazy R1
+# step) on path C's two batches, against path C's own figures (one
+# process, the same seed, state and batches). Both bf16: per metric
+# |a − b| ≤ ST_METRIC_TOL · max(|b|, 1) (each band's convs round bf16
+# activations where cuDNN's algorithms for the band's shapes do); the G
+# parameters after the steps no further apart than the steps can move
+# them (2 · steps · g_lr: where a gradient is near 0 its rounding noise
+# decides the sign of an update), and at least ST_PARAM_FRAC of the
+# entries within ST_PARAM_ATOL
+ST_TRAIN = TRAIN_512 + ["data.image_size=2048", "data.batch_size=1"]
+ST_METRIC_TOL = 2.0 ** -5
+ST_PARAM_ATOL, ST_PARAM_FRAC = 1e-4, 0.99
+# rows 9–11 and the fused forward, launched per step on every rank: the
+# D step's detached forward and the G step's forward on the member's
+# query rows, one dQ and one dK/dV; the fused route never
+ST_ROWS = {"patch_attention_fwd": 2, "patch_attention_bwd_dq": 1,
+           "patch_attention_bwd_dkv": 1, "contextual_attention_fused": 0}
+ST_COUNTS = SP_COUNTS + ("row_reduces", "row_reduce_bytes", "band_sums",
+                         "band_sum_bytes", "unsharded_steps")
+# (c) evaluate over the group: float32, two eval batches of 2 at 256²,
+# against one process: the same composites to float32 sums in another
+# order, PSNR and SSIM within ST_EVAL_REL of one process's
+ST_EVAL = ["model.dtype_policy=f32", "data.image_size=256",
+           "data.eval_batch_size=2", "data.num_eval_batches=2",
+           "eval.metrics=psnr,ssim"]
+ST_EVAL_REL = 1e-4
+# (b) rows 10 and 11 at a member's shapes at spatial 2: B, Lq, Lk
+ST_KERNEL_SHAPE = (1, 32768, 65536)
+ST_PLAIN_CHUNK = 4096          # query rows per chunk of the plain versions
+
+
+def _st_cfg(overrides, spatial: bool):
+    from gan_inpainting_torch.configs.base import apply_overrides, get_config
+
+    return apply_overrides(get_config("places512_deepfill"), overrides + (
+        ["train.mesh.spatial=2"] if spatial else []))
+
+
+def _st_rank_jobs(torch, rank, tmp):
+    """Phase 14 (a) and (c), one member: the steps on path C's batches,
+    each timed with its exchanges counted, then ``evaluate``."""
+    from gan_inpainting_torch.data.pipeline import Batch
+    from gan_inpainting_torch.ops import dispatch
+    from gan_inpainting_torch.parallel.sharding import counts, reduce_metrics
+    from gan_inpainting_torch.train.evaluate import evaluate
+    from gan_inpainting_torch.train.state import create_state
+    from gan_inpainting_torch.train.step import make_train_step
+
+    cfg = _st_cfg(ST_TRAIN, True)
+    batches = torch.load(tmp / "batches.pt", weights_only=True)
+    torch.cuda.reset_peak_memory_stats()
+    state = create_state(cfg, device="cuda:0")
+    step = make_train_step(cfg)
+    metrics, steps = [], []
+    dispatch.reset_launches()
+    for b in batches:
+        before = dict(counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(reduce_metrics(step(state, Batch(
+            *(t.cuda() for t in b)))))
+        torch.cuda.synchronize()
+        steps.append(dict(ms=1e3 * (time.perf_counter() - t0),
+                          **{k: counts[k] - before[k] for k in ST_COUNTS}))
+    out = dict(metrics=metrics, steps=steps,
+               launches={k: dispatch.launches.get(k, 0) for k in ST_ROWS},
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if rank == 0:
+        out["g_params"] = {k: v.float().cpu() for k, v in
+                           state.generator.state_dict().items()}
+    del state, step
+    torch.cuda.empty_cache()
+    before = dict(counts)
+    t0 = time.perf_counter()
+    out["eval"] = evaluate(_st_cfg(ST_EVAL, True),
+                           torch.load(tmp / "eval_gen.pt", weights_only=True),
+                           device="cuda:0")
+    out["eval_s"] = time.perf_counter() - t0
+    out["eval_exchanges"] = {k: counts[k] - before[k] for k in ST_COUNTS}
+    return out
+
+
+def _st_train(torch, tmp, smi, ref):
+    """Phase 14 (a) and (c): the spatial group's steps against path C's
+    one process, and its evaluate against one process's."""
+    from gan_inpainting_torch.models.generator import build_generator
+    from gan_inpainting_torch.train.evaluate import evaluate
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # as main() and the
+    torch.backends.cudnn.allow_tf32 = False          # ranks have them
+    ecfg = _st_cfg(ST_EVAL, False)
+    sd = build_generator(ecfg.model, device="cuda:0", seed=5).state_dict()
+    torch.save(sd, tmp / "eval_gen.pt")
+    t0 = time.perf_counter()
+    want_eval = evaluate(ecfg, sd, device="cuda:0")
+    one_eval_s = time.perf_counter() - t0
+    del sd
+    torch.save(ref["batches"], tmp / "batches.pt")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, ranks = _spawn_gloo(torch, tmp, _st_rank_jobs, lambda: None)
+    wall = time.perf_counter() - t0
+    r0, r1 = ranks
+    one = ref["metrics"]
+    _require(r0["metrics"] == r1["metrics"],
+             f"spatial training: the ranks return other metrics "
+             f"{r0['metrics']} / {r1['metrics']}")
+    gaps = {k: max(abs(m[k] - w[k]) / max(abs(w[k]), 1.0)
+                   for m, w in zip(r0["metrics"], one)) for k in one[0]}
+    param = torch.cat([(r0["g_params"][k] - v).abs().flatten()
+                       for k, v in ref["g_params"].items()])
+    param_max = param.max().item()
+    param_frac = (param <= ST_PARAM_ATOL).float().mean().item()
+    cfg = _st_cfg(ST_TRAIN, False)
+    bound = 2 * len(one) * cfg.train.g_lr
+    finite = all(np.isfinite(v) for m in r0["metrics"] for v in m.values())
+    n_steps = len(one)
+    launches_ok = all(r["launches"][k] == per * n_steps for r in ranks
+                      for k, per in ST_ROWS.items())
+    per = r0["steps"]
+    eval_gap = {k: abs(r0["eval"][k] - w) / max(abs(w), 1e-12)
+                for k, w in want_eval.items()}
+    print(f"[14] (a) places512_deepfill 1x2048² bf16 over "
+          f"train.mesh.spatial=2 (two gloo ranks on cuda:0, one row band of "
+          f"1024 rows each), {n_steps} steps from step 0 (lazy R1) on path "
+          f"C's batches against path C's one process: metrics finite "
+          f"{finite}, max |a−b|/max(|b|,1) {max(gaps.values()):.3e} (tol "
+          f"{ST_METRIC_TOL:.3e}; g_loss {gaps['g_loss']:.3e}, d_loss "
+          f"{gaps['d_loss']:.3e}), G parameters max abs diff "
+          f"{param_max:.3e} (bound {bound:.1e}), "
+          f"{100 * param_frac:.4f} % within {ST_PARAM_ATOL} (need "
+          f"{100 * ST_PARAM_FRAC} %); launches per rank over {n_steps} "
+          f"steps {[r['launches'] for r in ranks]} (per step "
+          f"{ST_ROWS}); ms per step {[round(s['ms'], 1) for s in per]} "
+          f"(path C one process {[round(t, 1) for t in ref['step_ms']]}; "
+          f"step 0 with R1 and cuDNN tuning of both ranks at once); "
+          f"exchanges and buffer bytes per step of rank 0 "
+          f"{[{k: v for k, v in s.items() if k != 'ms'} for s in per]} "
+          f"(gloo stages each through the host: a check, not a rate of "
+          f"NCCL); peak memory per rank "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB (path C one "
+          f"process {ref['peak_gib']:.2f}); {wall:.1f} s with spawn | {smi}")
+    print(f"[14] (c) evaluate places512_deepfill float32 256², 2 batches of "
+          f"2, over train.mesh.spatial=2: {r0['eval']} against one process "
+          f"{want_eval}: relative gaps "
+          f"{ {k: float(f'{v:.3e}') for k, v in eval_gap.items()} } (tol "
+          f"{ST_EVAL_REL}); ranks equal {r0['eval'] == r1['eval']}; "
+          f"exchanges {r0['eval_exchanges']}; {r0['eval_s']:.1f} s (one "
+          f"process {one_eval_s:.1f} s, both with cuDNN tuning) | {smi}")
+    _require(finite and launches_ok,
+             f"spatial training: finite {finite}, launches "
+             f"{[r['launches'] for r in ranks]}, expected per step {ST_ROWS}")
+    _require(all(s["unsharded_steps"] == 0 and s["halo_exchanges"] > 0
+                 and s["row_reduces"] > 0 for s in per),
+             f"spatial training: exchanges {per}")
+    _require(max(gaps.values()) <= ST_METRIC_TOL and param_max <= bound
+             and param_frac >= ST_PARAM_FRAC,
+             "the spatial group's steps disagree with one process")
+    _require(r0["eval"] == r1["eval"] and set(r0["eval"]) == set(want_eval)
+             and max(eval_gap.values()) <= ST_EVAL_REL,
+             "evaluate over the spatial group disagrees with one process")
+    return dict(metric_gaps=gaps, param_max=param_max,
+                param_frac=param_frac, steps=per,
+                launches=[r["launches"] for r in ranks],
+                peak_gib=[r["peak_gib"] for r in ranks], wall_s=wall,
+                eval=r0["eval"], eval_one=want_eval, eval_gaps=eval_gap,
+                eval_exchanges=r0["eval_exchanges"])
+
+
+def _sdpa_backward_ms(torch, q, k, valid, v, g):
+    """SDPA's autograd backward over the same attention (additive −1e9
+    mask; never called by the port), timed once after a warm-up, with the
+    backend PyTorch's dispatcher picks: (backend, ms), or (reason, None)
+    where no backend holds the call."""
+    import torch.nn.functional as F
+
+    mask = torch.where(valid, 0.0, -1e9).to(q.dtype)[:, None, None, :]
+    leaves = [t[:, None].detach().requires_grad_(True) for t in (q, k, v)]
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            y = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                               scale=10.0)
+        ms = _time_ms(torch, lambda: torch.autograd.grad(
+            y, leaves, g[:, None], retain_graph=True), 1)
+    except RuntimeError as e:
+        return f"refused: {str(e)[:80]}", None
+    backend = "?"
+    try:    # the backend PyTorch's dispatcher picks for this call
+        from torch.nn.attention import SDPBackend
+
+        choice = int(torch._fused_sdp_choice(*leaves, mask, 0.0, False,
+                                             scale=10.0))
+        backend = next((n for n, be in SDPBackend.__members__.items()
+                        if int(be.value) == choice), backend)
+    except (AttributeError, TypeError, RuntimeError, ImportError):
+        pass
+    del y, leaves, mask
+    return backend, ms
+
+
+def _st_kernels(torch, smi):
+    """Phase 14 (b): the patch dQ and dK/dV kernels (rows 10, 11) at a
+    member's shapes against their plain versions over chunks of query
+    rows, with their times, the plain backward's, SDPA's autograd
+    backward and the bounds."""
+    from gan_inpainting_torch.ops.kernels.patch_attention import (
+        launch_dkv,
+        launch_dq,
+        patch_attention_bwd_plain,
+    )
+
+    b, lq, lk = ST_KERNEL_SHAPE
+    d, dv = 1728, 3072
+    q, k, v, g, valid = _patch_inputs(torch, 29, b, lq, lk, d, dv,
+                                      torch.bfloat16, dead=False)
+    got = _patch_kernels(torch, q, k, valid, v, g)
+    torch.cuda.synchronize()
+    errs = _patch_errors(torch, q, k, valid, v, g, got, ST_PLAIN_CHUNK)
+    _patch_require(errs, False, f"patch backward B{b} Lq{lq} Lk{lk}")
+    out, lse = got[0], got[1]
+    del got
+    delta = (g.float() * out.float()).sum(-1)
+
+    def plain():
+        dk = dv_ = None
+        for c0 in range(0, lq, ST_PLAIN_CHUNK):
+            sl = slice(c0, c0 + ST_PLAIN_CHUNK)
+            dq, dk_c, dv_c = patch_attention_bwd_plain(
+                q[:, sl], k, valid, v, out[:, sl], lse[:, sl], g[:, sl],
+                softmax_scale=10.0)
+            dk = dk_c.float() if dk is None else dk.add_(dk_c)
+            dv_ = dv_c.float() if dv_ is None else dv_.add_(dv_c)
+        return dk, dv_
+
+    ms = {"dq": _time_ms(torch, lambda: launch_dq(
+              q, k, valid, v, g, lse, delta, 10.0), 2),
+          "dkv": _time_ms(torch, lambda: launch_dkv(
+              q, k, valid, v, g, lse, delta, 10.0), 2)}
+    plain_ms = _time_ms(torch, plain, 1)
+    backend, sdpa_bwd = _sdpa_backward_ms(torch, q, k, valid, v, g)
+    bounds = _patch_bounds(valid, lq, d, dv, 2)
+    rows = {}
+    for kname, err in (("dq", errs["dq"]), ("dkv", max(
+            errs["dk"], errs["dv"], key=lambda e: e[0] / max(e[1], 1.0)))):
+        n_bytes, n_ops = bounds[kname]
+        bound, by = _bound_ms(n_bytes, n_ops, H100_BF16_FLOPS)
+        rows[kname] = dict(
+            ms=ms[kname], plain_ms=plain_ms, library_ms=sdpa_bwd,
+            library=f"SDPA ({backend}), additive mask, autograd backward: "
+                    "dq, dk and dv in one call, one timed run",
+            bound_ms=bound, bound_by=by, max_abs_err=err[0],
+            max_abs_err_of=err[1], tflops=n_ops / (ms[kname] * 1e-3) / 1e12,
+            shape=f"B{b} Lq{lq} Lk{lk} d{d} dv{dv}")
+        print(f"[14] (b) patch_attention_bwd_{kname} B{b} Lq{lq} Lk{lk} "
+              f"d{d} dv{dv} bf16 (a spatial-2 member's shapes): max abs err "
+              f"{err[0]:.3e} of max|ref| {err[1]:.3e} (tol "
+              f"{BWD_BF16_TOL_FRAC} of it); kernel {ms[kname]:.2f} ms "
+              f"({rows[kname]['tflops']:.1f} TFLOP/s of valid pairs), "
+              f"bound {bound:.2f} by {by}; plain backward over chunks of "
+              f"{ST_PLAIN_CHUNK} query rows {plain_ms:.2f}, SDPA "
+              f"({backend}) autograd backward "
+              f"{'n/a' if sdpa_bwd is None else f'{sdpa_bwd:.2f}'} | {smi}")
+    del q, k, v, g, valid, out, lse, delta
+    torch.cuda.empty_cache()
+    return rows
+
+
+def spatial_training(torch, smi, ref):
+    """Phase 14: training and evaluating over the mesh's spatial axis: (a)
+    the 2048² step over a spatial group of two ranks against path C's one
+    process, (b) rows 10 and 11 at a member's shapes, (c) evaluate over
+    the group against one process."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_st_"))
+    try:
+        a = _st_train(torch, tmp, smi, ref)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    b = _st_kernels(torch, smi)
+    wall = time.perf_counter() - t0
+    print(f"[14] phase 14 took {wall:.1f} s")
+    return dict(train_2048=a, kernels=b, phase_s=wall)
+
+
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
+    ends: dict[str, float] = {}
+
+    def lap(phase: str) -> None:
+        """Print and keep the script's seconds at the end of ``phase``."""
+        torch.cuda.empty_cache()
+        ends[phase] = time.perf_counter() - t_start
+        print(f"[t] {phase} ended at {ends[phase]:.1f} s")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4921,6 +5266,7 @@ def main() -> int:
              "the patch backward's clusters of 16 do not fit the card")
 
     rng = np.random.default_rng(0)
+    lap("[1] build")
     res256 = check_kernels(torch, "256² (B=8, 64x64x192)", 8, 64, 192, rng,
                            smi)
     res512 = check_kernels(torch, "512² (B=2, 128x128x192)", 2, 128, 192,
@@ -4934,36 +5280,41 @@ def main() -> int:
     torch.cuda.empty_cache()
     patch = check_patch_kernels(torch, smi)
     routes = compare_routes(torch, smi)
-    torch.cuda.empty_cache()
+    lap("[2] kernels")
     at_256, at_512, (img1, msk1, cpu_f32) = serve(torch, rng, smi)
-    torch.cuda.empty_cache()
+    lap("[3] serve")
     tr = train(torch, smi)
-    torch.cuda.empty_cache()
+    lap("[4] train")
     path_a, rates_a = serve_kernel_backend(torch, rng, smi, img1, msk1,
                                            cpu_f32)
-    torch.cuda.empty_cache()
+    lap("[5] path A")
     path_b = partial_family(torch, rng, smi)
-    torch.cuda.empty_cache()
+    lap("[6] path B")
     large = path_c(torch, rng, smi)
-    torch.cuda.empty_cache()
+    st_ref = large.pop("_spatial_ref")      # phase 14's reference
+    lap("[7] path C")
     service = serving_tier(torch, rng, smi)
     svc = service["mixed"]["launches_by_bucket"]
-    torch.cuda.empty_cache()
+    lap("[8] serving tier")
     files = file_data(torch, smi)
     fl = files["launches"]            # phase 9's train() from the folder
-    torch.cuda.empty_cache()
+    lap("[9] file data")
     dp = data_parallel(torch, rng, smi)
     # path F: each gloo rank's train() (4 steps and an eval; rank 0 also
     # the sample grid), counted in the rank's own process
     path_f = {f"path_f_rank{r}": launches
               for r, launches in enumerate(dp["b"]["launches"])}
-    torch.cuda.empty_cache()
+    lap("[10] data parallel")
     aot = aot_artifacts(torch, rng, smi)
-    torch.cuda.empty_cache()
+    lap("[11] aot")
     ma = model_axis(torch, rng, smi)
     ma_serve = ma["serve"]["pallas"]
-    torch.cuda.empty_cache()
+    lap("[12] model axis")
     sp = spatial_axis(torch, rng, smi)
+    lap("[13] spatial axis")
+    st = spatial_training(torch, smi, st_ref)
+    del st_ref
+    lap("[14] spatial training")
 
     def through_spatial(kernel):
         """Launches per forward of ``kernel`` on path I (phase 13), by
@@ -5116,14 +5467,33 @@ def main() -> int:
     # row 9 at the spatial axis's shapes (phase 13 (b)): a member's local
     # query rows against every key; launches: path I's 2048² requests
     sp_k = sp["kernel"]
+
+    def through_spatial_training(name):
+        """Launches of ``name`` by each rank of phase 14 (a)'s group over
+        its steps."""
+        return {f"train_2048_spatial2_rank{r}": launches[name]
+                for r, launches in enumerate(st["train_2048"]["launches"])}
+
     kernels.append(dict(
         name="patch_attention_fwd@spatial_B1_Lq32768_Lk65536", route="cuda",
         source=attn_src, replaces=f"{tpu_pa}:64",
         launches=sum(sp["serve_2048"][n]["launches"]["patch_attention_fwd"]
-                     for n in SP_GROUPS),
+                     for n in SP_GROUPS) + sum(through_spatial_training(
+                         "patch_attention_fwd").values()),
         **sp_k["B1_Lq32768_Lk65536"],
         at_B8_Lq512_Lk1024=sp_k["B8_Lq512_Lk1024"],
-        launches_by_path=through_spatial("patch_attention_fwd")))
+        launches_by_path={**through_spatial("patch_attention_fwd"),
+                          **through_spatial_training("patch_attention_fwd")}))
+    # rows 10 and 11 at the same member's shapes (phase 14 (b)); launches:
+    # phase 14 (a)'s spatial training, both ranks
+    for kname, line in (("dq", 156), ("dkv", 186)):
+        name = f"patch_attention_bwd_{kname}"
+        by_rank = through_spatial_training(name)
+        kernels.append(dict(
+            name=f"{name}@spatial_B1_Lq32768_Lk65536", route="cuda",
+            source=bwd_wgmma_src, replaces=f"{tpu_pa}:{line}",
+            launches=sum(by_rank.values()), **st["kernels"][kname],
+            launches_by_path=by_rank))
     print(json.dumps({"kernels": kernels, "card": smi, "large_map": {
         **large,
         "routes": routes,
@@ -5137,7 +5507,8 @@ def main() -> int:
         "serve_64x256": {"serve_v4_8": rates_a,
                          "partialconv256": path_b["rates"]},
         "service": service, "file_data": files, "data_parallel": dp,
-        "aot": aot, "model_axis": ma, "spatial_axis": sp}))
+        "aot": aot, "model_axis": ma, "spatial_axis": sp,
+        "spatial_training": st, "phase_end_s": ends}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

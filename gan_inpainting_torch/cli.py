@@ -21,11 +21,14 @@ N ranks form N / M model groups of M neighbouring cards that train one
 batch slice each with the generator's convs channel-sharded over the
 group, and ``serve`` / ``infer`` run each replica over a group of M cards
 (with ``--device``, M members on that one device). ``serve`` and
-``infer`` also take ``train.mesh.spatial=N``: each replica splits a
-request's rows over N cards (parallel/spatial.py), and an N that needs
+``infer`` also take ``train.mesh.spatial=S``: each replica splits a
+request's rows over S cards (parallel/spatial.py), and an S that needs
 more than the local cards raises the mesh's ``ValueError``; with
-``--device`` the N members share that device. ``train`` and ``eval``
-raise ``NotImplementedError`` for N > 1.
+``--device`` the S members share that device. ``train`` and ``eval``
+take it under ``torchrun --nproc-per-node D·M·S``: each group of S
+neighbouring ranks trains (evaluates) one batch slice, every rank on one
+row band of every activation, the row exchanges and their gradients
+passed between the ranks (train/step.py).
 """
 
 from __future__ import annotations
@@ -52,9 +55,10 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("overrides", nargs="*",
                    help="config overrides, e.g. train.steps=100; "
                    "train.mesh.model=2 model.tp_shard=true shards the "
-                   "generator's convs over groups of 2 cards; serve and "
-                   "infer: train.mesh.spatial=2 splits each request's "
-                   "rows over 2 cards")
+                   "generator's convs over groups of 2 cards; "
+                   "train.mesh.spatial=2 splits each image's rows over 2 "
+                   "cards (train and eval: launch data x model x spatial "
+                   "ranks with torchrun)")
 
 
 def _add_model_source(p: argparse.ArgumentParser, aot: bool = True):

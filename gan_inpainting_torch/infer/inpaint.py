@@ -69,7 +69,7 @@ from gan_inpainting_torch.parallel.sharding import (
     ThreadModelGroup,
     _count,
 )
-from gan_inpainting_torch.parallel.spatial import ThreadSpatialGroup
+from gan_inpainting_torch.parallel.spatial import ThreadSpatialGroup, splits
 
 
 def _bucket(value: int, buckets) -> int:
@@ -314,9 +314,9 @@ class Inpainter:
 
     def row_sharded(self, size: int) -> bool:
         """True where a size bucket splits into row bands that stay whole
-        and aligned through both stride-2 levels and the ``::4`` slices:
-        ``size % (4·spatial) == 0``."""
-        return self.spatial > 1 and size % (4 * self.spatial) == 0
+        and aligned through both stride-2 levels and the ``::4`` slices
+        (:func:`~gan_inpainting_torch.parallel.spatial.splits`)."""
+        return splits(size, self.spatial)
 
     def _build_forward(self, fuse_upsample: bool, rows: bool = False,
                        *, replica: int, member: int = 0):

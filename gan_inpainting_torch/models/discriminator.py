@@ -7,6 +7,15 @@ the SN-PatchGAN of DeepFill v2. The input is ``concat(image, mask)``, so D
 can focus on hole regions. Logits are float32 whatever the compute dtype.
 Module names (``conv{i}``, ``head``) are the JAX package's, so flax param
 paths map one to one onto ``state_dict`` keys.
+
+Over the mesh's spatial axis (its convs put on a spatial group's row
+bands by ``parallel/spatial.py row_bands``, as the train step does) the
+discriminator takes one row band of its input and every conv halos its
+band (models/layers.py ``band_form``: the 5×5 stride-2 convs on even
+bands, the stride-1 head on any), so the logit map is the band's rows of
+the whole map's; the losses' means over it are band sums over the whole
+map's count (losses/adversarial.py). The bands must halve evenly through
+every stride-2 conv: ``2 ** num_layers`` must divide the band's rows.
 """
 
 from __future__ import annotations

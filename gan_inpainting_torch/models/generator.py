@@ -21,15 +21,16 @@ where a gradient is taken, its activations recomputed in the backward
 instead of kept (``nn.remat`` of each stack in the JAX package).
 
 Over the mesh's spatial axis (a ``spatial_group`` of n > 1, see
-parallel/spatial.py; serving only) the generator takes one row band of
-the request, and every activation stays a row band: each conv of every
-stack, the heads included, takes its halo from the neighbouring bands
-(models/layers.py), and contextual attention gathers the map it needs
-(ops/contextual_attention.py). Everything else is band-local as it
-stands — the concatenations, the pasted coarse result, the nearest 2×
-upsample, ``tanh`` — and so are ``downscale_mask_max(mask, 4)`` and
-``valid[:, ::4, ::4]`` because every band starts at a multiple of 4 rows
-(the caller's split, infer/inpaint.py).
+parallel/spatial.py; in serving and in training) the generator takes one
+row band of the image, and every activation stays a row band: each conv
+of every stack, the heads included, takes its halo from the neighbouring
+bands (models/layers.py), and contextual attention gathers the map it
+needs (ops/contextual_attention.py); the exchanges carry gradients.
+Everything else is band-local as it stands — the concatenations, the
+pasted coarse result, the nearest 2× upsample, ``tanh`` — and so are
+``downscale_mask_max(mask, 4)`` and ``valid[:, ::4, ::4]`` because every
+band starts at a multiple of 4 rows (the caller's split:
+infer/inpaint.py, train/step.py).
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from gan_inpainting_torch.ops.contextual_attention import (
 )
 from gan_inpainting_torch.ops.dispatch import resolve_device
 from gan_inpainting_torch.parallel.sharding import ModelGroup
-from gan_inpainting_torch.parallel.spatial import ThreadSpatialGroup
+from gan_inpainting_torch.parallel.spatial import SpatialGroup
 from gan_inpainting_torch.utils.dtypes import DTypePolicy
 
 
@@ -72,7 +73,7 @@ class _Stack(nn.Module):
                  conv_kind: str, compute_dtype: torch.dtype,
                  fuse_upsample: bool = False, s2d_stem: bool = False,
                  backend: str = "auto", model_group: ModelGroup | None = None,
-                 spatial_group: ThreadSpatialGroup | None = None,
+                 spatial_group: SpatialGroup | None = None,
                  name: str = "body"):
         super().__init__()
         self.upsample: list[bool] = []
@@ -167,7 +168,7 @@ class DilatedGenerator(nn.Module):
                  bf16_head: bool = False, backend: str = "auto",
                  model_group: ModelGroup | None = None,
                  remat_stages: bool = False,
-                 spatial_group: ThreadSpatialGroup | None = None):
+                 spatial_group: SpatialGroup | None = None):
         super().__init__()
         f = base_features
         self.bf16_head = bf16_head
@@ -194,7 +195,7 @@ class CoarseToFineGenerator(nn.Module):
                  bf16_head: bool = False, backend: str = "auto",
                  model_group: ModelGroup | None = None,
                  remat_stages: bool = False,
-                 spatial_group: ThreadSpatialGroup | None = None):
+                 spatial_group: SpatialGroup | None = None):
         super().__init__()
         f = base_features
         self.backend = backend
@@ -263,7 +264,7 @@ class CoarseToFineGenerator(nn.Module):
 def build_generator(model_cfg, device: str | torch.device | None = None,
                     seed: int | None = 0, backend: str | None = None,
                     model_group: ModelGroup | None = None,
-                    spatial_group: ThreadSpatialGroup | None = None
+                    spatial_group: SpatialGroup | None = None
                     ) -> nn.Module:
     """The generator a ModelConfig describes, on ``device`` (CUDA unless
     the caller asks for another). Weights are drawn from ``seed`` with a
@@ -273,7 +274,7 @@ def build_generator(model_cfg, device: str | torch.device | None = None,
     member, the stacks' convs are channel-sharded over it; the parameters
     stay whole either way. ``remat_stages`` checkpoints each stack where a
     gradient is taken. With a ``spatial_group`` of more than one member it
-    serves one row band of each request (no gradient).
+    takes one row band of each image.
     """
     device = resolve_device(device)
     policy = DTypePolicy.from_name(model_cfg.dtype_policy)

@@ -27,15 +27,22 @@ Given a ``spatial_group`` (parallel/spatial.py), the layer takes one row
 band of the map, as a device of the JAX package's spatial axis holds one
 (GSPMD inserts the halo exchange there). Every conv kind, kernel and
 rewrite runs unchanged: the band is widened by the rows its window needs
-from the neighbours (:meth:`ThreadSpatialGroup.halo`, zeros beyond the
-map: TF-SAME's zeros), the op pads it TF-SAME as it pads a whole map, and
-the output rows that belong to the band are kept. Per form, on a band
-of h rows:
+from the neighbours (:func:`~gan_inpainting_torch.parallel.spatial.halo`,
+zeros beyond the map: TF-SAME's zeros; its backward adds the halo rows'
+gradients back onto their owners), the op pads it TF-SAME as it pads a
+whole map, and the output rows that belong to the band are kept
+(:func:`band_form`). Per form, on a band of h rows:
 
-* stride 1, window ``eff = (k − 1)·d + 1`` (the ``s2d`` stem included):
-  halo ``((eff − 1) // 2, eff // 2)``, keep ``[lo, lo + h)``;
-* 3×3 stride 2 on an even band: halo (0, 2), so that the op's own pad is
-  (0, 1) and output row j reads rows 2j..2j+2; keep the first h / 2;
+* stride 1, window ``eff = (k − 1)·d + 1`` (the ``s2d`` stem and the
+  discriminator's 5×5 head included): halo ``((eff − 1) // 2, eff //
+  2)``, keep ``[lo, lo + h)``;
+* stride 2 on an even band: the map's TF-SAME pad is ``(p, eff − 2 − p)``
+  with ``p = (eff − 2) // 2``; the halo is ``p`` rows above and, below,
+  ``eff − 2 − p`` rows or one more, whichever makes the op's own top pad
+  of the widened band even, so its output rows fall on the map's: 3×3 (the generators)
+  halo (0, 2), the op's pad (0, 1), keep the first h / 2; 5×5 (the
+  discriminator) halo (1, 2), the op's pad (2, 2), keep rows
+  ``[1, 1 + h / 2)``;
 * ``pre_upsample``: halo (1, 1) at low resolution, keep output rows
   ``[2, 2 + 2h)``;
 * partial convs halo ``valid`` as they halo ``x``; the window counts see
@@ -67,7 +74,7 @@ from gan_inpainting_torch.parallel.sharding import (
     gather_channels,
     reduce_input_grad,
 )
-from gan_inpainting_torch.parallel.spatial import ThreadSpatialGroup
+from gan_inpainting_torch.parallel.spatial import SpatialGroup, halo
 
 
 class InpaintConv(nn.Module):
@@ -81,7 +88,7 @@ class InpaintConv(nn.Module):
                  compute_dtype: torch.dtype = torch.bfloat16,
                  pre_upsample: bool = False, s2d: bool = False,
                  backend: str = "auto", model_group: ModelGroup | None = None,
-                 spatial_group: ThreadSpatialGroup | None = None,
+                 spatial_group: SpatialGroup | None = None,
                  name: str = "InpaintConv"):
         super().__init__()
         if conv_kind not in ("plain", "gated", "partial"):
@@ -159,19 +166,14 @@ class InpaintConv(nn.Module):
         return self._kept_slice[1:]
 
     def _band(self, rows: int) -> tuple[int, int, int, int]:
-        """(halo above, halo below, first kept output row, kept rows) of
-        this conv on a band of ``rows`` rows (module docstring)."""
-        if self.pre_upsample:
-            return 1, 1, 2, 2 * rows
-        eff = (self.kernel_size - 1) * self.dilation + 1
-        if self.stride == 1:
-            return (eff - 1) // 2, eff // 2, (eff - 1) // 2, rows
-        if self.stride == 2 and eff == 3 and rows % 2 == 0:
-            return 0, 2, 0, rows // 2
-        raise ValueError(
-            f"{self._name}: a {self.kernel_size}x{self.kernel_size} "
-            f"stride-{self.stride} dilation-{self.dilation} conv has no "
-            f"row-band form on a band of {rows} rows")
+        form = band_form(self.kernel_size, self.stride, self.dilation, rows,
+                         self.pre_upsample)
+        if form is None:
+            raise ValueError(
+                f"{self._name}: a {self.kernel_size}x{self.kernel_size} "
+                f"stride-{self.stride} dilation-{self.dilation} conv has no "
+                f"row-band form on a band of {rows} rows")
+        return form
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor | None = None):
         band, valid_in = None, valid
@@ -182,10 +184,10 @@ class InpaintConv(nn.Module):
                 if valid is None:
                     valid = torch.ones(x.shape[:3] + (1,),
                                        dtype=torch.float32, device=x.device)
-                valid_in = self.spatial_group.halo(valid, lo, hi)
+                valid_in = halo(valid, self.spatial_group, lo, hi)
             else:
                 valid_in = None
-            x = self.spatial_group.halo(x, lo, hi)
+            x = halo(x, self.spatial_group, lo, hi)
         if self.model_group is None:
             weight, bias = self.weight, self.bias
         else:
@@ -233,6 +235,27 @@ class InpaintConv(nn.Module):
         return y, _resize_valid(valid, self.stride)
 
 
+def band_form(kernel_size: int, stride: int, dilation: int, rows: int,
+              pre_upsample: bool = False):
+    """(halo above, halo below, first kept output row, kept rows) of a
+    TF-SAME conv on a row band of ``rows`` rows (module docstring), or
+    None where it has no band form."""
+    if pre_upsample:
+        return 1, 1, 2, 2 * rows
+    eff = (kernel_size - 1) * dilation + 1
+    if stride == 1:
+        return (eff - 1) // 2, eff // 2, (eff - 1) // 2, rows
+    if stride != 2 or rows % 2 or eff < 2:
+        return None
+    lo = (eff - 2) // 2
+    for hi in (eff - 2 - lo, eff - 1 - lo):
+        ext = rows + lo + hi
+        top = (eff - 2 if ext % 2 == 0 else eff - 1) // 2   # the op's pad
+        if top % 2 == 0:
+            return lo, hi, top // 2, rows // 2
+    return None
+
+
 def _resize_valid(valid: torch.Tensor | None, stride: int):
     if valid is None or stride == 1:
         return valid
@@ -250,7 +273,10 @@ class SNConv(nn.Module):
     singular vector ``u`` (Cout,) carries over between the packages. ``u``
     is a buffer — training state that is checkpointed, not a parameter —
     and moves only when the call passes ``update_stats``. Gradients stop
-    through ``u`` and ``v`` but not through σ = vᵀWu.
+    through ``u`` and ``v`` but not through σ = vᵀWu. With a
+    ``spatial_group`` it takes one row band, as :class:`InpaintConv`
+    does (:func:`band_form`); σ comes from the whole weight on every
+    member.
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 5,
@@ -263,6 +289,7 @@ class SNConv(nn.Module):
         self.use_sn = use_sn
         self.activation = activation
         self.compute_dtype = compute_dtype
+        self.spatial_group: SpatialGroup | None = None
         self.weight = nn.Parameter(
             torch.empty(features, in_features, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -289,6 +316,18 @@ class SNConv(nn.Module):
                 self.u = u_new
             weight = weight / sigma.to(weight.dtype)
         x = x.to(self.compute_dtype)
+        group = self.spatial_group
+        if group is not None:
+            form = band_form(self.kernel_size, self.stride, 1, x.shape[1])
+            if form is None:
+                raise ValueError(
+                    f"a {self.kernel_size}x{self.kernel_size} stride-"
+                    f"{self.stride} discriminator conv has no row-band form "
+                    f"on a band of {x.shape[1]} rows")
+            lo, hi, first, rows = form
+            x = halo(x, group, lo, hi)
         y = conv2d(x, weight.to(self.compute_dtype), self.bias,
                    stride=self.stride)
+        if group is not None:
+            y = y[:, first:first + rows]
         return _activation(self.activation)(y)

@@ -40,7 +40,7 @@ the patches and the (Lq, Lk) score matrix and is differentiated by
 autograd.
 
 Over the mesh's spatial axis (a ``spatial_group`` of n > 1 members, each
-holding one row band of h rows, parallel/spatial.py; serving only) the op
+holding one row band of h rows, parallel/spatial.py) the op
 is the JAX package's ``_spatial_attention``
 (gan_inpainting_tpu/ops/contextual_attention.py:210-300) where every band
 holds whole query-cell rows, ``h % rate == 0`` (:func:`spatial_shardable`,
@@ -57,6 +57,15 @@ by the whole map's overlap counts. Elsewhere it gathers the map, runs
 the op as one device would (its own routing, the fused kernels
 included) and keeps the band: the JAX package runs XLA's dense attention
 there, the same math.
+
+Both routes carry gradients. On the sharded one the patch-attention
+backward (dQ, dK/dV kernels) runs at Lq = Lk / n: dQ stays on the band's
+own query rows, dK and dV of the gathered map return through the
+gather's backward (each member's band of the members' sum), and the band
+fold and spill add are differentiable. On the gathered route every member
+differentiates the whole op from the gradient of its own band's output
+alone, and the gather's backward sums them, so no output row counts
+twice. The overlap counts and the hole mask take no gradient.
 """
 
 from __future__ import annotations
@@ -79,6 +88,7 @@ from gan_inpainting_torch.ops.patches import (
     fold_band,
     fold_patches,
 )
+from gan_inpainting_torch.parallel.spatial import add_spill, gather_rows
 
 NEG_INF = -1e9
 
@@ -226,7 +236,7 @@ def contextual_attention(f, b, hole_mask, *, ksize: int = 3, rate: int = 2,
       f: (B, H, W, C) foreground features (queries; typically ``is b``).
       b: (B, H, W, C) background features (keys/values).
       hole_mask: (B, H, W, 1), 1 = hole. Keys inside the hole are excluded.
-      spatial_group: a ``ThreadSpatialGroup``; with more than one member,
+      spatial_group: a ``SpatialGroup``; with more than one member,
         f, b and hole_mask are this member's row band of the map, and so
         is the result (module docstring).
 
@@ -278,9 +288,9 @@ def _spatial_attention(f, b, hole_mask, *, ksize: int, rate: int,
     ``_spatial_attention``."""
     bsz, bh, w, c = f.shape
     n, i = group.size, group.index
-    b_full = group.gather_rows(b)
-    f_full = b_full if f is b else group.gather_rows(f)
-    m_full = group.gather_rows(hole_mask)
+    b_full = gather_rows(b, group)
+    f_full = b_full if f is b else gather_rows(f, group)
+    m_full = gather_rows(hole_mask, group)
     if not spatial_shardable(bh, rate):
         y = contextual_attention(f_full, b_full, m_full, ksize=ksize,
                                  rate=rate, softmax_scale=softmax_scale,
@@ -300,7 +310,7 @@ def _spatial_attention(f, b, hole_mask, *, ksize: int, rate: int,
                                    softmax_scale=softmax_scale)
     ext, (up, down) = fold_band(
         yp.reshape(bsz, hb, ws, 2 * rate, 2 * rate, c), rate, w)
-    y = group.add_spill(ext, up, down)
+    y = add_spill(ext, group, up, down)
     # the whole map's overlap counts on this band (geometry only)
     _, cnt = fold_patches(yp.new_zeros((1, hs, ws, 2 * rate, 2 * rate, 1)),
                           rate, (n * bh, w))

@@ -126,13 +126,20 @@ def ptxas_report(name: str) -> list[tuple[str, str, str]]:
     return out
 
 
+_sass: dict[str, str] = {}      # library path → its cuobjdump -sass
+
+
 def sass_counts(name: str, opcode: str) -> dict[str, int]:
     """Instructions whose SASS opcode starts with ``opcode``, per kernel of
-    the built ``csrc/<name>.cu`` (``cuobjdump -sass`` from the toolkit)."""
-    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(_target(name,
-                                                           nvcc_path()))],
-                          capture_output=True, text=True, check=True).stdout
+    the built ``csrc/<name>.cu`` (``cuobjdump -sass`` from the toolkit,
+    run once per built library)."""
+    target = str(_target(name, nvcc_path()))
+    if target not in _sass:
+        cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+        _sass[target] = subprocess.run(
+            [cuobjdump, "-sass", target], capture_output=True, text=True,
+            check=True).stdout
+    sass = _sass[target]
     counts: dict[str, int] = {}
     fn = ""
     for line in sass.splitlines():

@@ -3,9 +3,8 @@ of it.
 
 ``MeshConfig`` keeps the JAX package's fields and :meth:`MeshConfig.resolve`
 its semantics letter for letter, so a config embedded in an export parses
-and means the same thing in both packages. The port runs the ``data`` and
-``model`` axes in training and serving, and the ``spatial`` axis in
-serving, laid out as the JAX package lays out its devices
+and means the same thing in both packages. The port runs all three axes in
+training and serving, laid out as the JAX package lays out its devices
 (``devices.reshape(data, model, spatial)``): the spatial index varies
 fastest, then the model index, so device ``r`` has data index
 ``r // (model·spatial)``, model index ``(r // spatial) % model`` and
@@ -13,27 +12,21 @@ spatial index ``r % spatial``. At ``spatial = 1`` that is model index
 fastest, and the members of one model group are neighbours.
 
 * training resolves the mesh over the world size, one process per card as
-  ``torchrun`` launches it (:func:`train_mesh`); ``data × model`` must be
-  the world size, since a rank outside the mesh would idle;
+  ``torchrun`` launches it (:func:`train_mesh`); ``data × model ×
+  spatial`` must be the world size, since a rank outside the mesh would
+  idle;
 * serving resolves it over the local cards or an explicit device list
   (:func:`build_mesh`); an explicit ``data = n`` takes the first
   ``n × model × spatial``, as the JAX package's device prefix does. Each
   data index is one replica: a group of ``model × spatial`` devices
   (:attr:`Mesh.groups`), member ``r`` of a group at model index
   ``r // spatial`` and spatial index ``r % spatial``.
-
-``spatial`` above 1 raises ``NotImplementedError`` in training: training
-and evaluating over the spatial axis are ROADMAP Queue 1 item 3.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
-
-_SPATIAL_TRAINING = ("ROADMAP Queue 1 item 3, training and evaluating over "
-                     "the spatial axis")
-
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
@@ -91,25 +84,15 @@ def build_mesh(config: MeshConfig, devices: Sequence) -> Mesh:
 
 
 def train_mesh(config: MeshConfig, world: int) -> Mesh:
-    """The training mesh over ``world`` ranks: ``data × model`` must be
-    every rank, so ``data`` other than -1 or ``world / model`` raises;
-    ``spatial`` above 1 raises ``NotImplementedError``."""
-    refuse_spatial(config, "train")
+    """The training mesh over ``world`` ranks: ``data × model × spatial``
+    must be every rank, so ``data`` other than -1 or ``world / (model ·
+    spatial)`` raises ``ValueError``."""
     mesh = build_mesh(config, range(world))
-    if mesh.data * mesh.model != world:
+    if mesh.data * mesh.model * mesh.spatial != world:
+        per = mesh.model * mesh.spatial
         raise ValueError(
             f"train.mesh.data={config.data} but {world} rank(s) run: each "
             "rank trains one slice of the data axis, so data must be -1 or "
-            f"{world // mesh.model} (launch with torchrun --nproc-per-node "
-            f"{mesh.data * mesh.model})")
+            f"{world // per} (launch with torchrun --nproc-per-node "
+            f"{mesh.data * per})")
     return mesh
-
-
-def refuse_spatial(config: MeshConfig, what: str) -> None:
-    """``NotImplementedError`` for a ``spatial`` axis above 1: the port
-    serves over it, but ``what`` (train, evaluate) does not run on it."""
-    if config.spatial > 1:
-        raise NotImplementedError(
-            f"train.mesh.spatial={config.spatial}: the PyTorch port serves "
-            f"over the spatial axis (Inpainter) but cannot {what} over it "
-            f"yet; that is {_SPATIAL_TRAINING}")

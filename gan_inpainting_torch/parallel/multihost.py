@@ -10,13 +10,17 @@ single process computes what it computed before the port had ranks. A
 caller may set up its own group first (gloo ranks sharing one card, the
 CPU tests); :func:`ensure_initialized` then only reports its size.
 
-The ranks form the training mesh's ``data × model`` grid, model index
-fastest (parallel/mesh.py): :func:`set_model_axis` records the model
-axis's size (``parallel/sharding.py use_mesh`` does, beside making the
-axes' process groups), and :func:`data_index` / :func:`model_index` /
-:func:`data_size` read this rank's place from it. Model peers train the
-same slice of the batch; in a world without a model axis the data index is
-the rank.
+The ranks form the training mesh's ``data × model × spatial`` grid,
+spatial index fastest, then model (parallel/mesh.py): rank r has data
+index ``r // (model·spatial)``, model index ``(r // spatial) % model``
+and spatial index ``r % spatial``. :func:`set_axes` records the model and
+spatial axes' sizes (``parallel/sharding.py use_mesh`` does, beside making
+the axes' process groups), and :func:`data_index` / :func:`model_index` /
+:func:`spatial_index` / :func:`data_size` read this rank's place from
+them. Model and spatial peers (the ranks of one data index) train the
+same slice of the batch, so their data and mask streams are keyed on the
+data index alone; in a world of the data axis alone the data index is the
+rank.
 """
 
 from __future__ import annotations
@@ -39,33 +43,43 @@ def world() -> int:
     return dist.get_world_size() if initialized() else 1
 
 
-_model_axis = 1                 # the model axis of the mesh the ranks form
+_axes = (1, 1)                  # (model, spatial) of the ranks' mesh
 
 
-def set_model_axis(n: int) -> None:
-    """Record that the ranks form a mesh with a model axis of ``n``: ranks
-    ``d·n … d·n + n − 1`` are data index ``d``'s model group."""
-    global _model_axis
-    if n < 1 or world() % n:
-        raise ValueError(f"model axis {n} does not divide the world of "
-                         f"{world()} rank(s)")
-    _model_axis = n
+def set_axes(model: int, spatial: int = 1) -> None:
+    """Record that the ranks form a mesh with a model axis of ``model`` and
+    a spatial axis of ``spatial``: the ``model·spatial`` ranks from
+    ``d·model·spatial`` on are data index ``d``'s."""
+    global _axes
+    n = model * spatial
+    if model < 1 or spatial < 1 or world() % n:
+        raise ValueError(f"model × spatial axes {model} × {spatial} do not "
+                         f"divide the world of {world()} rank(s)")
+    _axes = (model, spatial)
 
 
 def model_size() -> int:
-    return _model_axis if initialized() else 1
+    return _axes[0] if initialized() else 1
+
+
+def spatial_size() -> int:
+    return _axes[1] if initialized() else 1
 
 
 def data_size() -> int:
-    return world() // model_size()
+    return world() // (model_size() * spatial_size())
 
 
 def data_index() -> int:
-    return rank() // model_size()
+    return rank() // (model_size() * spatial_size())
 
 
 def model_index() -> int:
-    return rank() % model_size()
+    return (rank() // spatial_size()) % model_size()
+
+
+def spatial_index() -> int:
+    return rank() % spatial_size()
 
 
 def is_main() -> bool:
@@ -105,8 +119,9 @@ def shutdown() -> None:
 def process_batch_slice(global_batch: int) -> tuple[int, int]:
     """(this rank's batch size, this rank's seed offset): each data index
     feeds its slice of the global batch from a data stream of its own,
-    which its model peers share; data index 0's offset is 0, so one
-    process draws what it always drew."""
+    which its model and spatial peers share (a spatial member cuts its
+    row band from the slice); data index 0's offset is 0, so one process
+    draws what it always drew."""
     n = data_size()
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} not divisible by "

@@ -26,18 +26,32 @@ itself, and on a card cuDNN picks its algorithms per process and some of
 them add in a nondeterministic order, so those parts may differ between
 members in their last bits: :func:`reduce_over_model_` therefore sums the
 sliced weights' gradients and averages every other gradient over the
-model group, so every member applies the same update. Then comes the
-mean over the data axis (:func:`all_reduce_mean_`, and
-:func:`mean_over_ranks` for the loss normalizers), over the data group:
-the ranks of one model index, which is the world when there is no model
-axis. :func:`all_gather_rows` and :func:`reduce_metrics` take model
-index 0's values of each data index, so every rank returns the same
-numbers. :func:`use_mesh` makes both kinds of group, on every rank in
-the same order. A model group in one process, one thread per member on cards
-of its own (or sharing one), is a :class:`ThreadModelGroup`: serving
-over a group of cards (infer/inpaint.py) exchanges the slices by peer
-copies, with no ``torch.distributed``; the spatial axis's row exchanges
-(parallel/spatial.py) sit on the same :class:`_Exchange`.
+model group, so every member applies the same update.
+
+The spatial axis (``train.mesh.spatial`` = n, parallel/spatial.py): the
+n ranks of a spatial group train the same batch slice, each on one row
+band of every activation, and each member's losses are its band's
+partial sums over the whole map's normalizers. A replicated weight's
+gradient is then the **sum** over the spatial group, since each member
+holds the part its band contributes (where the step runs unsharded, at a
+size some layer cannot split into bands, every member holds it whole and
+the group averages instead).
+
+Then comes the mean over the data axis: :func:`all_reduce_mean_` sums the
+gradients over the ranks of this model index (every data and spatial
+index) in one collective and divides by the data axis (by data ×
+spatial where the step ran unsharded); :func:`mean_over_ranks` takes a
+loss normalizer's sum over the spatial group and its mean over the data
+group, the ranks of this model and spatial index (the world without
+model and spatial axes). :func:`all_gather_rows` and
+:func:`reduce_metrics` take the values of model index 0 and spatial
+index 0 of each data index, so every rank returns the same numbers.
+:func:`use_mesh` makes every axis's groups, on every rank in the same
+order. A model group in one process, one thread per member on cards of
+its own (or sharing one), is a :class:`ThreadModelGroup`: serving over a
+group of cards (infer/inpaint.py) exchanges the slices by peer copies,
+with no ``torch.distributed``; the spatial axis's thread groups sit on
+the same :class:`_Exchange`.
 
 Only ``all_reduce``, ``broadcast`` and ``barrier`` are used. NCCL takes
 them between cards, and gloo takes them on CUDA tensors too (staged
@@ -54,7 +68,8 @@ a group of one each still issues its collective, whose result equals its
 input. ``counts`` counts the gradient reduces (``all_reduce_mean_``, the
 run's record logs it as ``grad_all_reduces``), the channel gathers and the
 bytes of their buffers, the input-gradient reduces and the model group's
-gradient reduces, and the spatial axis's exchanges and their bytes.
+gradient reduces, the spatial axis's exchanges and their bytes, and the
+forwards and train steps that ran unsharded on a spatial group.
 """
 
 from __future__ import annotations
@@ -76,11 +91,14 @@ counts: dict[str, int] = {"all_reduce_mean_": 0, "channel_gathers": 0,
                           "input_grad_all_reduces": 0,
                           "model_grad_reduces": 0,
                           # the spatial axis (parallel/spatial.py): bytes
-                          # each member takes from the others
+                          # each thread member takes from the others, the
+                          # buffer bytes each rank all-reduces
                           "halo_exchanges": 0, "halo_bytes": 0,
                           "row_gathers": 0, "row_gather_bytes": 0,
                           "spill_adds": 0, "spill_bytes": 0,
-                          "unsharded_forwards": 0}
+                          "row_reduces": 0, "row_reduce_bytes": 0,
+                          "band_sums": 0, "band_sum_bytes": 0,
+                          "unsharded_forwards": 0, "unsharded_steps": 0}
 _counts_lock = threading.Lock()   # the members of a thread group
 
 
@@ -205,8 +223,11 @@ class ThreadModelGroup(ModelGroup):
 class _Axes(NamedTuple):
     world_group: object           # the process group the axes were made in
     model: int
-    data_group: object            # None: the world
+    spatial: int
+    data_group: object            # this model and spatial index; None: world
+    grad_group: object            # this model index; None: the world
     model_group: ModelGroup | None
+    spatial_group: object         # a ProcessSpatialGroup, or None
 
 
 _axes: _Axes | None = None        # this process's, made by use_mesh
@@ -214,30 +235,60 @@ _axes: _Axes | None = None        # this process's, made by use_mesh
 
 def use_mesh(config: MeshConfig) -> ModelGroup | None:
     """Place this rank in ``config``'s training mesh over the ranks (the
-    checks of ``train_mesh``) and make the process groups of both axes,
+    checks of ``train_mesh``) and make the process groups of every axis,
     on every rank in the same order; returns this rank's model group, or
-    None without a model axis. Without a process group: None, and nothing
-    changes. The groups are made once per process group and model size."""
+    None without a model axis (:func:`spatial_group` gives its spatial
+    group). Without a process group: None, and nothing changes. The
+    groups are made once per process group and axis sizes."""
     global _axes
     if not initialized():
         return None
     mesh = train_mesh(config, world())
-    multihost.set_model_axis(mesh.model)
+    multihost.set_axes(mesh.model, mesh.spatial)
     default = dist.distributed_c10d._get_default_group()
     if (_axes is None or _axes.world_group is not default
-            or _axes.model != mesh.model):
-        data_group = model_group = None
-        n, r = mesh.model, multihost.rank()
-        if n > 1:
-            for d in range(mesh.data):
-                g = dist.new_group([d * n + m for m in range(n)])
-                if d == r // n:
-                    model_group = ProcessModelGroup(g, r % n, n)
-            for m in range(n):
-                g = dist.new_group([d * n + m for d in range(mesh.data)])
-                if m == r % n:
-                    data_group = g
-        _axes = _Axes(default, mesh.model, data_group, model_group)
+            or (_axes.model, _axes.spatial) != (mesh.model, mesh.spatial)):
+        from gan_inpainting_torch.parallel.spatial import ProcessSpatialGroup
+
+        m_n, s_n, d_n = mesh.model, mesh.spatial, mesh.data
+        d_i, m_i, s_i = (multihost.data_index(), multihost.model_index(),
+                         multihost.spatial_index())
+
+        def rank_of(d, m, s):
+            return (d * m_n + m) * s_n + s
+
+        data_group = grad_group = model_group = spatial = None
+        if s_n > 1:
+            for d in range(d_n):
+                for m in range(m_n):
+                    g = dist.new_group([rank_of(d, m, s)
+                                        for s in range(s_n)])
+                    if (d, m) == (d_i, m_i):
+                        spatial = ProcessSpatialGroup(g, s_i, s_n)
+        if m_n > 1:
+            for d in range(d_n):
+                for s in range(s_n):
+                    g = dist.new_group([rank_of(d, m, s)
+                                        for m in range(m_n)])
+                    if (d, s) == (d_i, s_i):
+                        model_group = ProcessModelGroup(g, m_i, m_n)
+        if m_n * s_n > 1:
+            for m in range(m_n):
+                for s in range(s_n):
+                    g = dist.new_group([rank_of(d, m, s)
+                                        for d in range(d_n)])
+                    if (m, s) == (m_i, s_i):
+                        data_group = g
+        if m_n > 1 and s_n > 1:
+            for m in range(m_n):
+                g = dist.new_group([rank_of(d, m, s) for d in range(d_n)
+                                    for s in range(s_n)])
+                if m == m_i:
+                    grad_group = g
+        elif m_n > 1:
+            grad_group = data_group     # the ranks of this model index
+        _axes = _Axes(default, m_n, s_n, data_group, grad_group,
+                      model_group, spatial)
     return _axes.model_group
 
 
@@ -246,8 +297,15 @@ def model_group() -> ModelGroup | None:
     return _axes.model_group if initialized() and _axes else None
 
 
+def spatial_group():
+    """This rank's spatial group (a ``ProcessSpatialGroup``, made by
+    :func:`use_mesh`), or None without a spatial axis."""
+    return _axes.spatial_group if initialized() and _axes else None
+
+
 def _data_group():
-    """The data axis's group: None (the world) without a model axis."""
+    """The data axis's group: the ranks of this model and spatial index
+    (None, the world, without model and spatial axes)."""
     return _axes.data_group if _axes else None
 
 
@@ -360,28 +418,38 @@ def barrier() -> None:
         dist.barrier()
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Replace each tensor by its mean over the data axis, in place: one
-    flat float32 buffer per bucket of at most ``BUCKET_BYTES``."""
+def all_reduce_mean_(tensors: Sequence[torch.Tensor],
+                     bands_summed: bool = True) -> None:
+    """Replace each tensor by its mean over the data axis, in place, of its
+    sum over the spatial group (module docstring; with ``bands_summed``
+    False, where every spatial member computed it whole, its mean over
+    both): one ``all_reduce`` over the ranks of this model index per
+    flat float32 bucket of at most ``BUCKET_BYTES``."""
     if not initialized():
         return
     _count("all_reduce_mean_")
-    n, data_group = multihost.data_size(), _data_group()
-    for group in _buckets(tensors, 4):
-        flat = torch.cat([t.reshape(-1).float() for t in group])
-        dist.all_reduce(flat, group=data_group)
+    n = multihost.data_size()
+    if not bands_summed:
+        n *= multihost.spatial_size()
+    group = _axes.grad_group if _axes else None
+    for part in _buckets(tensors, 4):
+        flat = torch.cat([t.reshape(-1).float() for t in part])
+        dist.all_reduce(flat, group=group)
         flat /= n
-        parts = flat.split([t.numel() for t in group])
-        torch._foreach_copy_(list(group),
-                             [p.view_as(t) for p, t in zip(parts, group)])
+        parts = flat.split([t.numel() for t in part])
+        torch._foreach_copy_(list(part),
+                             [p.view_as(t) for p, t in zip(parts, part)])
 
 
-def mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
+def mean_over_ranks(t: torch.Tensor, bands=None) -> torch.Tensor:
     """The mean of ``t`` over the data axis, outside autograd (a loss's
-    normalizer); ``t`` itself with no group."""
+    normalizer), of its sum over ``bands`` first (a spatial group whose
+    members hold the sums of their row bands); ``t`` itself with neither."""
+    t = t.detach().clone()
+    if bands is not None:
+        bands.all_reduce_(t)
     if not initialized():
         return t
-    t = t.detach().clone()
     dist.all_reduce(t, group=_data_group())
     return t / multihost.data_size()
 
@@ -425,17 +493,23 @@ def broadcast_module_state(modules: Iterable[torch.nn.Module], src: int = 0,
                     group, [p.view_as(t) for p, t in zip(parts, group)])
 
 
+def _speaks() -> bool:
+    """Whether this rank's values stand for its data index: model index 0
+    and spatial index 0 (each slice counts once)."""
+    return multihost.model_index() == 0 and multihost.spatial_index() == 0
+
+
 def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
     """Every data index's ``t`` stacked along dim 0 in data order (each
-    rank passes the same shape; of a model group, member 0's rows, so
-    each slice counts once and every rank gets the same rows): an
-    ``all_reduce`` of a zero-filled buffer that holds those rows at
+    rank passes the same shape; of a model or spatial group, member 0's
+    rows, so each slice counts once and every rank gets the same rows):
+    an ``all_reduce`` of a zero-filled buffer that holds those rows at
     their offset, exact in any dtype."""
     if not initialized():
         return t
     n, i = t.shape[0], multihost.data_index()
     out = t.new_zeros((multihost.data_size() * n, *t.shape[1:]))
-    if multihost.model_index() == 0:
+    if _speaks():
         out[i * n:(i + 1) * n] = t
     dist.all_reduce(out)
     return out
@@ -444,15 +518,15 @@ def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
 def reduce_metrics(metrics: dict, average: bool = True) -> dict[str, float]:
     """Metric values (0-d tensors or floats, the same keys on every rank)
     as floats: their mean over the data axis, or with ``average=False``
-    their sum (of a model group, member 0's values: each slice counts
-    once, and every rank gets the same numbers). With no group, each
-    value as it is."""
+    their sum (of a model or spatial group, member 0's values, which are
+    the group's: each slice counts once, and every rank gets the same
+    numbers). With no group, each value as it is."""
     if not initialized() or not metrics:
         return {k: float(v) for k, v in metrics.items()}
     device = _host_device()
     vals = torch.stack([torch.as_tensor(v, dtype=torch.float64).to(device)
                         for v in metrics.values()])
-    if multihost.model_index() != 0:
+    if not _speaks():
         vals.zero_()
     dist.all_reduce(vals)
     if average:

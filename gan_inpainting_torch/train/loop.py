@@ -6,8 +6,8 @@ Every random draw of step ``n`` (data batch, crop, flip, masks) comes from
 a generator derived from (seed, stream, n), so a resumed run continues
 exactly as the uninterrupted one would. Under data parallelism each data
 index derives its own: its data stream from ``seed + index · 1 000 003``,
-its masks with ``extra = index``, shared by its model peers; data index 0
-draws what a single process draws.
+its masks with ``extra = index``, shared by its model and spatial peers;
+data index 0 draws what a single process draws.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from gan_inpainting_torch.parallel.multihost import (
     is_main,
     model_size,
     process_batch_slice,
+    spatial_size,
 )
 from gan_inpainting_torch.parallel.sharding import (
     barrier,
@@ -71,7 +72,11 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
     cover the world as ``data × model`` (``create_state``); the ranks of a
     model group train the same slice, the generator channel-sharded over
     them under ``model.tp_shard``, and the record then also counts the
-    channel gathers and the bytes they all-reduce."""
+    channel gathers and the bytes they all-reduce. The ranks of a spatial
+    group train the same slice too, each on its row bands
+    (train/step.py); the record then counts the row exchanges, their
+    bytes and the steps that ran unsharded, and the sample grid holds the
+    whole images."""
     device = resolve_device(device)
     n_ranks = ensure_initialized(device)
     use_mesh(cfg.train.mesh)
@@ -97,6 +102,7 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
     if verbose and initialized():
         print(f"[train] data parallel over {n_ranks} rank(s), "
               f"{local_batch} images each, model axis {model_size()}, "
+              f"spatial axis {spatial_size()}, "
               f"backend {torch.distributed.get_backend()}")
 
     # best-eval-PSNR retention: a second single-slot manager and a small
@@ -123,7 +129,7 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
     t_last = time.perf_counter()
     steps_since_log = 0
     reduces_before = counts["all_reduce_mean_"]
-    gathers_before = {k: counts[k] for k in _GATHER_COUNTS}
+    gathers_before = {k: counts[k] for k in _GATHER_COUNTS + _ROW_COUNTS}
     # the channel gathers since the last log
     window = dict(counts, _step=state.step)
     cur_steps = cfg.mask.curriculum_steps
@@ -159,6 +165,13 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
                         counts["channel_gather_bytes"]
                         - window["channel_gather_bytes"]) / max(
                         next_step - window["_step"], 1)
+                if spatial_size() > 1:
+                    scalars["spatial_axis"] = spatial_size()
+                    scalars.update({k: counts[k] - gathers_before[k]
+                                    for k in _ROW_COUNTS})
+                    scalars["row_exchange_bytes_per_step"] = sum(
+                        counts[k] - window[k] for k in _ROW_BYTES) / max(
+                        next_step - window["_step"], 1)
                 window = dict(counts, _step=next_step)
                 if main:
                     writer.scalars(next_step, scalars)
@@ -183,11 +196,14 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
                     if verbose:
                         print(f"[train] new best psnr {best_psnr:.3f} "
                               f"@ {next_step} -> checkpoints_best")
-                if main or (cfg.model.tp_shard and model_size() > 1):
-                    # a sharded generator's model peers join its gathers
+                if main or (cfg.model.tp_shard and model_size() > 1
+                            or spatial_size() > 1):
+                    # a sharded generator's model and spatial peers join
+                    # its exchanges
                     _dump_samples(cfg, state, writer, next_step, eval_step,
                                   device)
-                # the window counts the train steps' gathers, not the eval's
+                # the window counts the train steps' exchanges, not the
+                # eval's
                 window = dict(counts, _step=next_step)
 
             if next_step % cfg.train.checkpoint_every == 0 or last:
@@ -204,6 +220,12 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
 # the model axis's collectives, logged beside grad_all_reduces
 _GATHER_COUNTS = ("channel_gathers", "channel_gather_bytes",
                   "input_grad_all_reduces", "model_grad_reduces")
+# the spatial axis's row exchanges (parallel/spatial.py), their buffer
+# bytes, and the steps that ran unsharded
+_ROW_BYTES = ("halo_bytes", "row_gather_bytes", "spill_bytes",
+              "row_reduce_bytes", "band_sum_bytes")
+_ROW_COUNTS = ("halo_exchanges", "row_gathers", "spill_adds", "row_reduces",
+               "band_sums", "unsharded_steps") + _ROW_BYTES
 
 
 @torch.no_grad()
@@ -223,9 +245,7 @@ def _dump_samples(cfg: Config, state, writer: MetricsWriter, step: int,
     batch = make_train_batch(
         images, stream_generator(cfg.train.seed, STREAM_EVAL, step),
         cfg.mask)
-    gen = eval_step.generator
-    gen.load_state_dict(ema_generator_params(state))
-    out = gen(batch.masked, batch.mask).fine.float()
+    out = eval_step.generate(ema_generator_params(state), batch).float()
     comp = composite(out, batch.image, batch.mask)
     grid = torch.cat([denormalize(t) for t in (batch.masked, out, comp,
                                                batch.image)], dim=2)

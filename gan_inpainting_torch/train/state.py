@@ -134,12 +134,12 @@ def create_state(cfg: Config, seed: int | None = None,
                  device: str | torch.device | None = None) -> GANTrainState:
     """Initialize G, D (seeded), the optimizers and the EMA for a config, on
     ``device`` (CUDA unless the caller asks for another), equal on every
-    rank. ``train.mesh`` must cover the world as ``data × model``
-    (``ValueError`` otherwise; ``NotImplementedError`` for a spatial axis,
-    which the port serves over but does not train over yet:
-    ``parallel/mesh.py``); with ``model.tp_shard`` the generator is
-    channel-sharded over this rank's model group (``use_mesh``), its
-    parameters whole."""
+    rank. ``train.mesh`` must cover the world as ``data × model ×
+    spatial`` (``ValueError`` otherwise, ``parallel/mesh.py``); with
+    ``model.tp_shard`` the generator is channel-sharded over this rank's
+    model group (``use_mesh``), its parameters whole. Over a spatial axis
+    the modules stay whole: the train step puts them on the row bands of
+    this rank's spatial group for each batch that splits."""
     train_mesh(cfg.train.mesh, world())
     group = use_mesh(cfg.train.mesh)
     device = resolve_device(device)

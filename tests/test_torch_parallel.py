@@ -339,7 +339,8 @@ def test_mesh_resolve_matches_jax(mesh, n, want):
     """The cases of tests/distributed/test_mesh_parity.py::
     test_mesh_construction through both packages' ``resolve``; the port
     builds every mesh for serving, its devices the first data × model ×
-    spatial in order, and refuses to train over a spatial axis."""
+    spatial in order, and trains over it (a spatial axis included) with
+    the same layout of the ranks."""
     from gan_inpainting_tpu.parallel.mesh import MeshConfig as JMeshConfig
 
     if want is ValueError:
@@ -353,9 +354,11 @@ def test_mesh_resolve_matches_jax(mesh, n, want):
     built = build_mesh(MeshConfig(**mesh), devices)
     assert (built.data, len(built.devices)) == (
         want[0], want[0] * want[1] * want[2])
-    if want[2] > 1:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            train_mesh(MeshConfig(**mesh), n)
+    if want[0] * want[1] * want[2] == n:
+        ranks = train_mesh(MeshConfig(**mesh), n)
+        assert (ranks.data, ranks.model, ranks.spatial) == want
+        assert ranks.groups == build_mesh(MeshConfig(**mesh),
+                                          range(n)).groups
 
 
 def test_process_batch_slice_one_process(monkeypatch):

@@ -81,7 +81,8 @@ def test_spatial_mesh_layout_matches_jax(axes):
     """build_mesh with a spatial axis against the JAX package's
     ``build_mesh(...).devices``: the same axis sizes and, per data index,
     the same devices in member order (spatial index fastest, then model);
-    ``train_mesh`` refuses the axis, naming its ROADMAP item."""
+    ``train_mesh`` over data × model × spatial ranks lays the ranks out
+    the same way, and over more ranks raises."""
     import jax
 
     from gan_inpainting_tpu.parallel.mesh import MeshConfig as JMesh
@@ -99,16 +100,27 @@ def test_spatial_mesh_layout_matches_jax(axes):
         for row in jmesh.devices)
     for r, dev in enumerate(built.groups[0]):
         assert jmesh.devices[0, r // s, r % s].id == dev
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        train_mesh(cfg, 8)
+    ranks = train_mesh(cfg, d * m * s)
+    assert (ranks.data, ranks.model, ranks.spatial) == axes
+    assert ranks.groups == built.groups
+    if d * m * s < 8:
+        with pytest.raises(ValueError, match="data must be -1 or 2"):
+            train_mesh(cfg, 8)
 
 
 def test_evaluate_refuses_the_spatial_axis():
+    """``evaluate`` of a spatial config in one process (no ranks, as
+    without torchrun) evaluates the whole map on its one device: the
+    numbers of the same config without the axis (the ranks' evaluate over
+    the axis is in tests/test_torch_spatial_train.py)."""
+    from gan_inpainting_torch.models.generator import build_generator
     from gan_inpainting_torch.train.evaluate import evaluate
 
-    cfg = _cfg(["train.mesh.spatial=2"])
-    with pytest.raises(NotImplementedError, match="cannot evaluate"):
-        evaluate(cfg, {}, device="cpu")
+    one = _cfg(["eval.metrics=psnr,ssim"])
+    cfg = _cfg(["eval.metrics=psnr,ssim", "train.mesh.spatial=2"])
+    sd = build_generator(one.model, device="cpu", seed=2).state_dict()
+    assert evaluate(cfg, sd, device="cpu") == evaluate(one, sd,
+                                                       device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -507,10 +519,19 @@ def test_spatial_group_failure_raises_and_recovers():
 
 
 def test_spatial_exchanges_refuse_a_gradient():
+    """The exchanges carry gradients now (their transposes are held
+    against whole-map autograd in tests/test_torch_spatial_train.py): on
+    a group of one, a halo's backward drops the zero rows beyond the map
+    and a gather's is the identity."""
+    from gan_inpainting_torch.parallel.spatial import gather_rows, halo
+
     group = ThreadSpatialGroup.members(1)[0]
-    x = torch.zeros(1, 2, 2, 1, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        group.halo(x, 1, 1)
+    x = torch.arange(4.0).reshape(1, 2, 2, 1).requires_grad_(True)
+    y = halo(x, group, 1, 1)
+    assert y.shape == (1, 4, 2, 1) and y.requires_grad
+    (g,) = torch.autograd.grad((y * y).sum() + gather_rows(x, group).sum(),
+                               x)
+    assert torch.equal(g, 2 * x.detach() + 1)
 
 
 def test_cli_infer_over_a_spatial_group(tmp_path):

@@ -387,7 +387,7 @@ def test_mesh_above_one_device_raises(tiny_config, tmp_path, mesh):
     err, match = {
         "data=2": (ValueError, "needs more than the 1"),
         "model=2": (ValueError, "not divisible by model"),
-        "spatial=4": (NotImplementedError, "ROADMAP Queue 1 item 3"),
+        "spatial=4": (ValueError, r"not divisible by model\*spatial=4"),
     }[mesh]
     for fn in (lambda: create_state(cfg, device="cpu"),
                lambda: train(cfg, device="cpu", verbose=False)):
