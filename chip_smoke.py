@@ -176,11 +176,24 @@ Phases (each prints its lines; any failure exits non-zero):
    rows, with their times, the plain backward's, SDPA's autograd
    backward and the bounds; (c) ``evaluate`` (float32, 256², two batches)
    over the group against one process;
-15. one JSON line of per-kernel numbers (with the service's under
+15. the bench module and CLI command (``gan_inpainting_torch/bench.py``):
+   (a) ``bench --config serve_v4_8 --mode infer`` (32×256²) and ``bench
+   --mode train data.batch_size=32`` (``celeba128_center``) through
+   ``cli.main`` in this process, each one JSON line with the JAX bench's
+   keys and a finite, positive value; (b) ``bench_infer`` of
+   ``serve_v4_8`` at 128×256², 10 batches, 2 warm passes (the infer256
+   point of the top-level ``bench.py``): the fused attention and the fold
+   launched once per forward, the body's known pixels bit-exact on a pool
+   batch, img/s beside phase [3]'s device forward; (c) ``bench_train`` of
+   ``places512_deepfill`` (8×512², 4 runs of 10 steps, each from step 0
+   with its R1 pass): launches per step as phase [4]'s, steps/s beside
+   [4]'s step without R1;
+16. one JSON line of per-kernel numbers (with the service's under
    ``"service"``, phase 9's under ``"file_data"``, phase 10's under
    ``"data_parallel"``, phase 11's under ``"aot"``, phase 12's under
-   ``"model_axis"``, phase 13's under ``"spatial_axis"`` and phase 14's
-   under ``"spatial_training"``), then the result line.
+   ``"model_axis"``, phase 13's under ``"spatial_axis"``, phase 14's
+   under ``"spatial_training"`` and phase 15's under ``"bench"``), then
+   the result line.
 
 Phase 2 also holds the three patch-attention kernels (forward, dQ, dK/dV)
 against their plain versions at the full widths (d 1728, dv 3072) at L
@@ -1369,8 +1382,8 @@ def train(torch, smi):
     print(f"[4] two bf16 runs of 3 steps from one seed on the card: "
           f"generator parameters bit-identical: {repeat} (max abs diff "
           f"{drift:.3e})")
-    return dict(launches_512=launches_512, launches_256=launches_256,
-                ms_512=ms_512, ms_256=ms_256, parts_512=parts_512,
+    return dict(launches_512=launches_512, steps_512=n_steps,
+                launches_256=launches_256, ms_512=ms_512, ms_256=ms_256, parts_512=parts_512,
                 parts_256=parts_256, gated_turns_512=gated_turns,
                 gated_launches_512=gated_launches)
 
@@ -1471,7 +1484,7 @@ def serve(torch, rng, smi):
     print(f"[3] serve 64x256² bf16: {64 / dt:.1f} img/s through "
           f"inpaint_batch (host uint8 in/out), device forward "
           f"{fwd_ms:.2f} ms = {64e3 / fwd_ms:.1f} img/s | {smi}")
-    return at_256, at_512, (*data["1x256"], b)
+    return at_256, at_512, (*data["1x256"], b), 64e3 / fwd_ms
 
 
 def _known_exact(out, imgs, masks, what):
@@ -5160,6 +5173,184 @@ def spatial_training(torch, smi, ref):
     return dict(train_2048=a, kernels=b, phase_s=wall)
 
 
+# the bench module's returned keys (gan_inpainting_tpu/bench.py:98-105,
+# :169-176)
+BENCH_INFER_KEYS = {"metric", "value", "unit", "total_images_per_sec",
+                    "batch", "chips"}
+BENCH_TRAIN_KEYS = {"metric", "value", "unit", "images_per_sec", "batch",
+                    "chips"}
+# (b): the infer256 operating point of the top-level bench.py (:134-139)
+BENCH_INFER_POINT = dict(batch=128, iters=10, warmup=2)
+# (c): steps per run; R1 (every 16th step) opens each of the 4 runs, and
+# the same windows are timed again without R1 (step 0 always takes it
+# while γ > 0)
+BENCH_TRAIN_ITERS = 10
+BENCH_NO_R1 = ["loss.r1_gamma=0"]
+
+
+def _bench_command(torch, argv, keys, smi):
+    """``cli.main(argv)`` in this process: one JSON line with ``keys`` and
+    a finite, positive value; the launches of its run."""
+    import contextlib
+    import io
+
+    from gan_inpainting_torch import cli
+    from gan_inpainting_torch.ops import dispatch
+
+    out = io.StringIO()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in dispatch.launches.items() if v}
+    lines = out.getvalue().splitlines()
+    _require(rc == 0 and len(lines) == 1,
+             f"{' '.join(argv)}: rc {rc}, output {lines}")
+    res = json.loads(lines[0])
+    _require(set(res) == keys and np.isfinite(res["value"])
+             and res["value"] > 0, f"{' '.join(argv)}: {res}")
+    print(f"[15] (a) {' '.join(argv)} in {wall:.1f} s: {lines[0]}; "
+          f"launches {launched} | {smi}")
+    return dict(res, launches=launched, wall_s=wall)
+
+
+def bench_phase(torch, smi, serve_ips, step_ms, launches_512, steps_512):
+    """Phase 15: the bench module and CLI command (gan_inpainting_torch/
+    bench.py): (a) ``bench --mode infer|train`` in this process, (b) the
+    top-level bench.py's infer256 point, its launches, and its body on one
+    pool batch against the same weights on the plain route, (c)
+    ``places512_deepfill`` steps/s over windows that open with R1 and over
+    the same windows without it, each launching per step what phase [4]'s
+    ``steps_512`` steps launched (``launches_512``)."""
+    from gan_inpainting_torch import bench
+    from gan_inpainting_torch.configs.base import apply_overrides, get_config
+    from gan_inpainting_torch.models.generator import build_generator
+    from gan_inpainting_torch.losses import adversarial
+    from gan_inpainting_torch.ops import dispatch
+
+    t0 = time.perf_counter()
+    # ---- (a) the command -------------------------------------------------
+    a_infer = _bench_command(torch, ["bench", "--config", "serve_v4_8",
+                                     "--mode", "infer"], BENCH_INFER_KEYS,
+                             smi)
+    a_train = _bench_command(torch, ["bench", "--mode", "train",
+                                     "data.batch_size=32"], BENCH_TRAIN_KEYS,
+                             smi)
+    torch.cuda.empty_cache()
+
+    # ---- (b) infer256: serve_v4_8, 128×256², 10 batches, 2 warm passes ---
+    cfg = get_config("serve_v4_8")
+    point = BENCH_INFER_POINT
+    t_b = time.perf_counter()
+    dispatch.reset_launches()
+    r_b = bench.bench_infer(cfg, **point)
+    torch.cuda.synchronize()
+    launched_b = {k: v for k, v in dispatch.launches.items() if v}
+    wall_b = time.perf_counter() - t_b
+    forwards = (point["warmup"] + 1) * point["iters"]
+    for name in ("contextual_attention_fused", "fold_taps"):
+        _require(launched_b.get(name, 0) == forwards,
+                 f"bench_infer: {name} launched {launched_b.get(name, 0)} "
+                 f"times in {forwards} forwards")
+    _require(set(r_b) == BENCH_INFER_KEYS and np.isfinite(r_b["value"])
+             and r_b["value"] > 0, f"bench_infer: {r_b}")
+    # the body once more on the pool's first batch (the same draws), and
+    # through the same weights on the plain route (model.kernel_backend=
+    # xla: no kernel launched), holes within ±2 on ≥ 99.9 % as in [5]
+    state = bench.create_state(cfg, seed=0, device="cuda")
+    plain = build_generator(cfg.model, device="cuda", backend="xla")
+    plain.load_state_dict(state.generator.state_dict())
+    images, masks = bench.make_pool(cfg, point["batch"], 1,
+                                    torch.device("cuda"))
+    with torch.inference_mode():
+        out = bench.bench_forward(state.generator.eval(), images[0],
+                                  masks[0])
+        dispatch.reset_launches()
+        want = bench.bench_forward(plain.eval(), images[0], masks[0])
+        torch.cuda.synchronize()
+    _require(not any(dispatch.launches.values()),
+             f"the plain route launched {dict(dispatch.launches)}")
+    keep = (masks[0] <= 0).expand_as(images[0])
+    _require(torch.equal(out[keep], images[0][keep]),
+             "bench body changed known pixels")
+    agree = _hole_agreement(out.cpu().numpy(), want.cpu().numpy(),
+                            masks[0, ..., 0].cpu().numpy())
+    _require(agree["within_2"] >= 0.999,
+             f"bench body against the plain route: {agree}")
+    del state, plain, images, masks, out, want, keep
+    torch.cuda.empty_cache()
+    print(f"[15] (b) bench_infer serve_v4_8 {point['batch']}x256² bf16, "
+          f"{point['iters']} batches, {point['warmup']} warm passes, in "
+          f"{wall_b:.1f} s: {r_b['value']:.1f} img/s (phase [3]'s device "
+          f"forward at 64x256²: {serve_ips:.1f} img/s); launches "
+          f"{launched_b}; known pixels bit-exact; holes against the plain "
+          f"route {agree} | {smi}")
+
+    # ---- (c) places512_deepfill, 8×512², 4 runs of 10 steps from 0 -------
+    # with R1 at step 0 of each run, then the same runs without R1
+    r1_calls = []
+    r1_penalty = adversarial.r1_penalty
+
+    def counted(*args, **kwargs):
+        r1_calls.append(1)
+        return r1_penalty(*args, **kwargs)
+
+    steps = 4 * BENCH_TRAIN_ITERS
+    # what [4]'s steps launched, scaled to the bench's 40 (R1 launches no
+    # ported kernel: D has no attention)
+    want = {k: v * steps // steps_512 for k, v in launches_512.items() if v}
+    _require(all(v * steps % steps_512 == 0 for v in launches_512.values()),
+             f"phase [4]'s launches are not per step: {launches_512}")
+    runs = {}
+    for case, over in (("r1", []), ("no_r1", BENCH_NO_R1)):
+        cfg = apply_overrides(get_config("places512_deepfill"), over)
+        r1_calls.clear()
+        t_c = time.perf_counter()
+        dispatch.reset_launches()
+        adversarial.r1_penalty = counted
+        try:
+            r_c = bench.bench_train(cfg, iters=BENCH_TRAIN_ITERS)
+        finally:
+            adversarial.r1_penalty = r1_penalty
+        torch.cuda.synchronize()
+        launched_c = {k: v for k, v in dispatch.launches.items() if v}
+        wall_c = time.perf_counter() - t_c
+        _require(launched_c == want,
+                 f"bench_train ({case}): launches {launched_c} in {steps} "
+                 f"steps, phase [4]'s per step give {want}")
+        n_r1 = 4 if case == "r1" else 0
+        _require(len(r1_calls) == n_r1, f"bench_train ({case}): "
+                 f"{len(r1_calls)} R1 passes in 4 runs, expected {n_r1}")
+        _require(set(r_c) == BENCH_TRAIN_KEYS and np.isfinite(r_c["value"])
+                 and r_c["value"] > 0, f"bench_train ({case}): {r_c}")
+        ms = 1e3 / r_c["value"]
+        runs[case] = dict(r_c, launches=launched_c, wall_s=wall_c,
+                          r1_passes=len(r1_calls), ms_per_step=ms)
+        print(f"[15] (c) bench_train places512_deepfill {case} "
+              f"{cfg.data.batch_size}x512² bf16, best of 3 runs of "
+              f"{BENCH_TRAIN_ITERS} steps (R1 γ {cfg.loss.r1_gamma} every "
+              f"{cfg.loss.r1_interval}) "
+              f"in {wall_c:.1f} s: {r_c['value']:.3f} steps/s = {ms:.1f} "
+              f"ms/step; launches {launched_c} | {smi}")
+    r1_ms = BENCH_TRAIN_ITERS * (runs["r1"]["ms_per_step"]
+                                 - runs["no_r1"]["ms_per_step"])
+    print(f"[15] (c) R1 costs the window {r1_ms:.1f} ms (R1 window − window "
+          f"without R1); phase [4]'s step without R1: {step_ms:.1f} ms, the "
+          f"bench's {runs['no_r1']['ms_per_step']:.1f} ms | {smi}")
+    wall = time.perf_counter() - t0
+    print(f"[15] phase 15 took {wall:.1f} s")
+    return dict(cli_infer_256_b32=a_infer, cli_train_128_b32=a_train,
+                infer_256_b128=dict(r_b, launches=launched_b, wall_s=wall_b,
+                                    serve_64x256_forward_img_s=serve_ips,
+                                    holes_vs_plain=agree),
+                train_512_b8=dict(runs["r1"],
+                                  no_r1=runs["no_r1"],
+                                  r1_ms_per_window=r1_ms,
+                                  phase4_no_r1_ms_per_step=step_ms),
+                phase_s=wall)
+
+
 def main() -> int:
     import torch
 
@@ -5281,7 +5472,7 @@ def main() -> int:
     patch = check_patch_kernels(torch, smi)
     routes = compare_routes(torch, smi)
     lap("[2] kernels")
-    at_256, at_512, (img1, msk1, cpu_f32) = serve(torch, rng, smi)
+    at_256, at_512, (img1, msk1, cpu_f32), fwd_ips = serve(torch, rng, smi)
     lap("[3] serve")
     tr = train(torch, smi)
     lap("[4] train")
@@ -5315,6 +5506,16 @@ def main() -> int:
     st = spatial_training(torch, smi, st_ref)
     del st_ref
     lap("[14] spatial training")
+    bn = bench_phase(torch, smi, fwd_ips, tr["ms_512"], tr["launches_512"],
+                     tr["steps_512"])
+    lap("[15] bench")
+
+    def through_bench(kernel, infer=True, train=True):
+        """Launches of ``kernel`` in phase 15's (b) and (c)."""
+        return {"bench_infer_256_b128": bn["infer_256_b128"]["launches"].get(
+                    kernel, 0) if infer else 0,
+                "bench_train_512_b8": bn["train_512_b8"]["launches"].get(
+                    kernel, 0) if train else 0}
 
     def through_spatial(kernel):
         """Launches per forward of ``kernel`` on path I (phase 13), by
@@ -5367,13 +5568,17 @@ def main() -> int:
             launches_service=svc[256]["contextual_attention_fused"],
             launches_aot=through_aot("contextual_attention_fused"),
             launches_model_axis=through_group("contextual_attention_fused"),
+            launches_by_path=through_bench("contextual_attention_fused",
+                                           train=False),
             train_with_lse_ms=bwd256["forward_with_lse_ms"]),
         row("contextual_attention_fused@512", "attention", res512,
             at_512["contextual_attention_fused"], attn_src, f"{tpu_fa}:52",
             launches_train=l512["contextual_attention_fused"],
             launches_service=svc[512]["contextual_attention_fused"],
             launches_file_train=fl["contextual_attention_fused"],
-            launches_by_path=by_path("contextual_attention_fused"),
+            launches_by_path={
+                **by_path("contextual_attention_fused"),
+                **through_bench("contextual_attention_fused", infer=False)},
             launches_aot=through_aot("contextual_attention_fused"),
             train_with_lse_ms=bwd512["forward_with_lse_ms"]),
         # the fold at B 8 (the 256² map) with the 64x256² serve bucket
@@ -5383,13 +5588,15 @@ def main() -> int:
             launches_train=l256["fold_taps"], at_64x256=fold["b64_256"],
             launches_service=svc[256]["fold_taps"],
             launches_aot=through_aot("fold_taps"),
-            launches_model_axis=through_group("fold_taps")),
+            launches_model_axis=through_group("fold_taps"),
+            launches_by_path=through_bench("fold_taps", train=False)),
         row("fold_taps@512train", "b8_512train", fold, at_512["fold_taps"],
             fold_src, "gan_inpainting_tpu/ops/pallas/fold.py:32",
             launches_train=l512["fold_taps"],
             launches_service=svc[512]["fold_taps"],
             launches_file_train=fl["fold_taps"],
-            launches_by_path=by_path("fold_taps"),
+            launches_by_path={**by_path("fold_taps"),
+                              **through_bench("fold_taps", infer=False)},
             launches_aot=through_aot("fold_taps")),
         # the fused backward: rows 4 (δ, the score tiles and the dQ
         # products; "replaces" _bwd_dq_kernel) and 5 (the dK/dV products),
@@ -5403,7 +5610,7 @@ def main() -> int:
             f"{tpu_bwd}:{223 if kname == 'dkv' else 148}",
             at_512train=dict(bwd512[kname], launches=l512.get(name, 0)),
             launches_file_train=fl.get(name, 0),
-            launches_by_path=by_path(name)))
+            launches_by_path={**by_path(name), **through_bench(name)}))
     # the tap-gradient fold: the scatter that _bwd_dq_kernel (:148) and
     # _bwd_dkv_kernel (:223) do in-kernel, with the XLA halo merge and
     # norm correction (:311, :328)
@@ -5413,7 +5620,8 @@ def main() -> int:
         f"{tpu_bwd}:148", scatter_of=[f"{tpu_bwd}:{n}" for n in (
             148, 223, 311, 328)],
         at_512train=dict(bwd512["fold"], launches=l512.get(name, 0)),
-        launches_file_train=fl.get(name, 0), launches_by_path=by_path(name)))
+        launches_file_train=fl.get(name, 0),
+        launches_by_path={**by_path(name), **through_bench(name)}))
     kernels += [
         # launches: path A's three requests (two forwards with the fused
         # decoder, one without) and path B's three
@@ -5508,7 +5716,7 @@ def main() -> int:
                          "partialconv256": path_b["rates"]},
         "service": service, "file_data": files, "data_parallel": dp,
         "aot": aot, "model_axis": ma, "spatial_axis": sp,
-        "spatial_training": st, "phase_end_s": ends}))
+        "spatial_training": st, "bench": bn, "phase_end_s": ends}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

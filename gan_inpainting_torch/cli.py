@@ -2,33 +2,35 @@
 DEV] [section.key=value ...]``.
 
 Subcommands: ``configs``, ``train``, ``eval``, ``infer``, ``export``,
-``mask``, ``serve``, ``profile`` and ``parity``, with the JAX package's
-flags. Every command but ``configs`` runs on the CUDA card unless
+``mask``, ``serve``, ``profile``, ``parity`` and ``bench``, with the JAX
+package's flags. Every command but ``configs`` runs on the CUDA card unless
 ``--device`` names another device, and raises when there is no card and
 none is named (``export`` only moves weights between files, but checks
 the same). ``export --aot`` writes an AOT serving artifact (io/aot.py:
 one ``torch.export`` program per bucket beside the weights), and ``infer
---aot DIR`` / ``serve --aot DIR`` serve from one. The ``bench`` command is
-not ported yet (ROADMAP Queue 1).
+--aot DIR`` / ``serve --aot DIR`` serve from one. ``bench --mode
+infer|train`` prints one JSON line of throughput (bench.py): inpainted
+images/sec of the config's generator, or its G+D train steps/sec.
 
 Cards: ``torchrun --nproc-per-node N -m gan_inpainting_torch train ...``
 trains over N cards, one rank each (``eval`` under ``torchrun`` reduces
-over its ranks the same way); only rank 0 prints. ``serve`` and ``infer``
-serve over every local card of the config's mesh unless ``--device`` pins
-one; ``eval`` without ``torchrun`` runs on one card. The overrides
-``train.mesh.model=M model.tp_shard=true`` add the mesh's model axis: the
-N ranks form N / M model groups of M neighbouring cards that train one
-batch slice each with the generator's convs channel-sharded over the
-group, and ``serve`` / ``infer`` run each replica over a group of M cards
-(with ``--device``, M members on that one device). ``serve`` and
-``infer`` also take ``train.mesh.spatial=S``: each replica splits a
-request's rows over S cards (parallel/spatial.py), and an S that needs
-more than the local cards raises the mesh's ``ValueError``; with
-``--device`` the S members share that device. ``train`` and ``eval``
-take it under ``torchrun --nproc-per-node D·M·S``: each group of S
-neighbouring ranks trains (evaluates) one batch slice, every rank on one
-row band of every activation, the row exchanges and their gradients
-passed between the ranks (train/step.py).
+over its ranks the same way, ``bench --mode train`` times the ranks'
+steps, ``bench --mode infer`` one card per rank); only rank 0 prints.
+``serve`` and ``infer`` serve over every local card of the config's mesh
+unless ``--device`` pins one; ``eval`` without ``torchrun`` runs on one
+card. The overrides ``train.mesh.model=M model.tp_shard=true`` add the
+mesh's model axis: the N ranks form N / M model groups of M neighbouring
+cards that train one batch slice each with the generator's convs
+channel-sharded over the group, and ``serve`` / ``infer`` run each
+replica over a group of M cards (with ``--device``, M members on that
+one device). ``serve`` and ``infer`` also take ``train.mesh.spatial=S``:
+each replica splits a request's rows over S cards (parallel/spatial.py),
+and an S that needs more than the local cards raises the mesh's
+``ValueError``; with ``--device`` the S members share that device.
+``train`` and ``eval`` take it under ``torchrun --nproc-per-node
+D·M·S``: each group of S neighbouring ranks trains (evaluates) one batch
+slice, every rank on one row band of every activation, the row exchanges
+and their gradients passed between the ranks (train/step.py).
 """
 
 from __future__ import annotations
@@ -162,6 +164,13 @@ def _parser() -> argparse.ArgumentParser:
     p_par.add_argument("--device", default=None,
                        help="torch device; default: CUDA, and an error when "
                        "there is none")
+
+    p_bench = sub.add_parser(
+        "bench", help="throughput: inpaint images/sec or G+D train "
+        "steps/sec (bench.py), one JSON line")
+    _add_common(p_bench)
+    p_bench.add_argument("--mode", choices=["infer", "train"],
+                         default="infer")
     return parser
 
 
@@ -214,7 +223,7 @@ def main(argv=None) -> int:
 
     cfg = apply_overrides(get_config(args.config), args.overrides)
 
-    if args.cmd in ("train", "eval"):
+    if args.cmd in ("train", "eval", "bench"):
         from gan_inpainting_torch.parallel import multihost
 
         joined = not multihost.initialized()
@@ -224,6 +233,12 @@ def main(argv=None) -> int:
                 from gan_inpainting_torch.train.loop import train
 
                 train(cfg, resume=not args.no_resume, device=device)
+            elif args.cmd == "bench":
+                from gan_inpainting_torch.bench import run_bench
+
+                res = run_bench(cfg, mode=args.mode, device=device)
+                if multihost.is_main():
+                    print(json.dumps(res))
             else:
                 from gan_inpainting_torch.train.evaluate import evaluate
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import json
 import pathlib
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,6 +43,7 @@ from gan_inpainting_torch.parallel.sharding import (
 )
 from gan_inpainting_torch.train.evaluate import evaluate, make_eval_step
 from gan_inpainting_torch.train.state import (
+    GANTrainState,
     broadcast_state,
     create_state,
     ema_generator_params,
@@ -53,6 +55,33 @@ from gan_inpainting_torch.utils.rng import (
     STREAM_MASKS,
     stream_generator,
 )
+
+
+class RankSetup(NamedTuple):
+    device: torch.device
+    n_ranks: int
+    local_batch: int    # this rank's rows of ``data.batch_size``
+    seed_offset: int    # added to ``train.seed`` for its data stream
+    state: GANTrainState
+
+
+def setup_rank(cfg: Config, device: str | torch.device | None = None,
+               seed: int | None = None) -> RankSetup:
+    """This rank's side of a training run, as ``train`` and
+    ``bench.bench_train`` start one: the device (CUDA unless the caller
+    asks for another), the process group where ``torchrun`` launched one,
+    ``train.mesh``'s groups, this rank's slice of the global batch, and
+    the state drawn from ``seed`` (``train.seed`` when None)."""
+    device = resolve_device(device)
+    n_ranks = ensure_initialized(device)
+    use_mesh(cfg.train.mesh)
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)   # the eager ops between the kernels
+    # each rank feeds its slice of the global batch from a stream of its
+    # own; one process takes the whole batch with the seed untouched
+    local_batch, seed_offset = process_batch_slice(cfg.data.batch_size)
+    state = create_state(cfg, seed=seed, device=device)
+    return RankSetup(device, n_ranks, local_batch, seed_offset, state)
 
 
 def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
@@ -77,17 +106,10 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
     (train/step.py); the record then counts the row exchanges, their
     bytes and the steps that ran unsharded, and the sample grid holds the
     whole images."""
-    device = resolve_device(device)
-    n_ranks = ensure_initialized(device)
-    use_mesh(cfg.train.mesh)
+    device, n_ranks, local_batch, seed_offset, state = setup_rank(
+        cfg, device)
     main = is_main()
     verbose = verbose and main
-    if device.type == "cuda" and device.index is not None:
-        torch.cuda.set_device(device)   # the eager ops between the kernels
-    # each rank feeds its slice of the global batch from a stream of its
-    # own; one process takes the whole batch with the seed untouched
-    local_batch, seed_offset = process_batch_slice(cfg.data.batch_size)
-    state = create_state(cfg, device=device)
     ckpt = CheckpointManager(cfg.train.workdir, cfg.train.max_checkpoints)
     barrier()                   # no rank looks before every rank is here
     if resume and ckpt.latest_step() is not None:

@@ -18,7 +18,7 @@ from gan_inpainting_torch.io.export import export_generator
 from gan_inpainting_torch.models.generator import build_generator
 
 COMMANDS = ("configs", "train", "eval", "infer", "export", "mask", "serve",
-            "profile", "parity")
+            "profile", "parity", "bench")
 # celebahq256_freeform with attention at width 8 (eval.metrics has swd)
 TINY = ["model.base_features=8", "model.disc_features=8",
         "model.use_attention=true", "model.dtype_policy=f32",
@@ -64,6 +64,7 @@ def test_help_lists_every_command(capsys):
 @pytest.mark.parametrize("argv", [
     ["train"], ["eval"], ["export", "--output", "g.npz"],
     ["mask", "--output", "m.png"], ["serve"], ["profile"], ["parity"],
+    ["bench"],
     ["infer", "--image", "i.png", "--mask", "m.png", "--output", "o.png"],
 ], ids=lambda a: a[0])
 def test_commands_raise_without_cuda(monkeypatch, argv):
@@ -77,6 +78,25 @@ def test_configs_lists_all(capsys):
     out = capsys.readouterr().out.split()
     assert {"celeba128_center", "celebahq256_freeform", "places512_deepfill",
             "places512_sn_vgg", "serve_v4_8", "partialconv256"} <= set(out)
+
+
+def test_bench_prints_one_json_line(capsys):
+    assert main(["bench", "--config", "celebahq256_freeform", "--device",
+                 "cpu", "--mode", "infer", *TINY]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    res = json.loads(lines[0])
+    assert set(res) == {"metric", "value", "unit", "total_images_per_sec",
+                        "batch", "chips"}
+    assert res["metric"] == "32x32 inpaint images/sec/chip"
+    assert res["value"] > 0 and res["batch"] == 32 and res["chips"] == 1
+
+
+def test_bench_refuses_another_mode(capsys):
+    with pytest.raises(SystemExit) as exit_info:
+        main(["bench", "--device", "cpu", "--mode", "eval"])
+    assert exit_info.value.code == 2
+    assert "invalid choice: 'eval'" in capsys.readouterr().err
 
 
 def test_mask_subcommand(tmp_path):

@@ -43,7 +43,8 @@ def test_port_imports_no_jax():
                      "ops.kernels.gated_matmul", "losses.perceptual",
                      "tools.profile_serve", "ops.kernels.patch_attention",
                      "parallel.mesh", "parallel.multihost",
-                     "parallel.sharding", "io.aot", "ops.kernels.library"):
+                     "parallel.sharding", "io.aot", "ops.kernels.library",
+                     "bench"):
             assert "gan_inpainting_torch." + name in sys.modules, name
         assert set(build.SOURCES) >= {"gated_conv", "partial_epilogue",
                                       "patch_attention"}
@@ -66,6 +67,40 @@ def test_port_imports_no_jax():
     """)
     assert res.returncode == 0, res.stderr
     assert "clean" in res.stdout
+
+
+def _modules(root: Path) -> list[str]:
+    return sorted(".".join(p.relative_to(root).with_suffix("").parts)
+                  for p in root.rglob("*.py") if p.name != "__init__.py")
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each module of the JAX package has one in the port, under the same
+    name; a Pallas module ``ops/pallas/X.py`` maps to ``ops/kernels/X.py``,
+    or to the kernel modules whose docstring names it as what they
+    replace (``fused_matmul.py``'s two kernels have a module each)."""
+    import ast
+
+    jax_root = REPO / "gan_inpainting_tpu"
+    port_root = REPO / "gan_inpainting_torch"
+    port = set(_modules(port_root))
+    kernel_docs = {
+        name: ast.get_docstring(ast.parse((port_root / "ops" / "kernels"
+                                           / f"{name}.py").read_text())) or ""
+        for name in (m.split(".")[-1] for m in port
+                     if m.startswith("ops.kernels."))}
+    missing = []
+    for mod in _modules(jax_root):
+        if mod.startswith("ops.pallas."):
+            name = mod.split(".")[-1]
+            source = f"gan_inpainting_tpu/ops/pallas/{name}.py"
+            if name not in kernel_docs and not any(
+                    source in " ".join(doc.split())
+                    for doc in kernel_docs.values()):
+                missing.append(mod)
+        elif mod not in port:
+            missing.append(mod)
+    assert not missing, missing
 
 
 def test_chip_smoke_refuses_without_a_card():
