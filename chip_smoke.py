@@ -1136,22 +1136,19 @@ def _train_setup(torch, name, overrides, device="cuda", n_batches=2):
 
 def _timed_steps(torch, step_fn, state, batches, n):
     """steps/s over n steps without the R1 pass, and the phases' ms."""
-    from gan_inpainting_torch.ops import dispatch
-    from gan_inpainting_torch.tools.profile_train import (
-        SectionTimer,
-        time_steps,
-    )
+    from gan_inpainting_torch.tools.profile_train import time_steps
+    from gan_inpainting_torch.utils.spans import SpanRecorder, set_section_hook
 
     at = state.step
     state.step = 1
     ms = time_steps(step_fn, state, batches, n)
-    timer = SectionTimer()
-    dispatch.set_section_hook(timer)
+    recorder = SpanRecorder(events=True)
+    set_section_hook(recorder)
     state.step = 1
     for i in range(n):
         step_fn(state, batches[i % len(batches)])
-    parts = {k: v / n for k, v in timer.totals().items()}
-    dispatch.set_section_hook(None)
+    set_section_hook(None)
+    parts = {k: v / n for k, v in recorder.device_ms().items()}
     state.step = at
     return ms, parts
 

@@ -22,6 +22,7 @@ import torch
 
 from gan_inpainting_torch.configs.base import MaskConfig
 from gan_inpainting_torch.utils.rng import uniform
+from gan_inpainting_torch.utils.spans import section, transfer
 
 
 def _pixel_grid(height: int, width: int, device):
@@ -40,8 +41,8 @@ def rect_mask(y0, x0, hole_h: float, hole_w: float, height: int, width: int,
     """Rasterize rectangles [y0, y0+hole_h) × [x0, x0+hole_w): y0, x0 (B,)
     → (B, H, W, 1) float32 in {0, 1}."""
     ys, xs = _pixel_grid(height, width, device)
-    y0 = torch.as_tensor(y0, dtype=torch.float32, device=device)
-    x0 = torch.as_tensor(x0, dtype=torch.float32, device=device)
+    y0, x0 = (transfer(torch.as_tensor(t, dtype=torch.float32), device)
+              for t in (y0, x0))
     y0, x0 = y0.reshape(-1, 1, 1), x0.reshape(-1, 1, 1)
     inside = ((ys >= y0) & (ys < y0 + hole_h)
               & (xs >= x0) & (xs < x0 + hole_w))
@@ -144,9 +145,9 @@ def rasterize_strokes(a, b, w, valid, height: int, width: int,
     """Capsule rasterization: (B, S, …) segments → (B, H, W, 1) float32 in
     {0, 1}. A pixel is hit by segment i iff its squared distance to the
     segment is at most (w_i / 2)² and the segment is valid."""
-    a, b, w = (torch.as_tensor(t, dtype=torch.float32, device=device)
+    a, b, w = (transfer(torch.as_tensor(t, dtype=torch.float32), device)
                for t in (a, b, w))
-    valid = torch.as_tensor(valid, dtype=torch.bool, device=device)
+    valid = transfer(torch.as_tensor(valid, dtype=torch.bool), device)
     ys, xs = _pixel_grid(height, width, device)
     mask = torch.zeros((a.shape[0], height, width), dtype=torch.bool,
                        device=device)
@@ -169,11 +170,15 @@ def freeform_mask(generator: torch.Generator, height: int, width: int,
                   cfg: MaskConfig, progress: float = 1.0, *, batch: int = 1,
                   device="cpu") -> torch.Tensor:
     """Free-form stroke masks (B, H, W, 1); the curriculum thins early
-    strokes."""
-    a, b, w, valid = stroke_segments(
-        sample_strokes(generator, cfg, height, width, batch), height, width)
-    return rasterize_strokes(a, b, w * difficulty(cfg, progress), valid,
-                             height, width, device)
+    strokes. Spanned as ``batch.mask_draw`` (on the CPU) and
+    ``batch.rasterize``."""
+    with section("batch.mask_draw"):
+        a, b, w, valid = stroke_segments(
+            sample_strokes(generator, cfg, height, width, batch), height,
+            width)
+    with section("batch.rasterize"):
+        return rasterize_strokes(a, b, w * difficulty(cfg, progress), valid,
+                                 height, width, device)
 
 
 def random_mask_batch(generator: torch.Generator, batch: int, height: int,
@@ -195,5 +200,6 @@ def random_mask_batch(generator: torch.Generator, batch: int, height: int,
                                 batch, device)
         fm = freeform_mask(generator, height, width, cfg, progress,
                            batch=batch, device=device)
-        return torch.where(use_ff.to(device)[:, None, None, None], fm, cm)
+        return torch.where(transfer(use_ff, device)[:, None, None, None],
+                           fm, cm)
     raise ValueError(f"unknown mask kind {cfg.kind!r}")

@@ -10,6 +10,7 @@ import torch
 
 from gan_inpainting_torch.configs.base import MaskConfig
 from gan_inpainting_torch.data.masks import random_mask_batch
+from gan_inpainting_torch.utils.spans import section, transfer
 
 
 def normalize(images_u8: torch.Tensor) -> torch.Tensor:
@@ -45,7 +46,15 @@ def make_train_batch(images_u8: torch.Tensor, generator: torch.Generator,
     loader supplies the 9/8 source), normalization, a per-sample horizontal
     ``flip``, fresh masks of the config's kind at the curriculum's
     ``progress``, and ``masked = image · (1 − mask)``. Every draw comes
-    from ``generator`` (CPU), in this order: crop offsets, flips, masks."""
+    from ``generator`` (CPU), in this order: crop offsets, flips, masks.
+    Spanned as ``batch``, the flip as ``batch.flip``."""
+    with section("batch"):
+        return _train_batch(images_u8, generator, mask_cfg, progress, flip,
+                            crop)
+
+
+def _train_batch(images_u8, generator, mask_cfg, progress, flip,
+                 crop) -> Batch:
     b, h, w = images_u8.shape[:3]
     device = images_u8.device
     if crop and (h, w) != (crop, crop):
@@ -59,9 +68,11 @@ def make_train_batch(images_u8: torch.Tensor, generator: torch.Generator,
             for img, y, x in zip(images_u8, oy.tolist(), ox.tolist())])
         h = w = crop
     if flip:
-        bits = torch.rand((b,), generator=generator) < 0.5
-        images_u8 = torch.where(bits.to(device)[:, None, None, None],
-                                images_u8.flip(2), images_u8)
+        with section("batch.flip"):
+            bits = torch.rand((b,), generator=generator) < 0.5
+            images_u8 = torch.where(
+                transfer(bits, device)[:, None, None, None],
+                images_u8.flip(2), images_u8)
     image = normalize(images_u8)
     mask = random_mask_batch(generator, b, h, w, mask_cfg, progress, device)
     return Batch(image=image, mask=mask, masked=image * (1.0 - mask))

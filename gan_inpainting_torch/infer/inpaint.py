@@ -70,6 +70,7 @@ from gan_inpainting_torch.parallel.sharding import (
     _count,
 )
 from gan_inpainting_torch.parallel.spatial import ThreadSpatialGroup, splits
+from gan_inpainting_torch.utils.spans import section, transfer
 
 
 def _bucket(value: int, buckets) -> int:
@@ -345,8 +346,11 @@ class Inpainter:
             # the whole-map forward's cache key is (fuse_upsample,) alone
             fwd = self._forwards[replica][member]
             fwd = fwd(fuse_upsample, True) if rows else fwd(fuse_upsample)
-            return fwd(torch.from_numpy(images_u8).to(dev),
-                       torch.from_numpy(masks).to(dev))
+            with section("inpaint.h2d"):
+                images, masks = (transfer(torch.from_numpy(a), dev)
+                                 for a in (images_u8, masks))
+            with section("inpaint.forward"):
+                return fwd(images, masks)
         except BaseException:
             for group in self._exchanges(replica):
                 group.abort()
@@ -390,13 +394,47 @@ class Inpainter:
                 e, threading.BrokenBarrierError)), errors[0])
         # model index 0's bands: members 0 .. n − 1 (member 0 alone when
         # the bucket ran unsharded)
-        out = [bands[m][:rows].cpu().numpy() for m in range(n) if m in bands]
-        out = out[0] if len(out) == 1 else np.concatenate(out, 1)
-        return out[:, :h, :w, :]
+        with section("inpaint.d2h"):
+            out = [transfer(bands[m][:rows], "cpu").numpy()
+                   for m in range(n) if m in bands]
+        with section("inpaint.crop"):
+            out = out[0] if len(out) == 1 else np.concatenate(out, 1)
+            return out[:, :h, :w, :]
 
     # ------------------------------------------------------------------
     def inpaint_batch(self, images_u8, masks) -> np.ndarray:
-        """Batched API. images: (B,H,W,3) uint8; masks: (B,H,W[,1]), 1=hole."""
+        """Batched API. images: (B,H,W,3) uint8; masks: (B,H,W[,1]), 1=hole.
+        Spanned as ``inpaint.prepare`` (checks, bucket pad),
+        ``inpaint.h2d``, ``inpaint.forward`` (its launch), ``inpaint.d2h``
+        (the wait included) and ``inpaint.crop``."""
+        with section("inpaint.prepare"):
+            images_u8, masks, fuse, b, h, w = self._prepare(images_u8, masks)
+        n = len(self.groups)
+        if n == 1:
+            return self._run(0, fuse, images_u8, masks, b, h, w)
+        shard = len(images_u8) // n
+        futures = []
+        for i, (jobs, _) in enumerate(self._workers):
+            part = slice(i * shard, (i + 1) * shard)
+            fut: Future = Future()
+            rows = min(shard, max(b - i * shard, 0))
+            jobs.put((self._run, (i, fuse, images_u8[part], masks[part],
+                                  rows, h, w), fut))
+            futures.append(fut)
+        # wait for every shard, then raise the first error
+        outs, errors = [], []
+        for fut in futures:
+            try:
+                outs.append(fut.result())
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+        if errors:
+            raise errors[0]
+        return np.concatenate(outs)
+
+    def _prepare(self, images_u8, masks):
+        """The request as arrays padded to its bucket, checked; the size
+        bucket's decoder formulation; the request's (B, H, W)."""
         images_u8 = np.asarray(images_u8, np.uint8)
         masks = np.asarray(masks, np.float32)
         if masks.ndim == 3:
@@ -422,27 +460,7 @@ class Inpainter:
             images_u8 = np.pad(images_u8, reps)
             masks = np.pad(masks, reps)
         fuse = self._cfg_for_size(sb).model.fuse_upsample
-        if n == 1:
-            return self._run(0, fuse, images_u8, masks, b, h, w)
-        shard = bb // n
-        futures = []
-        for i, (jobs, _) in enumerate(self._workers):
-            part = slice(i * shard, (i + 1) * shard)
-            fut: Future = Future()
-            rows = min(shard, max(b - i * shard, 0))
-            jobs.put((self._run, (i, fuse, images_u8[part], masks[part],
-                                  rows, h, w), fut))
-            futures.append(fut)
-        # wait for every shard, then raise the first error
-        outs, errors = [], []
-        for fut in futures:
-            try:
-                outs.append(fut.result())
-            except Exception as e:  # noqa: BLE001 — re-raised below
-                errors.append(e)
-        if errors:
-            raise errors[0]
-        return np.concatenate(outs)
+        return images_u8, masks, fuse, b, h, w
 
     def __call__(self, image, mask) -> np.ndarray:
         """Single-image API: (H,W,3) uint8 + (H,W[,1]) mask → (H,W,3) uint8."""

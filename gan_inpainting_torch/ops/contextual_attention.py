@@ -76,7 +76,6 @@ import torch.nn.functional as F
 from gan_inpainting_torch.ops.dispatch import (
     interpreting,
     resolve_backend,
-    section,
     use_kernel,
 )
 from gan_inpainting_torch.ops.kernels.patch_attention import (
@@ -89,6 +88,7 @@ from gan_inpainting_torch.ops.patches import (
     fold_patches,
 )
 from gan_inpainting_torch.parallel.spatial import add_spill, gather_rows
+from gan_inpainting_torch.utils.spans import section
 
 NEG_INF = -1e9
 

@@ -33,11 +33,6 @@ on any device. The ops' implementations read the one global flag through
 :func:`interpreting` at call time; a kernel without a mirror (the
 partial-conv epilogue) takes its plain version. Routes (fused or patch attention, the backends)
 are chosen as outside the block.
-
-``section(name)`` marks a named stretch of work (the train step's phases,
-the attention backward). It does nothing unless a measuring tool installs
-a hook with ``set_section_hook``: a function ``name -> context manager``
-that, say, records CUDA events around the stretch.
 """
 
 from __future__ import annotations
@@ -166,17 +161,3 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         index = local_device_index(torch.cuda.device_count())
         return torch.device("cuda" if index is None else f"cuda:{index}")
     return torch.device(device)
-
-
-_section_hook = None
-
-
-def set_section_hook(hook) -> None:
-    """Install (or with None remove) the hook behind :func:`section`."""
-    global _section_hook
-    _section_hook = hook
-
-
-def section(name: str):
-    return (contextlib.nullcontext() if _section_hook is None
-            else _section_hook(name))

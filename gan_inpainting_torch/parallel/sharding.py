@@ -68,8 +68,11 @@ a group of one each still issues its collective, whose result equals its
 input. ``counts`` counts the gradient reduces (``all_reduce_mean_``, the
 run's record logs it as ``grad_all_reduces``), the channel gathers and the
 bytes of their buffers, the input-gradient reduces and the model group's
-gradient reduces, the spatial axis's exchanges and their bytes, and the
-forwards and train steps that ran unsharded on a spatial group.
+gradient reduces, the spatial axis's exchanges and their bytes, the
+forwards and train steps that ran unsharded on a spatial group, and the
+blocking copies between host and device in the batch build, the train
+step and ``Inpainter``'s serve call, with their bytes (``host_syncs``,
+``host_sync_bytes``, utils/spans.py).
 """
 
 from __future__ import annotations
@@ -98,7 +101,10 @@ counts: dict[str, int] = {"all_reduce_mean_": 0, "channel_gathers": 0,
                           "spill_adds": 0, "spill_bytes": 0,
                           "row_reduces": 0, "row_reduce_bytes": 0,
                           "band_sums": 0, "band_sum_bytes": 0,
-                          "unsharded_forwards": 0, "unsharded_steps": 0}
+                          "unsharded_forwards": 0, "unsharded_steps": 0,
+                          # blocking host <-> device copies and their
+                          # bytes (utils/spans.py ``transfer``)
+                          "host_syncs": 0, "host_sync_bytes": 0}
 _counts_lock = threading.Lock()   # the members of a thread group
 
 

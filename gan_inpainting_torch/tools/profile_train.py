@@ -9,9 +9,10 @@ overridden), makes synthetic textured batches on the card, warms up
 
 * ms per step and steps/s over ``--steps`` steps (host clock around a
   synchronise), with and without the R1 pass;
-* the step's phases by CUDA events (:class:`SectionTimer` behind
-  ``ops.dispatch.section``): generator forward without gradient, D step,
-  G forward, G backward, the attention backward inside it, optimizers;
+* the step's phases by CUDA events (``utils.spans.SpanRecorder`` with
+  event pairs): generator forward without gradient, D step, G forward,
+  G backward, the attention backward inside it, the optimizers, the
+  EMA, and each phase's host ms net of its blocking copies;
 * device kernels of one step from ``torch.profiler``, grouped as convs,
   elementwise and copies, attention forward, fold, attention backward,
   optimizer, and the top kernels by device time.
@@ -21,36 +22,9 @@ from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
 import time
 
 import torch
-
-
-class SectionTimer:
-    """CUDA events around every :func:`ops.dispatch.section`; nested
-    sections are timed independently. ``totals()`` synchronises."""
-
-    def __init__(self):
-        self.events: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        with torch.profiler.record_function(name):
-            yield
-        end.record()
-        self.events.append((name, start, end))
-
-    def totals(self) -> dict[str, float]:
-        torch.cuda.synchronize()
-        out: dict[str, float] = collections.defaultdict(float)
-        for name, start, end in self.events:
-            out[name] += start.elapsed_time(end)
-        self.events.clear()
-        return dict(out)
 
 
 def category(kernel: str) -> str:
@@ -99,10 +73,10 @@ def main(argv=None) -> None:
     from gan_inpainting_torch.configs.base import apply_overrides, get_config
     from gan_inpainting_torch.data.loader import make_dataset
     from gan_inpainting_torch.data.pipeline import make_train_batch
-    from gan_inpainting_torch.ops import dispatch
     from gan_inpainting_torch.train.state import create_state
     from gan_inpainting_torch.train.step import make_train_step
     from gan_inpainting_torch.utils.rng import STREAM_MASKS, stream_generator
+    from gan_inpainting_torch.utils.spans import SpanRecorder, set_section_hook
 
     cfg = apply_overrides(get_config(args.config),
                           ["data.synthetic_family=textured"] + args.overrides)
@@ -133,25 +107,29 @@ def main(argv=None) -> None:
         print(f"step with R1 (every {k}th): {ms_r1:.1f} ms; mean over an "
               f"R1 period {mean:.1f} ms = {1e3 / mean:.3f} steps/s")
 
-    timer = SectionTimer()
-    dispatch.set_section_hook(timer)
+    recorder = SpanRecorder(events=True)
+    set_section_hook(recorder)
     state.step = 1
     for i in range(args.steps):
         step_fn(state, batches[i % 2])
-    parts = {n: t / args.steps for n, t in timer.totals().items()}
+    set_section_hook(None)
+    parts = {n: t / args.steps for n, t in recorder.device_ms().items()}
     print("phases, ms per step (CUDA events; attention_backward lies "
           "inside g_backward): "
           + ", ".join(f"{n} {t:.1f}" for n, t in parts.items()))
+    host = recorder.summary()["spans"]
+    print("phases, host ms per step net of the blocking copies inside "
+          "them: " + ", ".join(
+              f"{n} {1e3 * v['net_of_sync_s'] / args.steps:.1f}"
+              for n, v in host.items()))
 
     state.step = 1
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step_fn(state, batches[0])
         torch.cuda.synchronize()
-    dispatch.set_section_hook(None)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.name.startswith(("g_", "d_step", "optimizer",
-                                          "attention_backward"))]
+               and not getattr(e, "is_user_annotation", False)]
     by_cat: collections.Counter = collections.Counter()
     for e in kernels:
         by_cat[category(e.name)] += e.time_range.elapsed_us() / 1e3

@@ -194,6 +194,10 @@ def train(cfg: Config, *, resume: bool = True, verbose: bool = True,
                     scalars["row_exchange_bytes_per_step"] = sum(
                         counts[k] - window[k] for k in _ROW_BYTES) / max(
                         next_step - window["_step"], 1)
+                # blocking host <-> device copies of the batch and the step
+                scalars["host_syncs_per_step"] = (
+                    counts["host_syncs"] - window["host_syncs"]) / max(
+                    next_step - window["_step"], 1)
                 window = dict(counts, _step=next_step)
                 if main:
                     writer.scalars(next_step, scalars)

@@ -49,7 +49,6 @@ from gan_inpainting_torch.losses.perceptual import (
     perceptual_and_style_loss,
 )
 from gan_inpainting_torch.losses.reconstruction import l1_loss, tv_loss
-from gan_inpainting_torch.ops.dispatch import section
 from gan_inpainting_torch.models.generator import sliced_parameters
 from gan_inpainting_torch.parallel.sharding import (
     _count,
@@ -63,6 +62,7 @@ from gan_inpainting_torch.train.state import (
     clip_by_global_norm,
     make_lr_schedule,
 )
+from gan_inpainting_torch.utils.spans import section, transfer
 
 
 def composite(fine: torch.Tensor, image: torch.Tensor,
@@ -116,13 +116,15 @@ def make_train_step(cfg: Config) -> Callable[[GANTrainState, Batch], dict]:
     def d_loss_terms(state: GANTrainState, mb: Batch, fake: torch.Tensor,
                      n: int):
         disc = state.discriminator
-        r1 = zero.to(mb.image.device)
+        r1 = transfer(zero, mb.image.device)
         reg = None
         if lc.r1_gamma > 0 and state.step % r1_every == 0:
             # lazy R1: the grad-of-grad pass runs on every k-th step only,
             # with γ·k keeping the expected pressure equal. It reads the
             # spectral vectors before this step's update, so it comes first
-            r1 = adversarial.r1_penalty(lambda x: disc(x, mb.mask), mb.image)
+            with section("r1"):
+                r1 = adversarial.r1_penalty(lambda x: disc(x, mb.mask),
+                                            mb.image)
             reg = (lc.r1_gamma * r1_every) * r1
         both = torch.cat([mb.image, fake], 0)
         masks2 = torch.cat([mb.mask, mb.mask], 0)
@@ -159,7 +161,7 @@ def make_train_step(cfg: Config) -> Callable[[GANTrainState, Batch], dict]:
         rec = l1_loss(gen.fine, mb.image, mb.mask, **l1_args)
         if gen.coarse is not None:
             rec = rec + l1_loss(gen.coarse, mb.image, mb.mask, **l1_args)
-        perc = style = zero.to(rec.device)
+        perc = style = transfer(zero, rec.device)
         if use_vgg:
             perc, style = perceptual_and_style_loss(
                 vgg_on(comp.device), comp, mb.image, bands)
@@ -244,7 +246,7 @@ def make_train_step(cfg: Config) -> Callable[[GANTrainState, Batch], dict]:
                     d_grads = add(d_grads,
                                   torch.autograd.grad(loss, d_params))
                 d_parts.append({k: v.detach() for k, v in aux.items()})
-            with section("optimizer"):
+            with section("d_optimizer"):
                 apply(state.d_opt, d_params, d_grads, d_lr(state.step),
                       bands is not None)
 
@@ -257,12 +259,12 @@ def make_train_step(cfg: Config) -> Callable[[GANTrainState, Batch], dict]:
                     g_grads = add(g_grads,
                                   torch.autograd.grad(total, g_params))
                 g_parts.append({k: v.detach() for k, v in aux.items()})
-        with section("optimizer"):
+        with section("g_optimizer"):
             apply(state.g_opt, g_params, g_grads, g_lr(state.step),
                   bands is not None, {id(p) for p in sliced_parameters(gen)})
 
         if tc.g_ema_decay > 0:
-            with torch.no_grad(), section("optimizer"):
+            with torch.no_grad(), section("ema"):
                 ema = [state.g_ema[k] for k in gen.state_dict()]
                 torch._foreach_mul_(ema, tc.g_ema_decay)
                 torch._foreach_add_(ema, list(gen.state_dict().values()),

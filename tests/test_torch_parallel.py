@@ -490,6 +490,7 @@ def test_two_rank_train_writes_once_and_resumes(ranks):
     for r in logged:
         assert r["world_size"] == WORLD
         assert r["grad_all_reduces"] == 2 * r["step"]
+        assert r["host_syncs_per_step"] == 0     # no card: nothing copied
         assert r["images_per_sec"] == pytest.approx(
             r["steps_per_sec"] * job["cfg"].data.batch_size)
 
