@@ -724,7 +724,13 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
               maps, gmaps, scratch, tpart, hs, ws, rate), reps),
           "dkv": _time_ms(torch, lambda: launch_dkv(
               maps, gmaps, scratch, tpart, hs, ws, rate), reps)}
-    kernels_ms = _time_ms(torch, lambda: tap_grads(*args), reps)
+    # the whole of the kernels, wgmma and the core variant on the same bf16
+    # maps in turns (wgmma, core, core, wgmma)
+    turns = {"wgmma": [], "core": []}
+    for v in ("wgmma", "core", "core", "wgmma"):
+        turns[v].append(_time_ms(torch, lambda: tap_grads(
+            *args, variant=v), reps if v == "wgmma" else 2))
+    kernels_ms, core_ms = min(turns["wgmma"]), min(turns["core"])
     prep_ms = _time_ms(torch, lambda: prepare_bwd(xb, hole, gb, 3, rate),
                        reps)
     fold_ms = _time_ms(torch, lambda: fold_tap_grads(*fargs), 10)
@@ -855,7 +861,8 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
           f"{ms['scores']:.3f}, dQ products {ms['dq']:.3f}, dK/dV products "
           f"{ms['dkv']:.3f}; TFLOP/s of all pairs "
           f"{ {k: round(v, 1) for k, v in tflops.items()} }; the kernels "
-          f"with their chunking {kernels_ms:.3f}, whole backward with prep "
+          f"with their chunking {kernels_ms:.3f} (core kernels in turns "
+          f"{core_ms:.3f}), whole backward with prep "
           f"and epilogue {whole_ms:.3f} (plain autograd "
           f"{whole_plain_ms:.3f}); bounds by launch "
           f"{ {k: (round(b[0], 4), b[1]) for k, b in bounds.items()} }; "
@@ -896,6 +903,7 @@ def check_backward(torch, shape_name, bsz, hw, c, rng, smi):
                        max_abs_err=fold_errb, max_abs_err_f32=fold_err32,
                        err_is="fraction of max|reference|")
     res.update(whole_backward_ms=whole_ms, kernels_ms=kernels_ms,
+               core_kernels_ms=core_ms, kernel_turns_ms=turns,
                prep_ms=prep_ms,
                whole_plain_ms=whole_plain_ms,
                whole_flash_bound_ms=whole_flash[0],
@@ -1595,7 +1603,8 @@ def serve_kernel_backend(torch, rng, smi, img1, msk1, cpu_f32):
         # map (a bf16 forward alone, at most FUSED_MAX_CELLS_BF16_FORWARD)
         want = {"gated_conv_direct": DIRECT_UNFUSED if name == "1x512"
                 else DIRECT_FUSED, "gated_matmul": MATMUL_PER_FWD,
-                "contextual_attention_fused": 1, "fold_taps": 1}
+                "contextual_attention_fused": 1,
+                "contextual_attention_fused_wgmma": 1, "fold_taps": 1}
         _require(got == want, f"path A {name}: launches {got}, expected "
                  f"{want}")
     print(f"[5] path A: serve_v4_8 kernel_backend=pallas served 1x256², "
@@ -2416,7 +2425,9 @@ def path_c(torch, rng, smi):
     err = ((leaf.grad - want).abs().max().item()
            / max(want.abs().max().item(), 1.0))
     fb_launches = {k: v for k, v in fb_launches.items() if v}
-    _require(fb_launches == {"contextual_attention_fused": 1, "fold_taps": 1,
+    _require(fb_launches == {"contextual_attention_fused": 1,
+                             "contextual_attention_fused_core": 1,
+                             "fold_taps": 1,
                              "patch_attention_fwd": 1,
                              "patch_attention_bwd_dq": 1,
                              "patch_attention_bwd_dkv": 1},
@@ -5433,7 +5444,8 @@ def main() -> int:
         and " 0 bytes spill stores" in spills for fn, _, spills in rows),
         "the patch wgmma backward lacks HGMMA or UTMALDG, or spills")
     # the fused backward's wgmma kernels (csrc/contextual_attention_bwd.cu):
-    # the score tiles, the tap products at 64 and 192 channels × dQ / dK/dV
+    # the score tiles, the tap products at 64, 128 and 192 channels × dQ /
+    # dK/dV
     hg = build.sass_counts("contextual_attention_bwd", "HGMMA")
     tma = build.sass_counts("contextual_attention_bwd", "UTMALDG")
     rows = [r for r in build.ptxas_report("contextual_attention_bwd")
@@ -5443,7 +5455,7 @@ def main() -> int:
         print(f"[1] ptxas contextual_attention_bwd {short}: {used}; "
               f"{spills}; HGMMA {hg.get(fn, 0)}, UTMALDG {tma.get(fn, 0)} "
               "in SASS")
-    _require(len(rows) == 5 and all(
+    _require(len(rows) == 7 and all(
         hg.get(fn, 0) > 0 and tma.get(fn, 0) > 0
         and " 0 bytes spill stores" in spills for fn, _, spills in rows),
         "the fused wgmma backward lacks HGMMA or UTMALDG, or spills")
@@ -5464,6 +5476,16 @@ def main() -> int:
                             192, rng, smi)
     bwd512 = check_backward(torch, "512² train (B=8, 128x128x192)", 8, 128,
                             192, rng, smi)
+    # the published width's C 96 (the benchmark's cells): rows 1, 2, 4, 5
+    # at the 64x256² serve bucket's map and the 8x512² train map, on a
+    # generator of their own so that the rows above keep their draws
+    rng96 = np.random.default_rng(96)
+    res256_96 = check_kernels(torch, "64x256² serve (B=64, 64x64x96)", 64,
+                              64, 96, rng96, smi)
+    res512_96 = check_kernels(torch, "8x512² train (B=8, 128x128x96)", 8,
+                              128, 96, rng96, smi)
+    bwd512_96 = check_backward(torch, "512² train (B=8, 128x128x96)", 8,
+                               128, 96, rng96, smi)
     conv = check_conv_kernels(torch, rng, smi)
     torch.cuda.empty_cache()
     patch = check_patch_kernels(torch, smi)
@@ -5567,7 +5589,8 @@ def main() -> int:
             launches_model_axis=through_group("contextual_attention_fused"),
             launches_by_path=through_bench("contextual_attention_fused",
                                            train=False),
-            train_with_lse_ms=bwd256["forward_with_lse_ms"]),
+            train_with_lse_ms=bwd256["forward_with_lse_ms"],
+            at_published_width=res256_96["attention"]),
         row("contextual_attention_fused@512", "attention", res512,
             at_512["contextual_attention_fused"], attn_src, f"{tpu_fa}:52",
             launches_train=l512["contextual_attention_fused"],
@@ -5577,7 +5600,10 @@ def main() -> int:
                 **by_path("contextual_attention_fused"),
                 **through_bench("contextual_attention_fused", infer=False)},
             launches_aot=through_aot("contextual_attention_fused"),
-            train_with_lse_ms=bwd512["forward_with_lse_ms"]),
+            train_with_lse_ms=bwd512["forward_with_lse_ms"],
+            at_published_width=dict(
+                res512_96["attention"],
+                train_with_lse_ms=bwd512_96["forward_with_lse_ms"])),
         # the fold at B 8 (the 256² map) with the 64x256² serve bucket
         # under "at_64x256", and at the 8x512² train map
         row("fold_taps@256", "b8_256", fold, at_256["fold_taps"], fold_src,
@@ -5606,6 +5632,9 @@ def main() -> int:
             f"{name}@256train", kname, bwd256, l256.get(name, 0), bwd_src,
             f"{tpu_bwd}:{223 if kname == 'dkv' else 148}",
             at_512train=dict(bwd512[kname], launches=l512.get(name, 0)),
+            at_512train_published_width=dict(
+                bwd512_96[kname], kernels_ms=bwd512_96["kernels_ms"],
+                core_kernels_ms=bwd512_96["core_kernels_ms"]),
             launches_file_train=fl.get(name, 0),
             launches_by_path={**by_path(name), **through_bench(name)}))
     # the tap-gradient fold: the scatter that _bwd_dq_kernel (:148) and

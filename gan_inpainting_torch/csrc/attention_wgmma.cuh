@@ -16,8 +16,9 @@
 // Split (a): a thread block cluster of CL blocks shares one 64-row tile.
 // Block `rank` holds 64-wide units [rank·n1/CL, (rank+1)·n1/CL) of d (its
 // slice of the Q tile stays resident, ≤ 4 units = 32 KB) and units
-// [rank·n2/CL, …) of dv (≤ 6 units: 3 per consumer warpgroup, 96 float32
-// accumulator registers per thread). Per 128-key step:
+// [rank·n2/CL, …) of dv (≤ 6 units, split as evenly as the two consumer
+// warpgroups allow: ≤ 3 each, 96 float32 accumulator registers per
+// thread). Per 128-key step:
 //   1. the block's partial scores over its d slice (wgmma m64n64k16, Q and
 //      K both K-major from 128-byte-swizzled shared memory; warpgroup w
 //      takes keys 64w … 64w + 63), written as float32 to shared memory;
@@ -43,8 +44,12 @@
 // sum are registers of fixed count. kFused reads a 4-D tensor map of the maps (C, ws+2, hs+2,
 // B·r²): a Q or K tap is a box at the tap's shifted cell origin, a V tap a
 // box of parity map (par, off); 128 keys are 4 map rows at ws 32, 2 at ws
-// 64, part of one row from ws 128. kPatch reads 3-D maps (width, L, B) of
-// the matrices, and out-of-range rows and columns arrive as zeros.
+// 64, part of one row from ws 128. A tap is cpt = ⌈C/64⌉ units; where C is
+// not a multiple of 64 (the published width's C 96: 2 units), the last
+// unit's box runs past C and TMA fills those channels with zeros, which add
+// nothing to a product and give output columns the epilogue does not
+// store. kPatch reads 3-D maps (width, L, B) of the matrices, and
+// out-of-range rows and columns arrive as zeros the same way.
 //
 // Fill per block and step: (d units + dv units)·16 KB for 2·64·128·64 FLOP
 // per unit, 64 FLOP per byte filled; the exchange adds 6 bytes per (row,
@@ -84,7 +89,7 @@ enum Mode { kFused = 0, kPatch = 1 };
 struct Params {
   int B, Lq, Lk, d, dv;
   int n1, n2;              // d and dv units (⌈width / 64⌉)
-  int ws, cpt, rate;       // kFused: map width, C / 64, rate
+  int ws, C, cpt, rate;    // kFused: map width, channels, ⌈C / 64⌉, rate
   float scale;
   const float* bias;       // kFused (B, Lk): 0 valid, −1e9 hole
   const float* rnorm;      // kFused (B, Lk)
@@ -256,8 +261,11 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int warp = tid >> 5, lane = tid & 31;
     const int r_lo = ((tid & 127) >> 5) * 16 + (lane >> 2);   // and r_lo + 8
     const int cq = 2 * (lane & 3);
-    const int v_first = wg * kVU;
-    const int v_cnt = max(0, min(kVU, u2n - v_first));
+    // the block's dv units split as evenly as the two warpgroups allow
+    // (3 + 3 of 6, 2 + 2 of 4), the first taking the odd one
+    const int v_half = (u2n + 1) / 2;            // ≤ kVU: u2n ≤ kMaxVU
+    const int v_first = wg * v_half;
+    const int v_cnt = wg ? u2n - v_half : v_half;
     constexpr int own8 = own / 8;              // rows per warp
     float o[kVU][32];
     float m_run[own8], l_run[own8];
@@ -486,10 +494,10 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           col0 = unit * kUnit;
         } else {
           const int tap = unit / p.cpt;
-          const int C = p.cpt * kUnit;
           const int taps = 4 * p.rate * p.rate;
-          dst = p.out + ((static_cast<size_t>(b) * taps + tap) * p.Lq + row) * C;
-          width = C;
+          dst = p.out +
+                ((static_cast<size_t>(b) * taps + tap) * p.Lq + row) * p.C;
+          width = p.C;
           col0 = (unit - tap * p.cpt) * kUnit;
         }
 #pragma unroll

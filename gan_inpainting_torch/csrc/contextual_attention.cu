@@ -16,7 +16,7 @@
 // query with no valid key gets lse = 0, so that exp(s − lse) stays 0 there.
 //
 // Two variants:
-//   * wgmma (bf16; C % 64 == 0, ws 32, 64 or a multiple of 128, Lk % 128
+//   * wgmma (bf16; C % 32 == 0, ws 32, 64 or a multiple of 128, Lk % 128
 //     == 0 — the serve and train maps): gi_fused_attention_wgmma, the
 //     cluster mainloop of attention_wgmma.cuh with its kFused producer
 //     (TMA boxes of shifted cell windows of the maps), a flash recurrence
@@ -266,15 +266,17 @@ extern "C" int gi_fused_attention(const void* maps, const float* bias,
 }
 
 // The bf16 forward on wgmma fed by TMA (attention_wgmma.cuh, kFused):
-// C % 64 == 0; ws 32, 64 or a multiple of 128; hs·ws % 128 == 0; cluster
-// 1, 2, 4 or 8 blocks, enough that each holds ≤ 4 of the 9C/64 d units and
-// ≤ 6 of the 4r²C/64 dv units. Returns a cudaError_t (0 on success).
+// C % 32 == 0; ws 32, 64 or a multiple of 128; hs·ws % 128 == 0; cluster
+// 1, 2, 4 or 8 blocks, enough that each holds ≤ 4 of the 9·⌈C/64⌉ d units
+// and ≤ 6 of the 4r²·⌈C/64⌉ dv units. The maps keep their real C as the
+// tensor maps' innermost size, so a tap's last unit reads zeros past C
+// (TMA's out-of-bounds fill). Returns a cudaError_t (0 on success).
 extern "C" int gi_fused_attention_wgmma(const void* maps, const float* bias,
                                         const float* rnorm, void* out,
                                         float* lse, int B, int hs, int ws,
                                         int C, int rate, float scale,
                                         int cluster, void* stream) {
-  if (B < 1 || hs < 1 || rate < 1 || C < 64 || C % 64 != 0 ||
+  if (B < 1 || hs < 1 || rate < 1 || C < 32 || C % 32 != 0 ||
       !(ws == 32 || ws == 64 || (ws > 0 && ws % 128 == 0)) ||
       (hs * ws) % 128 != 0)
     return cudaErrorInvalidValue;
@@ -302,10 +304,11 @@ extern "C" int gi_fused_attention_wgmma(const void* maps, const float* bias,
   p.Lq = p.Lk = L;
   p.d = 9 * C;
   p.dv = 4 * rate * rate * C;
-  p.n1 = p.d / 64;
-  p.n2 = p.dv / 64;
+  p.cpt = (C + 63) / 64;
+  p.n1 = 9 * p.cpt;
+  p.n2 = 4 * rate * rate * p.cpt;
   p.ws = ws;
-  p.cpt = C / 64;
+  p.C = C;
   p.rate = rate;
   p.scale = scale;
   p.bias = bias;

@@ -29,7 +29,7 @@
 // bits on every run.
 //
 // Two variants:
-//   * wgmma (bf16; C % 64 == 0, ws 32, 64 or a multiple of 128, L % 128
+//   * wgmma (bf16; C % 32 == 0, ws 32, 64 or a multiple of 128, L % 128
 //     == 0), materialized scores. Per sample the L × L matrices are small
 //     beside the rows (P and dS in bf16: 4 MB at L 1024, 64 MB at L 4096,
 //     while a row of Q, K and V taps is 9C + 16C = 4800 wide at C 192), so
@@ -44,8 +44,8 @@
 //          partials) as float32 (n, L/128, L);
 //       3./4. products_kernel, dQ (dq_t = dsr·K_t) and dK/dV (dk_t =
 //          dsrᵀ·Q_t, dv_tap = pᵀ·do_tap): a block owns 128 rows × one
-//          tap's NU·64 channels (wgmma m64n{64,192}k16, one product per
-//          tap per N tile) and walks K = L in 64-cell stages; the
+//          tap's NU·64 channels (wgmma m64n{64,128,192}k16, one product
+//          per tap per N tile) and walks K = L in 64-cell stages; the
 //          transposes are read through MN-major descriptors of the same
 //          scratch, so neither is written; the dK/dV launch also sums t's
 //          partials in row-tile order.
@@ -54,7 +54,12 @@
 //     boxes into an mbarrier ring, two consumer warpgroups (232) of 64
 //     rows each. A Q/K tap is a box of map (0, 0) at the tap's shifted
 //     cell origin, a V/do tap a box of parity map (par, off): 128 cells
-//     are 4 map rows at ws 32, 2 at ws 64. Fill per block and stage:
+//     are 4 map rows at ws 32, 2 at ws 64. A tap is cpt = ⌈C/64⌉ boxes
+//     of 64 channels; where C is not a multiple of 64 (the published
+//     width's C 96: 2 boxes), the last box runs past C and TMA fills those
+//     channels with zeros, which add nothing to u, dp or a product and
+//     give output channels the products' epilogue does not store. Fill
+//     per block and stage:
 //     scores 32 KB per 2·128·128·64 FLOP (64 FLOP per byte), products
 //     40 KB per 2·128·192·64 (76.8). On the H100 the kernels run at
 //     440–700 TFLOP/s all the same (PERF.md §6), and a cluster of 2 that
@@ -514,7 +519,7 @@ delta_kernel(const bf16* __restrict__ gmaps, const bf16* __restrict__ o_taps,
 
 // ---- 2. score tiles -------------------------------------------------------
 struct ScoreArgs {
-  int n, hs, ws, cpt, rate, L, tiles;   // cpt = C / 64, tiles = L / 128
+  int n, hs, ws, cpt, rate, L, tiles;   // cpt = ⌈C / 64⌉, tiles = L / 128
   float scale;
   const float* bias;     // (n, L) of this chunk; likewise rnorm, lse, delta
   const float* rnorm;
@@ -706,7 +711,7 @@ scores_kernel(const __grid_constant__ CUtensorMap tm_maps,   // 128 cells
 
 // ---- 3./4. tap products ---------------------------------------------------
 struct ProdArgs {
-  int n, hs, ws, cpt, rate, L, tiles;
+  int n, hs, ws, C, cpt, rate, L, tiles;   // cpt = ⌈C / 64⌉
   int which;             // 0: dQ; 1: dK and dV
   int ncb;               // channel blocks per tap: cpt / NU
   const float* tpart;    // (n, tiles, L), dK/dV
@@ -828,8 +833,8 @@ products_kernel(const __grid_constant__ CUtensorMap tm_a,      // scratch
     if (lane == 0) mbar_arrive(empty + 8 * ((n_st - 1) % kRing));
 
     // ---- epilogue: register d[4j + 2h + e] holds row r_lo + 8h and
-    // channel c0 + 8j + cq + e
-    const int C = a.cpt * kUnit;
+    // channel c0 + 8j + cq + e; channels from C on are the zero fill
+    const int C = a.C;
     const int taps = 4 * a.rate * a.rate;
     float* out = is_v
         ? a.dv + (static_cast<size_t>(b) * taps + tap - 9) * a.L * C
@@ -841,8 +846,9 @@ products_kernel(const __grid_constant__ CUtensorMap tm_a,      // scratch
       float* dst = out + static_cast<size_t>(m0 + r_lo + 8 * h) * C + c0 + cq;
 #pragma unroll
       for (int j = 0; j < 8 * NU; ++j)
-        *reinterpret_cast<float2*>(dst + 8 * j) =
-            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        if (c0 + 8 * j < C)            // C % 32 == 0: whole groups of 8
+          *reinterpret_cast<float2*>(dst + 8 * j) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
     // t_j of the block's 128 keys: the row tiles' partial sums, in order
     if (a.which == 1 && job == 0 && tid < kTile) {
@@ -917,7 +923,7 @@ int launch(K kernel, dim3 grid, int smem, cudaStream_t s, Args... args) {
 // what the wgmma kernels take (the wrapper's plan checks the same)
 inline bool takes(const Geo& g) {
   const int L = g.hs * g.ws;
-  return g.n >= 1 && g.hs >= 1 && g.rate >= 1 && g.C % kUnit == 0 &&
+  return g.n >= 1 && g.hs >= 1 && g.rate >= 1 && g.C % 32 == 0 &&
          g.C > 0 && (g.ws == 32 || g.ws == 64 || g.ws % 128 == 0) &&
          L % kTile == 0;
 }
@@ -1077,7 +1083,8 @@ extern "C" int gi_attention_bwd_scores(
   const int L = hs * ws;
   if (!mat::takes(g)) return cudaErrorInvalidValue;
   mat::ScoreArgs a = {};
-  a.n = n; a.hs = hs; a.ws = ws; a.cpt = C / mat::kUnit; a.rate = rate;
+  a.n = n; a.hs = hs; a.ws = ws; a.cpt = (C + mat::kUnit - 1) / mat::kUnit;
+  a.rate = rate;
   a.L = L; a.tiles = L / mat::kTile; a.scale = scale;
   a.bias = bias; a.rnorm = rnorm; a.lse = lse; a.delta = delta;
   a.scratch = static_cast<bf16*>(scratch); a.tpart = tpart;
@@ -1087,24 +1094,27 @@ extern "C" int gi_attention_bwd_scores(
 
 // tap products of n samples from the scores' scratch: which 0 → dq taps
 // into qk (n, 9, L, C); which 1 → dk taps into qk, dv taps into dv
-// (n, 4r², L, C) and t into tnorm (n, L). units = channels per block / 64
-// (1, or 3 where C % 192 == 0).
+// (n, 4r², L, C) and t into tnorm (n, L). units = channels per block / 64:
+// 1, 2 or 3, dividing cpt = ⌈C / 64⌉.
 extern "C" int gi_attention_bwd_products(
     const void* maps, const void* gmaps, const void* scratch,
     const float* tpart, float* qk, float* dv, float* tnorm, int n, int hs,
     int ws, int C, int rate, int which, int units, void* stream) {
   const mat::Geo g = {n, hs, ws, C, rate};
   const int L = hs * ws;
-  const int cpt = C / mat::kUnit;
-  if (!mat::takes(g) || (which != 0 && which != 1) ||
-      (units != 1 && units != 3) || cpt % units != 0)
+  const int cpt = (C + mat::kUnit - 1) / mat::kUnit;
+  if (!mat::takes(g) || (which != 0 && which != 1) || units < 1 ||
+      units > 3 || cpt % units != 0)
     return cudaErrorInvalidValue;
   mat::ProdArgs a = {};
-  a.n = n; a.hs = hs; a.ws = ws; a.cpt = cpt; a.rate = rate; a.L = L;
+  a.n = n; a.hs = hs; a.ws = ws; a.C = C; a.cpt = cpt; a.rate = rate;
+  a.L = L;
   a.tiles = L / mat::kTile; a.which = which; a.ncb = cpt / units;
   a.tpart = tpart; a.tnorm = tnorm; a.qk = qk; a.dv = dv;
   const auto s = static_cast<cudaStream_t>(stream);
   if (units == 3)
     return mat::dispatch_products<3>(maps, gmaps, scratch, g, a, s);
+  if (units == 2)
+    return mat::dispatch_products<2>(maps, gmaps, scratch, g, a, s);
   return mat::dispatch_products<1>(maps, gmaps, scratch, g, a, s);
 }

@@ -10,13 +10,16 @@ maps, so no patch tensor and no (Lq, Lk) score matrix reaches device
 memory.
 
 The kernel has two variants (:func:`plan` picks): ``wgmma`` for bf16 maps
-with C % 64 == 0 and rows of 32, 64 or a multiple of 128 cells (every
+with C % 32 == 0 and rows of 32, 64 or a multiple of 128 cells (every
 serve and train map of the configs): the cluster mainloop of
 ``csrc/attention_wgmma.cuh``, wgmma fed by TMA, d and dv split over a
 cluster of up to 8 blocks, a flash recurrence over 128-key steps, so the
 TPU's two regimes are one here too; and ``core``, float32 FMAs on the CUDA
 cores, whole score rows of a group of query cells in shared memory, for
-every other shape and for float32. :func:`fused_attention_mirror` is the
+every other shape and for float32. The wgmma variant cuts each tap into
+⌈C/64⌉ units of 64 channels; where C is not a multiple of 64 (the
+published width's C 96) the last unit's TMA box reads zeros past C, so no
+padded copy of the maps is made. :func:`fused_attention_mirror` is the
 wgmma variant's arithmetic in PyTorch. Bound on an H100: 2·Lq·Lk·(9 +
 16)·C operations per image against a few MB of maps and output — bounded
 by operations.
@@ -29,7 +32,9 @@ does not ask for it.
 
 The wrapper calls the op ``gan_inpainting::fused_attention_taps``
 (ops/kernels/library.py): its CUDA implementation runs the prep and the
-launch, and adds one to the launch count where it launches; its CPU
+launch, and adds one to the launch count where it launches, under
+:data:`KERNEL` and under the variant's own name (:data:`KERNEL_WGMMA`,
+:data:`KERNEL_CORE`); its CPU
 implementation is :func:`fused_attention_taps_plain`, an independent
 derivation from the materialized patch formulation
 (ops/contextual_attention.py), not from the parity trick.
@@ -50,9 +55,14 @@ from gan_inpainting_torch.ops.dispatch import (
 )
 from gan_inpainting_torch.ops.kernels import build, library
 from gan_inpainting_torch.ops.kernels.library import empty_lse
-from gan_inpainting_torch.ops.kernels.patch_attention import wgmma_cluster
+from gan_inpainting_torch.ops.kernels.patch_attention import (
+    WGMMA_UNIT,
+    wgmma_cluster,
+)
 
 KERNEL = "contextual_attention_fused"
+KERNEL_WGMMA = "contextual_attention_fused_wgmma"
+KERNEL_CORE = "contextual_attention_fused_core"
 NEG_INF = -1e9
 SMEM_BYTES = 232448      # shared memory one block may opt into on Hopper
 _GROUPS = (32, 16, 8, 4, 2, 1)
@@ -84,14 +94,16 @@ def plan_group(lk: int, c: int) -> int:
 def wgmma_takes(hs: int, ws: int, c: int, rate: int,
                 dtype: torch.dtype) -> int | None:
     """Cluster size of the ``wgmma`` variant (csrc/attention_wgmma.cuh) for
-    a map, or None where it does not take it: bf16, C % 64 == 0, 64-query
+    a map, or None where it does not take it: bf16, C % 32 == 0, 64-query
     tiles and 128-key steps that are TMA boxes of whole map rows (ws 32, 64
     or a multiple of 128, hs·ws % 128 == 0), and a cluster whose blocks
-    each hold ≤ 4 of the 9C/64 d units and ≤ 6 of the 4r²C/64 dv units."""
-    if (dtype != torch.bfloat16 or c % 64 or (hs * ws) % 128
+    each hold ≤ 4 of the 9·⌈C/64⌉ d units and ≤ 6 of the 4r²·⌈C/64⌉ dv
+    units (a tap's last unit is zero-filled past C)."""
+    if (dtype != torch.bfloat16 or c <= 0 or c % 32 or (hs * ws) % 128
             or not (ws in (32, 64) or ws % 128 == 0)):
         return None
-    return wgmma_cluster(9 * c // 64, 4 * rate * rate * c // 64)
+    cpt = -(-c // WGMMA_UNIT)
+    return wgmma_cluster(9 * cpt, 4 * rate * rate * cpt)
 
 
 def _plan(hs: int, ws: int, c: int, dtype: torch.dtype,
@@ -250,7 +262,9 @@ def fused_attention_mirror(maps, bias, rnorm, hs: int, ws: int, rate: int,
     PyTorch on prepared inputs (:func:`_prepare`) → (taps (B, 4r², Lq, C)
     in the maps' dtype, lse (B, Lq) float32).
 
-    d is cut into ``unit``-wide (tap, channel) units in tap-major order; the
+    d is cut into ``unit``-wide (tap, channel) units in tap-major order,
+    ⌈C/unit⌉ per tap, the last one narrower where ``unit`` does not divide
+    C (the kernel's box reads zeros there, which add nothing); the
     ``cluster`` ranks hold units [r·n1/CL, (r+1)·n1/CL) and the scores of a
     step are their partial contractions summed in rank order. Steps of
     ``block_c`` keys: s = S·(rnorm·scale) + bias, running max m, α =
@@ -361,6 +375,7 @@ def _launch(maps: torch.Tensor, bias: torch.Tensor, rnorm: torch.Tensor,
                      float(scale), int(maps.dtype == torch.bfloat16), group,
                      stream)
     count_launch(KERNEL)
+    count_launch(KERNEL_WGMMA if variant == "wgmma" else KERNEL_CORE)
     build.check(lib, err, KERNEL)
     return (out, lse) if want_lse else out
 

@@ -26,7 +26,9 @@ output, it returns the gradient of the feature map:
    tensor takes it), :func:`fold_tap_grads_mirror` the kernel's gather.
 
 Step 2 has two variants (:func:`plan_bwd`). ``wgmma`` (bf16 maps that the
-TMA boxes take, see :func:`wgmma_bwd_takes`) materializes the scores: per
+TMA boxes take, see :func:`wgmma_bwd_takes`; a tap is ⌈C/64⌉ boxes of 64
+channels, the last one zero-filled past C where 64 does not divide C, as
+at the published width's C 96) materializes the scores: per
 sample the L × L matrices are small beside the rows of taps (P and dS in
 bf16: 4 MB at L 1024), so one launch forms p and dsr of every (128 query,
 128 key) tile on the tensor cores and writes them as bf16 to a scratch,
@@ -94,7 +96,7 @@ class BwdPlan(NamedTuple):
     """``variant`` "wgmma" or "core"; ``rows`` per block (core: query or
     key cells; wgmma: the 128-row tile); ``chunk``: wgmma samples per
     scratch chunk (0 for core); ``units``: wgmma channel boxes per product
-    block (3 where C % 192 == 0, else 1)."""
+    block (:func:`product_units`)."""
     variant: str
     rows: int
     chunk: int
@@ -117,14 +119,27 @@ def scratch_bytes_per_sample(lk: int) -> int:
     return 2 * lk * lk * 2 + -(-lk // TILE) * lk * 4
 
 
+def product_units(c: int) -> int:
+    """Channel boxes per block of the wgmma products (one m64n(64·units)
+    tile), dividing a tap's ⌈C/64⌉ boxes: where 64 divides C, 3 if 192
+    does and else 1, the plans those maps have always had; otherwise the
+    largest of 3, 2, 1 that divides them. At C 96 one m64n128 tile a tap
+    beat two m64n64 tiles on the H100 with the same bits (8×512²: dQ 0.67
+    vs 0.93 ms, dK/dV 1.82 vs 2.56 ms; PERF.md §6)."""
+    cpt = -(-c // UNIT)
+    if c % UNIT == 0:
+        return 3 if cpt % 3 == 0 else 1
+    return next(u for u in (3, 2, 1) if cpt % u == 0)
+
+
 def wgmma_bwd_takes(hs: int, ws: int, c: int, dtype: torch.dtype,
                     budget: int = SCRATCH_BUDGET_BYTES) -> bool:
-    """Whether the wgmma kernels take the map: bf16, C % 64 == 0, 128-cell
+    """Whether the wgmma kernels take the map: bf16, C % 32 == 0, 128-cell
     tiles and 64-cell stages that are TMA boxes of whole map rows or parts
     of one (ws 32, 64 or a multiple of 128, L % 128 == 0), and one sample's
     scratch within ``budget``. Independent of the batch size."""
     lk = hs * ws
-    return (dtype == torch.bfloat16 and c % UNIT == 0 and c > 0
+    return (dtype == torch.bfloat16 and c % 32 == 0 and c > 0
             and lk % TILE == 0 and (ws in (32, 64) or ws % 128 == 0)
             and scratch_bytes_per_sample(lk) <= budget)
 
@@ -141,9 +156,9 @@ def _plan_bwd(hs: int, ws: int, c: int, dtype: torch.dtype,
               budget: int) -> BwdPlan | None:
     lk = hs * ws
     if wgmma_bwd_takes(hs, ws, c, dtype, budget):
-        units = 3 if c % (3 * UNIT) == 0 else 1
         return BwdPlan("wgmma", TILE,
-                       budget // scratch_bytes_per_sample(lk), units)
+                       budget // scratch_bytes_per_sample(lk),
+                       product_units(c))
     g = _core_group(lk, c)
     return None if g is None else BwdPlan("core", g, 0, 0)
 
@@ -187,7 +202,9 @@ def tap_box(kind: str, tap: int, cell0: int, cells: int, ws: int,
     4-D map is (C, ws + 2, hs + 2, B·r²), so → ((channel, x, y, plane),
     (64, box width, box rows, 1)). ``kind`` "qk": Q/K tap ``tap`` of map
     (0, 0) at shift (tap // 3, tap % 3); "v": V / ``do`` tap ``tap`` of the
-    2r × 2r window per :func:`v_tap_geometry`."""
+    2r × 2r window per :func:`v_tap_geometry`. ``unit`` runs over ⌈C/64⌉;
+    the last box reaches past C where 64 does not divide C, and TMA fills
+    those channels with zeros."""
     if kind == "qk":
         oy, ox, par = tap // 3, tap % 3, 0
     else:

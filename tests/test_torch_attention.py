@@ -144,7 +144,8 @@ def test_prepare_matches_jax_prepare():
 # and splits the (tap, channel) units unevenly.
 @pytest.mark.parametrize("cluster", [1, 2])
 @pytest.mark.parametrize("b,h,w,c,rate", [
-    (3, 16, 16, 8, 2), (1, 12, 20, 4, 2), (1, 16, 16, 4, 4)])
+    (3, 16, 16, 8, 2), (1, 12, 20, 4, 2), (1, 16, 16, 4, 4),
+    (3, 16, 16, 96, 2)])    # the published width: 64 + 32 channels a tap
 def test_kernel_index_algebra_matches_plain(b, h, w, c, rate, cluster):
     f, hole = _case(7 + h, b, h, w, c)
     ft, ht = torch.from_numpy(f), torch.from_numpy(hole)
@@ -192,6 +193,25 @@ def test_plan_group_sizes_and_limit():
     assert plan(32, 32, 192, torch.float32) == ("core", 32, 1)
     assert plan(8, 8, 192, torch.bfloat16) == ("core", 32, 1)
     assert plan(64, 48, 192, torch.bfloat16) == ("core", 16, 1)
+
+
+# C % 32 == 0 takes the wgmma variant at ⌈C/64⌉ units a tap, the last one
+# zero-filled past C: at the published width's C 96, 18 d and 32 dv units,
+# a cluster of 8 (≤ 3 d and 4 dv units a block). Float32 and other widths
+# keep the CUDA cores.
+@pytest.mark.parametrize("hs,ws,c,dtype,want", [
+    (32, 32, 96, torch.bfloat16, ("wgmma", 64, 8)),     # 256² serve map
+    (64, 64, 96, torch.bfloat16, ("wgmma", 64, 8)),     # 512² train map
+    (32, 32, 32, torch.bfloat16, ("wgmma", 64, 4)),
+    (32, 32, 160, torch.bfloat16, ("wgmma", 64, 8)),
+    (32, 32, 96, torch.float32, ("core", 32, 1)),
+    (64, 64, 96, torch.float32, ("core", 8, 1)),
+    (32, 32, 48, torch.bfloat16, ("core", 32, 1)),      # C % 32 != 0
+    (32, 96, 96, torch.bfloat16, ("core", 16, 1)),      # 96-cell rows
+], ids=["c96_256", "c96_512", "c32", "c160", "f32_c96_256", "f32_c96_512",
+        "c48", "c96_ws96"])
+def test_plan_takes_ragged_channel_units(hs, ws, c, dtype, want):
+    assert plan(hs, ws, c, dtype) == want
 
 
 # The wgmma variant's tiling against the JAX fused Pallas kernel in

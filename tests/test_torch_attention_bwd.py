@@ -102,8 +102,8 @@ def test_attention_gradient_matches_pallas_inkernel_backward():
 # 2e-4 of the largest gradient entry (different summation order)
 @pytest.mark.parametrize("b,h,w,c,rate", [
     (3, 16, 16, 8, 2), (2, 12, 20, 4, 2), (1, 14, 14, 4, 2),
-    (1, 16, 16, 4, 4), (1, 8, 8, 4, 1)],
-    ids=["holes", "non_square", "odd_cells", "rate4", "rate1"])
+    (1, 16, 16, 4, 4), (1, 8, 8, 4, 1), (3, 16, 16, 96, 2)],
+    ids=["holes", "non_square", "odd_cells", "rate4", "rate1", "c96"])
 def test_backward_mirror_matches_plain(b, h, w, c, rate):
     f, hole = _case(b + h, b, h, w, c, hole_p=0.02)
     if b >= 3:
@@ -202,3 +202,30 @@ def test_backward_plan_fits_the_train_shapes():
         plan_bwd(256, 256, 192, torch.float32)
     with pytest.raises(ValueError, match="ROADMAP"):
         plan_bwd(256, 256, 192, torch.bfloat16)
+
+
+# C % 32 == 0 takes the wgmma kernels at ⌈C/64⌉ boxes a tap, the last one
+# zero-filled past C; the products cover a tap's boxes in whole tiles (C 96:
+# one m64n128 tile). C % 64 == 0 keeps its plan; float32 and other widths
+# keep the core kernels.
+@pytest.mark.parametrize("hs,ws,c,dtype,variant,units", [
+    (64, 64, 96, torch.bfloat16, "wgmma", 2),     # 8×512² train map
+    (32, 32, 96, torch.bfloat16, "wgmma", 2),     # 256² map
+    (32, 32, 32, torch.bfloat16, "wgmma", 1),
+    (32, 32, 160, torch.bfloat16, "wgmma", 3),
+    (32, 32, 224, torch.bfloat16, "wgmma", 2),
+    (64, 64, 192, torch.bfloat16, "wgmma", 3),    # unchanged: C % 64 == 0
+    (32, 32, 128, torch.bfloat16, "wgmma", 1),
+    (16, 32, 64, torch.bfloat16, "wgmma", 1),
+    (64, 64, 96, torch.float32, "core", 0),
+    (32, 32, 48, torch.bfloat16, "core", 0),      # C % 32 != 0
+], ids=["c96_512", "c96_256", "c32", "c160", "c224", "c192", "c128", "c64",
+        "f32_c96", "c48"])
+def test_backward_plan_at_ragged_widths(hs, ws, c, dtype, variant, units):
+    chosen = plan_bwd(hs, ws, c, dtype)
+    assert (chosen.variant, chosen.units) == (variant, units)
+    assert bwd_supported(hs, ws, c, dtype)
+    if variant == "wgmma":
+        assert -(-c // 64) % units == 0
+        assert chosen.chunk == (SCRATCH_BUDGET_BYTES
+                                // scratch_bytes_per_sample(hs * ws))

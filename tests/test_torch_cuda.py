@@ -122,6 +122,46 @@ def test_wgmma_forward_matches_plain_with_lse(cuda, b, hw):
         assert lse[1].abs().max().item() == 0.0
 
 
+# The published width's C 96 on the wgmma forward (⌈96/64⌉ = 2 units a
+# tap, the second zero-filled past channel 96 by TMA): the 64×256² serve
+# bucket's map and the 8×512² train map with lse. Each variant against the
+# plain version (taps within 2^-7 of the largest input, lse within 1e-3),
+# the wgmma variant against the core one within the sum of the two, and
+# each launch counted under its variant's name.
+@pytest.mark.parametrize("b,hw", [(64, 64), (8, 128)],
+                         ids=["serve256_b64", "train512_b8"])
+def test_wgmma_forward_at_the_published_width(cuda, b, hw):
+    from gan_inpainting_torch.ops.kernels.fused_attention import (
+        KERNEL_CORE,
+        KERNEL_WGMMA,
+    )
+
+    f, hole = _case(b + hw, b, hw, hw, 96, cuda)
+    hole[1] = 1.0
+    fb = f.to(torch.bfloat16)
+    hs = hw // 2
+    assert plan(hs, hs, 96, torch.bfloat16) == ("wgmma", 64, 8)
+    maps, bias, rnorm, _ = _prepare(fb, hole, 3, 2)
+    dispatch.reset_launches()
+    got, lse = _launch(maps, bias, rnorm, hs, hs, 2, 10.0, want_lse=True)
+    assert dispatch.launches[KERNEL_WGMMA] == 1
+    assert dispatch.launches.get(KERNEL_CORE, 0) == 0
+    core, core_lse = _launch(maps, bias, rnorm, hs, hs, 2, 10.0,
+                             variant="core", want_lse=True)
+    assert dispatch.launches[KERNEL_CORE] == 1
+    assert dispatch.launches["contextual_attention_fused"] == 2
+    want, want_lse = fused_attention_taps_plain(fb.float(), hole,
+                                                want_lse=True)
+    tol = 2.0 ** -7 * fb.float().abs().max().item()
+    assert (got.float() - want).abs().max().item() <= tol
+    assert (core.float() - want).abs().max().item() <= tol
+    assert (got.float() - core.float()).abs().max().item() <= 2 * tol
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    assert (core_lse - want_lse).abs().max().item() <= 1e-3
+    assert got[1].abs().max().item() == 0.0
+    assert lse[1].abs().max().item() == 0.0
+
+
 # C 192 takes 16-byte vectors, C 4 16 (float32) and 8 bytes (bf16), C 5
 # one element per thread (fold_vector)
 @pytest.mark.parametrize("b,h,w,c,rate", SHAPES + [(2, 10, 14, 5, 2)])
@@ -263,6 +303,32 @@ def test_wgmma_backward_at_the_train_shapes(cuda, image, bsz):
     wgmma kernels against the mirror within 2^-6 of the largest entry, an
     all-hole sample at exactly 0, two runs bit-identical, and a budget that
     forces chunks of 3 samples giving the same bits as one chunk."""
+    _wgmma_backward_at(cuda, image, bsz, 192)
+
+
+# The same at the published width's C 96: two boxes a tap, the second
+# zero-filled past channel 96, the products one m64n128 tile a tap; and the
+# core kernels on the same bf16 maps within 2^-6 of the mirror as well.
+@pytest.mark.parametrize("image,bsz", [(256, 16), (512, 8)])
+def test_wgmma_backward_at_the_published_width(cuda, image, bsz):
+    from gan_inpainting_torch.ops.kernels.fused_attention_bwd import (
+        tap_grads,
+        tap_grads_mirror,
+    )
+
+    got, args = _wgmma_backward_at(cuda, image, bsz, 96)
+    dispatch.reset_launches()
+    core = tap_grads(*args, variant="core")
+    assert dispatch.launches.get("contextual_attention_bwd_scores", 0) == 0
+    want = tap_grads_mirror(*args)
+    for name, a, c_, ref in zip(("dq", "dk", "dv", "tnorm", "delta"), got,
+                                core, want):
+        tol = 2.0 ** -6 * max(ref.abs().max().item(), 1.0)
+        assert (c_ - ref).abs().max().item() <= tol, name
+        assert (a - c_).abs().max().item() <= 2 * tol, name
+
+
+def _wgmma_backward_at(cuda, image, bsz, c):
     from gan_inpainting_torch.ops.kernels.fused_attention_bwd import (
         plan_bwd,
         prepare_bwd,
@@ -275,7 +341,7 @@ def test_wgmma_backward_at_the_train_shapes(cuda, image, bsz):
     hs = hw // rate
     rng = np.random.default_rng(image)
     f = torch.from_numpy(np.maximum(rng.standard_normal(
-        (bsz, hw, hw, 192)), 0).astype(np.float32)).to(cuda)
+        (bsz, hw, hw, c)), 0).astype(np.float32)).to(cuda)
     hole = torch.from_numpy((rng.random((bsz, hw, hw, 1)) < 0.05).astype(
         np.float32)).to(cuda)
     hole[1] = 1.0
@@ -285,7 +351,7 @@ def test_wgmma_backward_at_the_train_shapes(cuda, image, bsz):
     taps, lse = fused_attention_taps(fb, hole, want_lse=True)
     maps, gmaps, bias, rnorm, _ = prepare_bwd(fb, hole, g, 3, rate)
     args = (maps, gmaps, bias, rnorm, lse, taps, hs, hs, rate, 10.0)
-    assert plan_bwd(hs, hs, 192, torch.bfloat16).chunk >= bsz
+    assert plan_bwd(hs, hs, c, torch.bfloat16).chunk >= bsz
     dispatch.reset_launches()
     got = tap_grads(*args)
     assert {k: dispatch.launches[k] for k in (
@@ -309,6 +375,7 @@ def test_wgmma_backward_at_the_train_shapes(cuda, image, bsz):
             assert err <= 2.0 ** -6 * max(ref.abs().max().item(), 1.0), (
                 which, i, err)
         del want
+    return got, args
 
 
 # the tap-gradient fold against the eager epilogue on the same tap
@@ -431,6 +498,54 @@ def test_f32_train_steps_on_cuda_match_cpu(cuda):
     for part in ("g_params", "d_params", "g_ema"):
         for k, v in sd_c[part].items():
             assert (sd_g[part][k].cpu() - v).abs().max().item() <= 1e-4, k
+
+
+def test_published_width_runs_the_wgmma_kernels(cuda):
+    """At the published width (base_features 24: C 96 at the attention) a
+    serve_v4_8 forward of a 256² batch launches the wgmma forward and no
+    core forward, and one places512_deepfill step at 2×512² launches the
+    wgmma forward twice and the backward's δ, scores, dQ and dK/dV once each
+    (the core backward would count dQ and dK/dV without scores)."""
+    from gan_inpainting_torch.configs.base import apply_overrides, get_config
+    from gan_inpainting_torch.data.loader import make_dataset
+    from gan_inpainting_torch.data.pipeline import make_train_batch
+    from gan_inpainting_torch.models.generator import build_generator
+    from gan_inpainting_torch.ops.kernels.fused_attention import (
+        KERNEL_CORE,
+        KERNEL_WGMMA,
+    )
+    from gan_inpainting_torch.train.state import create_state
+    from gan_inpainting_torch.train.step import make_train_step
+    from gan_inpainting_torch.utils.rng import stream_generator
+
+    width = ["model.base_features=24"]
+    cfg = apply_overrides(get_config("serve_v4_8"), width)
+    gen = build_generator(cfg.model, device=cuda, seed=1)
+    rng = np.random.default_rng(0)
+    mask = torch.zeros(2, 256, 256, 1, device=cuda)
+    mask[:, 64:160, 32:192] = 1.0
+    masked = torch.from_numpy(rng.uniform(-1, 1, (2, 256, 256, 3)).astype(
+        np.float32)).to(cuda) * (1 - mask)
+    dispatch.reset_launches()
+    with torch.no_grad():
+        gen(masked, mask)
+    torch.cuda.synchronize()
+    assert dispatch.launches[KERNEL_WGMMA] == 1
+    assert dispatch.launches.get(KERNEL_CORE, 0) == 0
+
+    cfg = apply_overrides(get_config("places512_deepfill"),
+                          width + ["data.batch_size=2"])
+    state = create_state(cfg, device=cuda)
+    images = next(make_dataset(cfg.data, seed=0, device=cuda))
+    batch = make_train_batch(images, stream_generator(0, 1, 0), cfg.mask)
+    dispatch.reset_launches()
+    make_train_step(cfg)(state, batch)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in dispatch.launches.items() if v}
+    assert launched.get(KERNEL_WGMMA) == 2 and KERNEL_CORE not in launched
+    assert {k: launched.get(f"contextual_attention_bwd_{k}") for k in (
+        "delta", "scores", "dq", "dkv")} == dict(delta=1, scores=1, dq=1,
+                                                 dkv=1), launched
 
 
 def test_bf16_training_on_cuda_drives_l1_down(cuda):
