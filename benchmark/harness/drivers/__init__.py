@@ -6,8 +6,12 @@ against the reference. One module per driver, found by name.
 A driver is a class ``Driver(run)`` with ``setup()``, ``measure()`` (a
 record of the window), ``release()``, ``readings(q=None)`` (the numbers
 the check compares; with ``q`` the reference at that precision in the
-program's place) and ``counts(record)`` (the benchmark's own counts over
-the window, for the metrics' readers).
+program's place), ``calibration()`` (the readings ``calibrate.py`` prints:
+the program's, the float8 control's and the faults') and
+``counts(record)`` (the benchmark's own counts over the window, for the
+metrics' readers). A driver names no architecture: it reaches the model
+through the reference module of the cell's configuration
+(``spec.reference``).
 """
 
 from __future__ import annotations

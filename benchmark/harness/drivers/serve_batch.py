@@ -14,9 +14,8 @@ from __future__ import annotations
 import time
 
 import numpy as np
-import torch
 
-from benchmark.harness import count, inputs, serving
+from benchmark.harness import inputs, serving
 
 
 class Driver:
@@ -28,7 +27,7 @@ class Driver:
 
     def setup(self) -> None:
         run = self.run
-        self.cfg, self.params, self.inp = serving.build(run)
+        self.cfg, self.ref, self.params, self.inp = serving.build(run)
         imgs, msks = serving.pool(run, self.cfg, self.n_pool * self.batch,
                                   self.size, "serve_batch")
         self.imgs = imgs.reshape(self.n_pool, self.batch, *imgs.shape[1:])
@@ -77,24 +76,14 @@ class Driver:
         imgs, masks, got = self.compared()
         return serving.readings(self, imgs, masks, got, q)
 
+    def calibration(self) -> dict:
+        return serving.calibration(self, *self.compared())
+
     def counts(self, record: dict) -> dict:
-        """Model FLOPs and the attention forward's bound over the window's
-        calls (the pool's batches in call order)."""
-        f = self.cfg.model.base_features
-        per_image = serving.image_flops(
-            f, self.size, self.masks.reshape(-1, *self.masks.shape[2:]))
-        per_slot = per_image.reshape(self.n_pool, self.batch).sum(1)
-        attn_ops, attn_bytes = [], []
-        for s in range(self.n_pool):
-            nv = float(count.valid_keys(torch.from_numpy(self.masks[s])).sum())
-            attn_ops.append(count.attention_fwd_flops(self.size, 4 * f, nv))
-            attn_bytes.append(count.attention_fwd_bytes(self.size, 4 * f,
-                                                        self.batch))
-        calls = record["calls"]
-        slots = [c % self.n_pool for c in range(calls)]
-        return {
-            "model_flops": float(sum(per_slot[s] for s in slots)),
-            "attn_fwd_bound_s": float(sum(count.bound_s(attn_bytes[s],
-                                                        attn_ops[s])
-                                          for s in slots)),
-        }
+        """The reference's counts (model FLOPs, its kernels' bounds) over
+        the window's calls: the pool's batches in call order."""
+        per_slot = [self.ref.serve_counts(self.cfg, self.size, self.masks[s])
+                    for s in range(self.n_pool)]
+        slots = [c % self.n_pool for c in range(record["calls"])]
+        return {k: float(sum(per_slot[s][k] for s in slots))
+                for k in per_slot[0]}

@@ -13,7 +13,9 @@ of every leaf as Adam holds it after step 0 (its first moment over
 on to the next step ≡ 0 (mod ``r1_interval``), where the window starts.
 
 The check runs the reference's three steps on the same weights, images
-and mask draws, in float32, after the program has been freed.
+and mask draws, in float32, after the program has been freed. The model,
+its weights, step and counts come from the reference module that the
+cell's configuration names (``spec.reference``).
 
 Parameters: ``pool_batches``, ``checked_steps``.
 """
@@ -25,22 +27,8 @@ import time
 import numpy as np
 import torch
 
-from benchmark.harness import count, inputs, spec
+from benchmark.harness import inputs, spec
 from benchmark.harness.serving import free
-from benchmark.reference import deepfill
-from benchmark.reference import train as ref_train
-
-
-def hyper(cfg) -> ref_train.Hyper:
-    """The reference's hyperparameters, read from the configuration."""
-    m, lc, tc = cfg.model, cfg.loss, cfg.train
-    return ref_train.Hyper(
-        base_features=m.base_features, disc_features=m.disc_features,
-        disc_layers=m.disc_layers, g_lr=tc.g_lr, d_lr=tc.d_lr,
-        beta1=tc.beta1, beta2=tc.beta2, r1_gamma=lc.r1_gamma,
-        r1_interval=lc.r1_interval, l1_weight=lc.l1_weight,
-        l1_hole_weight=lc.l1_hole_weight, l1_valid_weight=lc.l1_valid_weight,
-        gan_weight=lc.gan_weight, ema_decay=tc.g_ema_decay)
 
 
 def norms(tensors: dict) -> dict:
@@ -93,12 +81,10 @@ class Driver:
 
         run = self.run
         cfg = self.cfg = spec.program_config(run.cell, run.extra_overrides)
-        m = cfg.model
-        self.h = hyper(cfg)
-        self.g0 = inputs.generator_params(m.base_features, run.seed,
-                                          run.device)
-        self.d0 = inputs.discriminator_params(m.disc_features, m.disc_layers,
-                                              run.seed, run.device)
+        ref = self.ref = spec.reference(run.cell["config"])
+        self.h = ref.hyper(cfg)
+        self.g0, self.d0 = ref.weights(spec.config(run.cell["config"]), cfg,
+                                       run.seed, run.device)
         rank = setup_rank(cfg, run.device)
         state = self.state = rank.state
         state.generator.load_state_dict(self.g0)
@@ -181,20 +167,20 @@ class Driver:
         """The reference's readings over the checked steps: losses, first
         gradients, changes. ``q`` rounds its operands (the control);
         ``half`` leaves out the second half of each batch (a fault)."""
-        run, h = self.run, self.h
+        run, h, ref = self.run, self.h, self.ref
         t0 = time.perf_counter()
-        s = ref_train.State(self.g0, self.d0, h)
+        s = ref.State(self.g0, self.d0, h)
         m = inputs.mask_params(self.cfg)
         losses, first = [], None
-        with deepfill.float32_exact():
+        with ref.float32_exact():
             for step in range(self.n_checked):
-                image, mask = ref_train.train_batch(
+                image, mask = ref.train_batch(
                     self.checked_images[step],
                     inputs.cpu_generator(run.seed, "train_masks", step), m,
                     self.cfg.data.random_flip, run.device)
                 if half:
                     image, mask = (t[:len(t) // 2] for t in (image, mask))
-                out = ref_train.train_step(s, image, mask, q=q)
+                out = ref.train_step(s, image, mask, q=q)
                 losses.append({k: float(out[k]) for k in ("d_loss",
                                                           "g_loss")})
                 if step == 0:
@@ -261,27 +247,50 @@ class Driver:
             for k in r))
         return self.compare(got, ref)
 
+    def calibration(self) -> dict:
+        """The compared numbers of the program (the lower reading), of the
+        reference in float8 in the program's place (the control) and of
+        the fault of half of each batch left out, in the reference put in
+        the program's place; beside each the look at its three worst
+        leaves by first gradient and by change (not compared), and the
+        leaves left out of the change."""
+        ref = self.reference()
+        med = float(np.median(list(ref["first"].values())))
+        keep = _keep(ref)
+        out = {"left_out": sorted(set(ref["first"]) - keep)}
+        for name, x in (("program", self.program_readings()),
+                        ("control_fp8", self.reference(q=self.ref.fp8)),
+                        ("fault_half", self.reference(half=True))):
+            out[name] = self.compare(x, ref)
+            for what, lg in (("grad", leaf_gaps(x["first"], ref["first"])),
+                             ("change", leaf_gaps(x["changes"],
+                                                  ref["changes"], keep))):
+                worst = sorted(lg, key=lg.get)[-3:][::-1]
+                out[name][f"worst_{what}"] = [
+                    _look(k, lg[k], x, ref, med) for k in worst]
+        return out
+
     def counts(self, record: dict) -> dict:
-        """Model FLOPs and the attention backward's bound over the
-        window's steps; the masks of each step drawn again by the
-        reference's code."""
-        cfg, run = self.cfg, self.run
-        b, s = cfg.data.batch_size, cfg.data.image_size
-        f = cfg.model.base_features
-        first, steps = record["first_step"], record["steps"]
-        r1 = record["r1_steps"]
-        flops = (r1 * count.train_step_flops(self.h, b, s, True)
-                 + (steps - r1) * count.train_step_flops(self.h, b, s, False))
-        m = inputs.mask_params(cfg)
-        bwd = 0.0
-        for step in range(first, first + steps):
-            gen = inputs.cpu_generator(run.seed, "train_masks", step)
-            if cfg.data.random_flip:
-                torch.rand((b,), generator=gen)
-            mask = deepfill.rasterize(deepfill.sample_strokes(gen, m, s, s, b),
-                                      s, s, run.device)
-            nv = float(count.valid_keys(mask).sum())
-            # two forwards (the fake, G's loss), one backward
-            flops += 4 * count.attention_fwd_flops(s, 4 * f, nv)
-            bwd += count.attention_bwd_bound_s(s, 4 * f, b, nv)
-        return {"model_flops": flops, "attn_bwd_bound_s": bwd}
+        """The reference's counts (model FLOPs, the attention backward's
+        bound) over the window's steps, each step's masks drawn again from
+        its generator."""
+        run, first = self.run, record["first_step"]
+        gens = [inputs.cpu_generator(run.seed, "train_masks", step)
+                for step in range(first, first + record["steps"])]
+        return self.ref.counts(self.cfg, gens, record["r1_steps"], run.device)
+
+
+def _look(leaf: str, gap: float, got: dict, ref: dict, med: float) -> dict:
+    """A leaf's gap, its reference first gradient over the median leaf's
+    and, with the first gradients kept whole (``keep_vectors``), its size
+    and ``dir_err``: the norm of the difference of the two first gradients
+    over the reference's (about 1 where the leaf's gradient is rounding)."""
+    g = "g." + leaf[4:] if leaf.startswith("ema.") else leaf
+    look = {"leaf": leaf, "gap": gap,
+            "first_over_median": ref["first"][g] / med}
+    want, have = ref["first_vecs"].get(g), got["first_vecs"].get(g)
+    if want is not None and have is not None:
+        look["numel"] = want.numel()
+        look["dir_err"] = float((have - want).norm()
+                                / want.norm().clamp(min=1e-30))
+    return look

@@ -1,8 +1,10 @@
-"""Everything a run feeds both sides, made from ``--seed``: the weights,
+"""Everything a run feeds both sides, made from ``--seed``: the weights
+(:func:`make_params`, for the shapes a configuration's reference gives),
 the images and the masks. Weights and images are drawn on the run's
 device by a generator there, in a few large calls; the masks' brush
 parameters come from a CPU generator (as the program draws them) and are
-rasterized on the device by the reference's code."""
+rasterized on the device by the free-form mask code of
+``reference/deepfill.py``, which belongs to the traffic."""
 
 from __future__ import annotations
 
@@ -54,15 +56,6 @@ def make_params(shapes: dict, seed: int, device, stream: str,
         out[k] = flat[off:off + n].view(shape).mul_(std)
         off += n
     return out
-
-
-def generator_params(f: int, seed: int, device, gain: float = 1.0) -> dict:
-    return make_params(deepfill.generator_shapes(f), seed, device, "g", gain)
-
-
-def discriminator_params(f: int, layers: int, seed: int, device) -> dict:
-    return make_params(deepfill.discriminator_shapes(f, layers), seed,
-                       device, "d")
 
 
 def images_u8(n: int, size: int, seed: int, device, stream: str):

@@ -1,8 +1,9 @@
 """What the serving drivers share: the program built as users serve it
-(an ``Inpainter`` on the benchmark's generator weights, ``kernel_backend``
-and the formulation per size bucket as the configuration states), the
-inputs, the counts over served images and the comparison of served images
-with the reference's."""
+(an ``Inpainter`` on the weights that the configuration's reference
+makes, ``kernel_backend`` and the formulation per size bucket as the
+configuration states), the inputs, and the comparison of served images
+with the reference's. The model is reached only through the reference
+module the configuration names (``spec.reference``)."""
 
 from __future__ import annotations
 
@@ -11,19 +12,19 @@ import gc
 import numpy as np
 import torch
 
-from benchmark.harness import count, inputs, spec
-from benchmark.reference import deepfill
+from benchmark.harness import inputs, spec
 
 
 def build(run):
-    """(program config, generator weights, Inpainter) of a serving cell."""
+    """(program config, reference module, weights, Inpainter) of a serving
+    cell."""
     from gan_inpainting_torch.infer.inpaint import Inpainter
 
     cfg = spec.program_config(run.cell, run.extra_overrides)
-    gain = spec.config(run.cell["config"]).get("weight_gain", 1.0)
-    params = inputs.generator_params(cfg.model.base_features, run.seed,
-                                     run.device, gain)
-    return cfg, params, Inpainter(cfg, params, device=run.device)
+    ref = spec.reference(run.cell["config"])
+    params = ref.weights(spec.config(run.cell["config"]), cfg, run.seed,
+                         run.device)
+    return cfg, ref, params, Inpainter(cfg, params, device=run.device)
 
 
 def pool(run, cfg, n: int, size: int, stream: str):
@@ -47,25 +48,19 @@ def free(*objs) -> None:
         torch.cuda.empty_cache()
 
 
-def image_flops(f: int, size: int, masks: np.ndarray) -> np.ndarray:
-    """Model FLOPs of serving each image of ``masks`` (n, S, S, 1) at
-    bucket ``size``: the convs as published plus attention over its valid
-    pairs."""
-    conv = count.generator_conv_flops(f, size)
-    n_valid = count.valid_keys(torch.from_numpy(masks)).double().numpy()
-    return conv + np.array([count.attention_fwd_flops(size, 4 * f, v)
-                            for v in n_valid])
-
-
-def reference_u8(params, imgs: np.ndarray, masks: np.ndarray, f: int,
-                 device, block: int, q=None) -> np.ndarray:
-    """The reference's served images, float32 with TF32 off, in blocks."""
+def reference_u8(driver, imgs: np.ndarray, masks: np.ndarray,
+                 q=None) -> np.ndarray:
+    """The reference's served images on the driver's weights, float32 with
+    TF32 off, in blocks of ``ref_block`` images."""
+    ref, device = driver.ref, driver.run.device
+    block = int(driver.run.params["ref_block"])
     outs = []
-    with torch.no_grad(), deepfill.float32_exact():
+    with torch.no_grad(), ref.float32_exact():
         for i in range(0, len(imgs), block):
             x = torch.from_numpy(imgs[i:i + block]).to(device)
             m = torch.from_numpy(masks[i:i + block]).to(device)
-            outs.append(deepfill.inpaint_u8(params, x, m, f, q).cpu().numpy())
+            outs.append(ref.served(driver.params, x, m, driver.cfg, q)
+                        .cpu().numpy())
     return np.concatenate(outs)
 
 
@@ -89,9 +84,32 @@ def readings(driver, imgs, masks, got, q=None) -> dict:
     """The compared numbers of served images ``got`` against the float32
     reference; with ``q`` the reference computed at that precision takes
     the program's place (the control)."""
-    run = driver.run
-    f, block = driver.cfg.model.base_features, int(run.params["ref_block"])
-    ref = reference_u8(driver.params, imgs, masks, f, run.device, block)
+    ref = reference_u8(driver, imgs, masks)
     if q is not None:
-        got = reference_u8(driver.params, imgs, masks, f, run.device, block, q)
+        got = reference_u8(driver, imgs, masks, q)
     return compare(got, imgs, masks, ref)
+
+
+def calibration(driver, imgs, masks, got) -> dict:
+    """The compared numbers, with the spread of the hole differences
+    beside them, of the program's served images (the lower reading), of
+    the reference in float8 in the program's place (the control, the
+    upper one) and of two faults: half of the images left unfilled, one
+    answer swapped for another's."""
+    ref = reference_u8(driver, imgs, masks)
+    ctl = reference_u8(driver, imgs, masks, driver.ref.fp8)
+    half = got.copy()
+    n = len(half) // 2
+    half[n:] = imgs[n:] * (masks[n:] <= 0)
+    swapped = got.copy()
+    swapped[0] = got[1]
+    hole = np.broadcast_to(masks > 0, got.shape)
+    out = {}
+    for name, x in (("program", got), ("control_fp8", ctl),
+                    ("fault_half", half), ("fault_swapped", swapped)):
+        out[name] = compare(x, imgs, masks, ref)
+        diff = np.abs(x.astype(np.int16) - ref.astype(np.int16))[hole]
+        out[name].update(hole_mad_all=float(diff.mean()),
+                         hole_maxdiff=int(diff.max()),
+                         hole_share_ge2=float((diff >= 2).mean()))
+    return out

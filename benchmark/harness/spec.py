@@ -5,12 +5,15 @@ and beside it under ``benchmark/`` one file per item:
   program's whole config under ``program_config``), its source, and what
   was assumed;
 * ``traffic/<mix>.json``: the parameters of a traffic mix and the
-  ``driver`` that reads them (``harness/drivers.py``);
+  ``driver`` that reads them (``harness/drivers/<driver>.py``);
 * ``workloads/<cell>.json``: a cell's configuration, mix, parameters,
   chips, why, the numbers its check compares with their limits, and its
   end-to-end and per-layer metrics;
 * ``metrics/<metric>.py``: a metric's unit, direction, source, layer,
-  ``moves`` and reader.
+  ``moves`` and reader;
+* ``reference/<module>.py``: the plain model a configuration's
+  ``reference`` names, the one place a driver learns the architecture
+  from (its interface: ``benchmark/README.md``).
 
 Adding an item is adding its file (and its entry in ``BENCHMARK.json``);
 nothing here names one.
@@ -21,6 +24,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 from types import ModuleType
 
@@ -65,6 +69,33 @@ def metric(name: str) -> ModuleType:
         f"benchmark_metric_{name.replace('.', '_').replace('-', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def reference(config_name: str) -> ModuleType:
+    """The plain reference module that the configuration file's
+    ``reference`` names (a path under ``benchmark/reference/``), loaded
+    from its file once per process; the drivers reach the model only
+    through it."""
+    rel = config(config_name)["reference"]
+    path, ref_dir = (ROOT / rel).resolve(), (BENCH_DIR / "reference").resolve()
+    if path.suffix != ".py" or not path.is_relative_to(ref_dir):
+        raise ValueError(f"configuration {config_name!r}: reference {rel!r} "
+                         "is not a .py file under benchmark/reference/")
+    name = "benchmark_reference_" + "_".join(
+        path.relative_to(ref_dir).with_suffix("").parts)
+    mod = sys.modules.get(name)
+    if mod is not None and Path(mod.__file__) == path:
+        return mod
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    # registered before it runs: dataclasses look their module up by name
+    sys.modules[name] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[name]
+        raise
     return mod
 
 

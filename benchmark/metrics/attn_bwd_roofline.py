@@ -1,10 +1,11 @@
 """The contextual attention backward's share of its roofline (rows 4, 5
 and 5b of the kernel table: scores, dQ and dK/dV products, the fold of
 the tap gradients): the bound of the window's backwards over the device
-time of the kernels named below: the wgmma kernels (C % 64 == 0: delta,
-score tiles, products), the CUDA-core kernel that computes the same
-gradients at other widths (the published width's 96 channels among
-them), and the fold of the tap gradients."""
+time of the kernels named below: the wgmma kernels (bf16 maps with
+C % 32 == 0, the published width's 96 channels among them, in ceil(C/64)
+64-channel boxes a tap: delta, score tiles, products), the CUDA-core
+kernel that computes the same gradients for float32 maps and other
+widths, and the fold of the tap gradients."""
 
 from benchmark.harness.kernels import device_seconds
 

@@ -2,8 +2,9 @@
 the window's forwards (valid-pair operations over the bf16 peak, or its
 bytes over the bandwidth, whichever is larger, per call) over the device
 time of the kernels named below: the fused forward in its wgmma variant
-(C % 64 == 0) and in its CUDA-core variant (other widths, the published
-width's 96 channels among them)."""
+(bf16 maps with C % 32 == 0, the published width's 96 channels among
+them, in ceil(C/64) 64-channel boxes a tap, the last zero-filled past C)
+and in its CUDA-core variant (float32 maps and other widths)."""
 
 from benchmark.harness.kernels import device_seconds
 

@@ -13,6 +13,10 @@ ELU features gated by a sigmoid, tanh heads.
 ``q`` (optional, on every function that convolves or attends) rounds the
 operands of each conv and of each attention product before it is taken:
 :func:`fp8` gives the lower-precision control.
+
+A configuration that names this file as its ``reference`` is served:
+``published``, ``weights``, ``served``, ``serve_counts``, ``fp8`` and
+``float32_exact`` are what a serving driver asks of it.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import contextlib
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -336,6 +341,57 @@ def inpaint_u8(params, images_u8, masks, f: int = 48, q=None):
     _, fine = generator(params, image * (1.0 - masks), masks, f, q=q)
     u8 = torch.round(torch.clamp((fine + 1.0) * 127.5, 0.0, 255.0))
     return torch.where(masks <= 0.0, images_u8, u8.to(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# The serving reference's interface (benchmark/README.md): what a serving
+# driver asks of the configuration's model
+# ---------------------------------------------------------------------------
+
+
+def published(program_config: dict) -> dict:
+    """The keys of the configuration file's ``published`` that this
+    reference works out from the program's config (a plain dict): the
+    width it runs and the generator's parameter count at that width."""
+    f = program_config["model"]["base_features"]
+    return {"base_features": f, "parameters": sum(
+        math.prod(s) for s, _ in generator_shapes(f).values())}
+
+
+def weights(file_cfg: dict, program_cfg, seed: int, device) -> dict:
+    """The generator's weights of a run, drawn from ``seed`` on
+    ``device`` (fan-in truncated normal times the file's ``weight_gain``,
+    zero biases), under the program's ``state_dict`` names."""
+    from benchmark.harness.inputs import make_params
+
+    return make_params(generator_shapes(program_cfg.model.base_features),
+                       seed, device, "g", file_cfg.get("weight_gain", 1.0))
+
+
+def served(params, images_u8, masks, program_cfg, q=None):
+    """The served images (uint8) of ``images_u8`` (B, H, W, 3) uint8 and
+    ``masks`` (B, H, W, 1) float 1 = hole, as :func:`inpaint_u8`."""
+    return inpaint_u8(params, images_u8, masks,
+                      program_cfg.model.base_features, q)
+
+
+def serve_counts(program_cfg, size: int, masks) -> dict:
+    """The benchmark's counts of one call that serves the images of
+    ``masks`` (n, S, S, 1), 1 = hole, at bucket ``size``: ``model_flops``
+    (the convs as published, the attention over its valid pairs) and
+    ``attn_fwd_bound_s``, the attention forward's bound (kernel table rows
+    1-2)."""
+    from benchmark.harness import count
+
+    f = program_cfg.model.base_features
+    valid = count.valid_keys(torch.as_tensor(masks))
+    conv = count.generator_conv_flops(f, size)
+    per_image = conv + np.array([count.attention_fwd_flops(size, 4 * f, v)
+                                 for v in valid.double().numpy()])
+    ops = count.attention_fwd_flops(size, 4 * f, float(valid.sum()))
+    n_bytes = count.attention_fwd_bytes(size, 4 * f, len(valid))
+    return {"model_flops": float(per_image.sum()),
+            "attn_fwd_bound_s": count.bound_s(n_bytes, ops)}
 
 
 # ---------------------------------------------------------------------------

@@ -8,16 +8,23 @@ k-th step (R1 = 0.5 · mean over the batch of ‖∇ₓ Σ D(x)‖², a double
 backward); Adam on D; the G loss against the updated D (−mean D(G) plus
 the L1 of the fine and the coarse output, hole pixels weighted 6, known
 1); Adam on G; the EMA of G's parameters.
+
+A configuration that names this file as its ``reference`` is trained:
+``published``, ``hyper``, ``weights``, ``State``, ``train_step``,
+``train_batch``, ``counts``, ``fp8`` and ``float32_exact`` are what a
+training driver asks of it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 
 from benchmark.reference import deepfill
+from benchmark.reference.deepfill import float32_exact, fp8  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +44,18 @@ class Hyper:
     l1_valid_weight: float = 1.0
     gan_weight: float = 1.0
     ema_decay: float = 0.999
+
+
+def hyper(cfg) -> Hyper:
+    """The reference's hyperparameters, read from the program's config."""
+    m, lc, tc = cfg.model, cfg.loss, cfg.train
+    return Hyper(
+        base_features=m.base_features, disc_features=m.disc_features,
+        disc_layers=m.disc_layers, g_lr=tc.g_lr, d_lr=tc.d_lr,
+        beta1=tc.beta1, beta2=tc.beta2, r1_gamma=lc.r1_gamma,
+        r1_interval=lc.r1_interval, l1_weight=lc.l1_weight,
+        l1_hole_weight=lc.l1_hole_weight, l1_valid_weight=lc.l1_valid_weight,
+        gan_weight=lc.gan_weight, ema_decay=tc.g_ema_decay)
 
 
 class Adam:
@@ -139,6 +158,16 @@ def train_step(s: State, image, mask, q=None, attention=None) -> dict:
     return out
 
 
+def _flips_and_masks(gen: torch.Generator, m: dict, flip: bool, b: int,
+                     hgt: int, wid: int, device):
+    """A step's draws from its CPU generator, in the batch build's order:
+    the flip bits (None without flips), then the free-form masks."""
+    bits = torch.rand((b,), generator=gen) < 0.5 if flip else None
+    mask = deepfill.rasterize(deepfill.sample_strokes(gen, m, hgt, wid, b),
+                              hgt, wid, device)
+    return bits, mask
+
+
 def train_batch(images_u8, gen: torch.Generator, m: dict, flip: bool,
                 device):
     """The batch a step trains on, from uint8 images (B, H, W, 3): each
@@ -146,11 +175,65 @@ def train_batch(images_u8, gen: torch.Generator, m: dict, flip: bool,
     first), then the free-form masks, all from ``gen`` (CPU). Returns
     (image in [-1, 1], mask)."""
     b, hgt, wid = images_u8.shape[:3]
-    if flip:
-        bits = torch.rand((b,), generator=gen) < 0.5
+    bits, mask = _flips_and_masks(gen, m, flip, b, hgt, wid, device)
+    if bits is not None:
         images_u8 = torch.where(bits.to(device)[:, None, None, None],
                                 images_u8.flip(2), images_u8)
-    image = images_u8.float() / 127.5 - 1.0
-    mask = deepfill.rasterize(deepfill.sample_strokes(gen, m, hgt, wid, b),
-                              hgt, wid, device)
-    return image, mask
+    return images_u8.float() / 127.5 - 1.0, mask
+
+
+# ---------------------------------------------------------------------------
+# The training reference's interface beyond the step (benchmark/README.md)
+# ---------------------------------------------------------------------------
+
+
+def published(program_config: dict) -> dict:
+    """The keys of the configuration file's ``published`` that this
+    reference works out from the program's config (a plain dict): the
+    generator's width and its parameter count at that width."""
+    f = program_config["model"]["base_features"]
+    return {"base_features": f, "parameters_g": sum(
+        math.prod(s) for s, _ in deepfill.generator_shapes(f).values())}
+
+
+def weights(file_cfg: dict, program_cfg, seed: int, device):
+    """(G, D) weights of a run, drawn from ``seed`` on ``device``
+    (fan-in truncated normal, G's times the file's ``weight_gain``; zero
+    biases), under the program's ``state_dict`` names."""
+    from benchmark.harness.inputs import make_params
+
+    m = program_cfg.model
+    g = make_params(deepfill.generator_shapes(m.base_features), seed, device,
+                    "g", file_cfg.get("weight_gain", 1.0))
+    d = make_params(deepfill.discriminator_shapes(m.disc_features,
+                                                  m.disc_layers),
+                    seed, device, "d")
+    return g, d
+
+
+def counts(program_cfg, generators, r1_steps: int, device) -> dict:
+    """The benchmark's counts of training steps, one per CPU generator in
+    ``generators`` (each step's masks drawn from it again as
+    :func:`train_batch` draws them), ``r1_steps`` of them with R1:
+    ``model_flops`` (the reference step's FLOPs without the attention's
+    products, plus the attention over its valid pairs twice forward and
+    once backward) and ``attn_bwd_bound_s`` (kernel table rows 4, 5, 5b)."""
+    from benchmark.harness import count
+    from benchmark.harness.inputs import mask_params
+
+    h = hyper(program_cfg)
+    b, s = program_cfg.data.batch_size, program_cfg.data.image_size
+    f = program_cfg.model.base_features
+    m = mask_params(program_cfg)
+    steps = len(generators)
+    flops = (r1_steps * count.train_step_flops(h, b, s, True)
+             + (steps - r1_steps) * count.train_step_flops(h, b, s, False))
+    bwd = 0.0
+    for gen in generators:
+        _, mask = _flips_and_masks(gen, m, program_cfg.data.random_flip, b,
+                                   s, s, device)
+        nv = float(count.valid_keys(mask).sum())
+        # two forwards (the fake, G's loss), one backward
+        flops += 4 * count.attention_fwd_flops(s, 4 * f, nv)
+        bwd += count.attention_bwd_bound_s(s, 4 * f, b, nv)
+    return {"model_flops": flops, "attn_bwd_bound_s": bwd}

@@ -11,14 +11,15 @@ The ``gpu`` tests take the control at a cell's own size on the card:
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
 from benchmark import run as bench_run
-from benchmark.harness import drivers, spec
+from benchmark.harness import drivers, serving, spec
 from benchmark.harness.trace import Tracer
-from benchmark.reference import deepfill
 
 SERVE_TINY = ["model.base_features=8", "infer.size_buckets=32",
               "infer.batch_buckets=1,4"]
@@ -48,6 +49,52 @@ def driver_cpu(cell, overrides, params, seed=5, seconds=0.3):
 
 def failed(run, values) -> bool:
     return any(c["value"] > c["limit"] for c in drivers.verdict(run, values))
+
+
+def fp8(cell: str):
+    """The float8 control of the cell's configuration's reference."""
+    return spec.reference(spec.workload(cell)["config"]).fp8
+
+
+# ---- the readings and counts of a seed, pinned --------------------------------
+
+
+@pytest.fixture
+def one_thread():
+    """One CPU thread, so the reference's float32 sums run in one order."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_reference_readings_and_counts_of_a_seed_are_pinned(one_thread):
+    """Seed 5 at the tiny CPU size: the weights, the reference's served
+    images and training readings, and the counts over a fixed window, as
+    the harness gave them before the drivers reached the model through the
+    configuration's reference (bit for bit)."""
+    run, d = driver_cpu("serve256_batch64", SERVE_TINY, SERVE_PARAMS)
+    imgs, masks, _ = d.compared()
+    assert hashlib.sha256(serving.reference_u8(d, imgs, masks).tobytes()) \
+        .hexdigest() == ("3ad698b278a568ec9603e888eea19b3f"
+                         "c47cccf5ca182bac892c2faf027d54c7")
+    assert sum(float(v.double().sum()) for v in d.params.values()) \
+        == -71.83526932539758
+    assert d.counts({"calls": 5}) == {
+        "model_flops": 1952000000.0,
+        "attn_fwd_bound_s": 1.2379701492537312e-07}
+
+    run, d = driver_cpu("train512_r1", TRAIN_TINY, TRAIN_PARAMS)
+    ref = d.reference()
+    assert ref["losses"] == [
+        {"d_loss": 2.0064330101013184, "g_loss": 0.7262361645698547},
+        {"d_loss": 2.0025410652160645, "g_loss": 0.6471816897392273},
+        {"d_loss": 1.986368179321289, "g_loss": 0.8939773440361023}]
+    assert sum(ref["first"].values()) == 1.8920019273794715
+    assert sum(ref["changes"].values()) == 0.43258567322172325
+    assert d.counts({"first_step": 16, "steps": 3, "r1_steps": 1}) == {
+        "model_flops": 2402580480.0,
+        "attn_bwd_bound_s": 1.3411343283582091e-07}
 
 
 # ---- the reference against the program --------------------------------------
@@ -87,7 +134,7 @@ def test_the_float8_control_fails_serving_at_full_width():
                                              "infer.size_buckets=64",
                                              "infer.batch_buckets=1,4"],
                         dict(SERVE_PARAMS, size=64))
-    assert failed(run, d.readings(q=deepfill.fp8))
+    assert failed(run, d.readings(q=fp8("serve256_batch64")))
 
 
 def test_the_float8_control_fails_training():
@@ -98,7 +145,7 @@ def test_the_float8_control_fails_training():
                                         "data.image_size=64",
                                         "data.batch_size=2"], TRAIN_PARAMS)
     assert not failed(run, d.readings())
-    assert failed(run, d.readings(q=deepfill.fp8))
+    assert failed(run, d.readings(q=fp8("train512_r1")))
 
 
 # ---- the faults -------------------------------------------------------------
@@ -178,7 +225,8 @@ def card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", ["serve256_batch64", "train512_r1"])
+@pytest.mark.parametrize("cell", ["serve256_batch64", "serve512_batch64",
+                                  "train512_r1"])
 def test_the_float8_control_fails_at_the_cells_size(card, cell):
     c = spec.workload(cell)
     params = spec.cell_params(c)
@@ -189,4 +237,4 @@ def test_the_float8_control_fails_at_the_cells_size(card, cell):
         d.measure()
         d.release()
         assert not failed(run, d.readings())
-        assert failed(run, d.readings(q=deepfill.fp8))
+        assert failed(run, d.readings(q=fp8(cell)))

@@ -16,6 +16,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -135,14 +136,108 @@ def test_a_new_cell_is_taken_from_its_file_alone(tmp_path, monkeypatch):
     assert result["correct"] and result["metrics"]["serve_img_per_s"]
 
 
+_RECORDED = '''"""A reference that hands every call on to {base} and records
+its name: a second configuration's model, taken from files alone."""
+
+from benchmark.reference import {base} as _base
+
+CALLS = []
+
+
+def __getattr__(name):
+    attr = getattr(_base, name)
+    if not callable(attr):
+        return attr
+
+    def recorded(*args, **kwargs):
+        CALLS.append(name)
+        return attr(*args, **kwargs)
+    return recorded
+'''
+
+
+@pytest.mark.parametrize("cell, overrides, params, asked", [
+    ("serve256_batch64",
+     ["model.base_features=8", "infer.size_buckets=32",
+      "infer.batch_buckets=1,4", "model.dtype_policy=f32"],
+     {"size": 32, "batch": 4, "pool_batches": 2, "ref_block": 4,
+      "warm_calls": 1},
+     {"weights", "served", "float32_exact", "serve_counts"}),
+    ("train512_r1",
+     ["model.base_features=8", "model.disc_features=8",
+      "data.image_size=32", "data.batch_size=2", "model.dtype_policy=f32"],
+     {"pool_batches": 4},
+     {"hyper", "weights", "State", "train_batch", "train_step",
+      "float32_exact", "counts"}),
+])
+def test_a_new_configuration_is_taken_from_its_files_alone(
+        tmp_path, monkeypatch, cell, overrides, params, asked):
+    """In a copy of the checkout, a configuration that names a reference
+    module of its own (here one that wraps DeepFill's and records each
+    call) and a cell of it run without an edit to any file the benchmark
+    has; the drivers reach the model through that module alone."""
+    root = tmp_path / "checkout"
+    shutil.copytree(ROOT / "benchmark", root / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    base_cell = spec.workload(cell)
+    base_cfg = spec.config(base_cell["config"])
+    ref_rel = Path(base_cfg["reference"])
+    name = f"recorded_{ref_rel.stem}"
+    (root / "benchmark" / "reference" / f"{name}.py").write_text(
+        _RECORDED.format(base=ref_rel.stem))
+    (root / "benchmark" / "configs" / f"{name}.json").write_text(json.dumps(
+        dict(base_cfg, name=name,
+             reference=f"benchmark/reference/{name}.py")))
+    entry = next(c for c in bench["configs"]
+                 if c["name"] == base_cell["config"])
+    bench["configs"].append(dict(entry, name=name,
+                                 file=f"benchmark/configs/{name}.json"))
+    fresh = dict(base_cell, config=name, why="a configuration of its own")
+    bench["workloads"].append({k: fresh[k] for k in
+                               ("config", "traffic", "chips", "why")}
+                              | {"name": f"{name}_cell"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    (root / "benchmark" / "workloads" / f"{name}_cell.json").write_text(
+        json.dumps(fresh))
+    monkeypatch.setattr(spec, "BENCH_DIR", root / "benchmark")
+    monkeypatch.setattr(spec, "ROOT", root)
+    monkeypatch.delitem(sys.modules, f"benchmark_reference_{name}",
+                        raising=False)
+    from benchmark import run
+    from benchmark.harness import drivers
+    from benchmark.harness.trace import Tracer
+
+    result = run.run_cell(f"{name}_cell", 3, 0.2, False, torch.device("cpu"),
+                          overrides, params)
+    assert result["correct"], result["checked"]
+    c = spec.workload(f"{name}_cell")
+    r = drivers.Run(f"{name}_cell", c, {**spec.cell_params(c), **params}, 3,
+                    0.2, torch.device("cpu"), Tracer(False), tuple(overrides))
+    d = drivers.load(r.params["driver"])(r)
+    d.setup()
+    record = d.measure()
+    d.release()
+    assert all(v > 0 for v in d.counts(record).values())
+    mod = sys.modules[f"benchmark_reference_{name}"]
+    assert Path(mod.__file__).parent == root / "benchmark" / "reference"
+    assert asked <= set(mod.CALLS), set(mod.CALLS)
+
+
 def test_generators_repeat_for_a_seed_and_differ_across_seeds():
     big = 2 ** 31 + 12345
     m = {"max_strokes": 8, "max_segments": 8, "min_width": 6.0,
          "max_width": 24.0, "max_step": 40.0}
+    tiny = SimpleNamespace(model=SimpleNamespace(
+        base_features=8, disc_features=8, disc_layers=4))
+    serve = spec.reference("serve_v4_8")
+    train = spec.reference("places512_deepfill")
     for fn in (lambda s: inputs.images_u8(3, 32, s, "cpu", "t"),
                lambda s: inputs.masks(3, 32, m, s, "cpu", "t"),
-               lambda s: inputs.generator_params(8, s, "cpu")[
-                   "coarse.conv0.weight"]):
+               lambda s: serve.weights({}, tiny, s, "cpu")[
+                   "coarse.conv0.weight"],
+               lambda s: train.weights({}, tiny, s, "cpu")[1][
+                   "conv0.weight"]):
         x, y, z = fn(big), fn(big), fn(big + 1)
         assert torch.equal(x, y) and not torch.equal(x, z)
 
@@ -178,6 +273,32 @@ def test_model_flops_of_a_256_image():
     assert abs(total / 1e9 - 215.14) < 0.01
 
 
+def test_serve512_counts_give_row_2_scaled_to_batch_64():
+    """serve512_batch64's call: 64 images at 512 through the serving
+    reference's counts. With no hole every key is valid: 8x row 2's
+    all-pairs bound at 8x512², C 96 (0.6514 ms); at row 2's valid share
+    (0.4940 of 0.6514) the count gives 8 x 0.4940 ms. Model FLOPs per
+    image: 4x the convs of a 256² image (209.01 GFLOP at width 24) plus
+    80.53 GFLOP of attention over all pairs."""
+    cell = spec.workload("serve512_batch64")
+    p = spec.cell_params(cell)
+    size, batch = p["size"], p["batch"]
+    assert (size, batch) == (512, 64)
+    f = spec.config(cell["config"])["program_config"]["model"][
+        "base_features"]
+    cfg = SimpleNamespace(model=SimpleNamespace(base_features=f))
+    got = spec.reference(cell["config"]).serve_counts(
+        cfg, size, torch.zeros((batch, size, size, 1)))
+    assert abs(got["attn_fwd_bound_s"] * 1e3 - 8 * 0.6514) < 8 * 5e-5
+    cells = count.attention_cells(size)
+    share = 0.4940 / 0.6514106111223458
+    ms = count.attention_fwd_flops(size, 4 * f, batch * cells * share) \
+        / count.PEAK_BF16_FLOPS * 1e3
+    assert abs(ms - 8 * 0.4940) < 1e-9
+    per_image = got["model_flops"] / batch / 1e9
+    assert abs(per_image - (4 * 52.2537 + 80.5306)) < 0.01
+
+
 def test_reference_imports_nothing_of_the_program():
     for path in (ROOT / "benchmark" / "reference").glob("*.py"):
         tree = ast.parse(path.read_text())
@@ -201,9 +322,21 @@ def _clean_env():
 
 
 def test_reference_loads_no_program_module():
-    code = ("import sys; import benchmark.reference.deepfill, "
-            "benchmark.reference.train; "
-            "print(sorted({m.split('.')[0] for m in sys.modules}))")
+    """Every file under ``benchmark/reference/``, loaded from its file as
+    ``spec.reference`` loads it, pulls in nothing of the program, JAX or
+    the JAX package."""
+    files = sorted(str(p) for p in (ROOT / "benchmark" / "reference")
+                   .rglob("*.py"))
+    assert len(files) >= 3
+    code = f"""
+import importlib.util, sys
+for i, path in enumerate({files!r}):
+    spec = importlib.util.spec_from_file_location(f"ref_{{i}}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+print(sorted({{m.split('.')[0] for m in sys.modules}}))
+"""
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, env=_clean_env(), check=True)
     tops = set(ast.literal_eval(out.stdout.strip()))
@@ -303,14 +436,22 @@ def test_trace_puts_host_spans_on_the_device_clock_by_the_marker():
 
 
 def test_configurations_run_their_published_generator_width():
-    """cnum 48 in the v2 code: 24 ELU features and 24 gates per conv."""
+    """Each configuration against its own reference: the width the
+    program runs and the reference's parameter count are the ones the
+    file's ``published`` states, and ``reduced`` agrees with
+    BENCHMARK.json. DeepFill v2's two files: cnum 48 in the v2 code, 24
+    ELU features and 24 gates per conv, 4 074 414 generator parameters."""
     for c in BENCH["configs"]:
         cfg = spec.config(c["name"])
-        assert (cfg["program_config"]["model"]["base_features"]
-                == cfg["published"]["base_features"] == 24)
-        shapes = __import__("benchmark.reference.deepfill", fromlist=["x"]) \
-            .generator_shapes(24)
-        assert sum(math.prod(s) for s, _ in shapes.values()) == \
-            cfg["published"]["parameters" if "parameters" in cfg["published"]
-                             else "parameters_g"]
+        got = spec.reference(c["name"]).published(cfg["program_config"])
+        assert got and all(cfg["published"][k] == v
+                           for k, v in got.items()), (c["name"], got)
         assert c["reduced"] == cfg["reduced"]
+    for name, key in (("serve_v4_8", "parameters"),
+                      ("places512_deepfill", "parameters_g")):
+        cfg = spec.config(name)
+        assert cfg["program_config"]["model"]["base_features"] == 24
+        assert cfg["published"]["base_features"] == 24
+        assert cfg["published"][key] == 4074414
+        assert spec.reference(name).published(cfg["program_config"]) == {
+            "base_features": 24, key: 4074414}
