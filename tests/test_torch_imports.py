@@ -2,6 +2,7 @@
 kernel modules import without nvcc, and its entry points do not fall back
 to the CPU on their own."""
 
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -246,3 +247,27 @@ def test_cli_lists_configs_and_trains_on_the_cpu(tmp_path):
     assert "[train] step 2:" in res.stdout
     assert (tmp_path / "checkpoints" / "step_2.pt").exists()
     assert (tmp_path / "metrics.jsonl").exists()
+
+
+def _report_threads(queue):
+    queue.put((os.environ.get("OMP_NUM_THREADS"), torch.get_num_threads()))
+
+
+def test_test_processes_compute_on_one_thread():
+    """Each test process and each process a test spawns computes on one
+    CPU thread, as the conftest.py at the root of the repo sets, so
+    parallel test workers do not oversubscribe the cores."""
+    assert torch.get_num_threads() == 1
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=_report_threads, args=(queue,))
+    proc.start()
+    try:
+        got = queue.get(timeout=120)
+    finally:
+        proc.join(timeout=60)
+        alive = proc.is_alive()
+        if alive:
+            proc.kill()
+    assert not alive and proc.exitcode == 0
+    assert got == ("1", 1)

@@ -102,6 +102,8 @@ def _job_steps(cfg_dict, state_file, batches):
         if os.path.exists(state_file):
             break
         time.sleep(0.1)
+    else:
+        raise TimeoutError(state_file)
     state.load_state_dict(torch.load(state_file, weights_only=True))
     step = make_train_step(cfg)
     out = []
@@ -180,7 +182,6 @@ def _job_slices():
 
 def _rank_main(rank, init_file, jobs, out_dir):
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"
-    torch.set_num_threads(1)
     torch.distributed.init_process_group(
         "gloo", init_method=f"file://{init_file}", rank=rank,
         world_size=WORLD)

@@ -438,6 +438,7 @@ def test_packed_weights_cache_is_shared_across_threads(monkeypatch):
         t.start()
     for t in threads:
         t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
     assert len(got) == 8 and len(calls) == 1
     assert all(g is got[0] for g in got)
 

@@ -56,7 +56,8 @@ def test_recorder_nests_names_threads_and_reads_time_ns(recorder,
             pass
         t = threading.Thread(target=worker, name="replica-1")
         t.start()
-        t.join()
+        t.join(timeout=60)
+        assert not t.is_alive()
     got = _by_name(recorder)
     assert set(got) == {"outer", "inner", "inpaint.forward"}
     assert got["inner"].parent == "outer" and got["outer"].parent is None
@@ -83,7 +84,8 @@ def test_recorder_takes_spans_from_many_threads_at_once(recorder):
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
     s = recorder.summary()["spans"]
     assert {k: v["count"] for k, v in s.items()} == {
         **{f"w{i}": 200 for i in range(4)},

@@ -437,7 +437,6 @@ def _rank_main(rank, tmp, pair_jobs, quad_jobs):
     import torch.distributed as dist
 
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"
-    torch.set_num_threads(1)
     results = {}
     try:
         for world, store, jobs in (

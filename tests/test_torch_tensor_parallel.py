@@ -90,6 +90,7 @@ def _wait(path):
         if os.path.exists(path):
             return
         time.sleep(0.1)
+    raise TimeoutError(path)
 
 
 def _job_steps(cfg_dict, state_file, batches):
